@@ -1,0 +1,212 @@
+"""Shared pieces of the trace kernels: constants, the slab-test reciprocal,
+front-to-back visit order, input checks, launch counters, and the nvcc
+build + ctypes loader of the hand-written CUDA kernels in `csrc/`.
+
+Build: every `csrc/*.cu` compiles with nvcc into ONE shared library with a
+plain C interface, `build/libtrt_kernels_<hash>.so`, where the hash covers
+the sources and the flags. It happens at the first CUDA call (or
+`build_library()`), never at import, so the package imports on a machine
+with no CUDA at all. `--fmad=false` keeps the kernels' rounding equal to
+their plain PyTorch twins (no fused multiply-add contraction).
+
+Dispatch rule for every kernel wrapper: a CUDA tensor launches the kernel
+(or raises); a CPU tensor runs the kernel's plain PyTorch twin. There is
+no fallback from one to the other.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+
+import torch
+
+BIG = 3.0e38          # "no hit" t (float32 value)
+TMIN = 1.0e-3         # raytrace.rgen:61
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "build")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
+
+# Kernel launches per kernel name. Each wrapper adds one exactly where it
+# launches its CUDA kernel (never on the CPU twin path), so a run can show
+# which kernels the main path went through. Reset with `reset_launches`.
+LAUNCHES = {"tri_closest_hit": 0, "torus_closest_hit": 0,
+            "torus_closest_hit_small": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _inv_dir(dc):
+    """Slab-test reciprocal: components with |d| <= 1e-30 become +/-3e38
+    (by sign), so the slab arithmetic never sees inf * 0."""
+    ok = dc.abs() > 1e-30
+    r = torch.where(ok, 1.0, 0.0) / torch.where(ok, dc, 1.0)
+    return torch.where(ok, r, torch.where(dc >= 0, 3e38, -3e38))
+
+
+def slab(lo, hi, o, inv):
+    """AABB slab entry/exit. lo/hi: (..., 3) boxes broadcast against the
+    (3, ...) ray rows o/inv. Returns (tn, tf)."""
+    t0 = [(lo[..., a] - o[a]) * inv[a] for a in range(3)]
+    t1 = [(hi[..., a] - o[a]) * inv[a] for a in range(3)]
+    tn = torch.maximum(torch.maximum(torch.minimum(t0[0], t1[0]),
+                                     torch.minimum(t0[1], t1[1])),
+                       torch.minimum(t0[2], t1[2]))
+    tf = torch.minimum(torch.minimum(torch.maximum(t0[0], t1[0]),
+                                     torch.maximum(t0[1], t1[1])),
+                       torch.maximum(t0[2], t1[2]))
+    return tn, tf
+
+
+def visit_order(lo, hi, origins, n_batch: int):
+    """Front-to-back block order: argsort (stable) of each box's clamped
+    distance from the batch's mean origin. The JAX kernels average over
+    their padded batch (pad rays have zero origins), so the mean here
+    divides the sum by that padded size `n_batch`."""
+    mean_o = origins.sum(dim=1) / float(n_batch)
+    gap = torch.clamp(torch.maximum(lo - mean_o[None, :], mean_o[None, :] - hi),
+                      min=0.0)
+    cdist = torch.linalg.vector_norm(gap, dim=1)
+    return torch.argsort(cdist, stable=True).to(torch.int32)
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+F32 = torch.float32
+I32 = torch.int32
+
+
+def check_args(device, **args):
+    """Each argument is (tensor or None, shape, dtype): it must lie on
+    `device`, have that shape and dtype, and be contiguous — or raise."""
+    for name, (a, shape, dtype) in args.items():
+        if a is None:
+            continue
+        if a.device != device:
+            raise ValueError(f"{name} on {a.device}, rays on {device}")
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"{name}: shape {tuple(a.shape)}, want {shape}")
+        if a.dtype != dtype:
+            raise TypeError(f"{name}: dtype {a.dtype}, want {dtype}")
+        if not a.is_contiguous():
+            raise ValueError(f"{name} is not contiguous")
+
+
+def check_rays(origins, dirs, tmax):
+    """Validate the (3, N) float32 ray rows + (N,) tmax every kernel takes."""
+    n = origins.shape[-1]
+    check_args(origins.device, origins=(origins, (3, n), F32),
+               dirs=(dirs, (3, n), F32), tmax=(tmax, (n,), F32))
+
+
+# ---------------------------------------------------------------------------
+# nvcc build + ctypes loader
+# ---------------------------------------------------------------------------
+
+_lock = threading.Lock()
+_lib = None
+BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    # origins, dirs, tmax, n, wrows, clo, chi, order, n_clusters, cluster,
+    # box_test, a0, a1, a2, n_tris, occlusion, t, idx, u, v, attrs, stream
+    "trt_tri_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
+                            _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
+    # origins, dirs, tmax, n, w2o, rad, tor_lo, tor_hi, clo, chi, order,
+    # n_chunks, chunk, mat, occlusion, t, idx, attrs, stream
+    "trt_torus_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _P, _I, _P, _P, _P, _P],
+    # origins, dirs, tmax, n, par, K, emit_attrs, occlusion, t, idx, attrs,
+    # stream
+    "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
+                                    _P, _P],
+}
+
+
+def _sources():
+    return sorted(glob.glob(os.path.join(CSRC, "*.cu"))
+                  + glob.glob(os.path.join(CSRC, "*.cuh")))
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in _sources():
+        h.update(os.path.basename(path).encode())
+        with open(path, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return path
+
+
+def build_library() -> str:
+    """Compile csrc/*.cu into the shared library (once per source hash) and
+    return its path. Raises with nvcc's stderr if the build fails."""
+    out = os.path.join(BUILD_DIR, f"libtrt_kernels_{_digest()}.so")
+    if os.path.exists(out):
+        BUILD_LOG["path"] = out
+        return out
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
+           *[s for s in _sources() if s.endswith(".cu")]]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    os.replace(tmp, out)
+    BUILD_LOG.update(seconds=time.perf_counter() - t0, path=out,
+                     ptxas=proc.stderr)
+    return out
+
+
+def library():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(build_library())
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+        return _lib
+
+
+def launch(name: str, *args) -> None:
+    """Call C entry point `name` on the current CUDA stream; raise if the
+    launch reports an error (cudaGetLastError != 0). Tensor arguments pass
+    as device pointers (None -> NULL)."""
+    fn = getattr(library(), name)
+    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
+            else (None if a is None else a) for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*conv, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+    LAUNCHES[name[len("trt_"):]] += 1

@@ -1,0 +1,365 @@
+"""K2 and K3: analytic torus closest-hit / any-hit.
+
+* K2 `torus_closest_hit_chunked` (CUDA `csrc/torus_hit.cu::torus_closest_hit`)
+  replaces the JAX package's TPU kernel `ops/torus_kernel.py:136`
+  (`_torus_kernel`): tori in chunks of 8 (16 above 64 tori), chunks walked
+  front to back, per-torus slab against the bound at the chunk's start.
+* K3 `torus_closest_hit_small` (CUDA `torus_closest_hit_small`) replaces
+  `torus_kernel.py:530` (`_torus_small_kernel`): K <= 8 tori, a union-box
+  gate, then every torus with the per-torus slab against the running best.
+
+`torus_closest_hit` routes between them with the TPU launcher's rule
+(`torus_kernel.py:392-394`) on the batch size the caller pads to. Each
+wrapper launches its CUDA kernel on CUDA tensors and runs its plain PyTorch
+twin (same inputs, same outputs) on CPU tensors.
+
+Outputs: t (N,) f32 (BIG on a miss), idx (N,) i32, and with a material
+table (K, 12) the (15, N) attrs: the winner's unnormalized world normal
+(rows 0-2) and its 12 material values, zero on a miss.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from toroidal_ray_tracing_tpu_torch.geom.torus import quartic_min_positive
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+    BIG, F32, I32, TMIN, _inv_dir, check_args, check_rays, launch, round_up,
+    slab, visit_order)
+
+TORUS_CHUNK = 8           # tori per chunk, K <= 64
+GATED_TORUS_CHUNK = 16    # tori per chunk, K > 64
+TORUS_SMALL_MAX_K = 8
+TORUS_SMALL_TILE = 2048
+TORUS_SMALL_MAX_RAYS = 1 << 20
+TORUS_SMALL_WORK_MAX = 4 << 20
+N_ATTR = 15
+
+
+def _w2o_rays(w, ox, oy, oz, dx, dy, dz):
+    """Affine object-frame ray transform (t-preserving), component-wise.
+    w: 12-sequence of row-major world-to-object entries."""
+    oxo = w[0] * ox + w[1] * oy + w[2] * oz + w[3]
+    oyo = w[4] * ox + w[5] * oy + w[6] * oz + w[7]
+    ozo = w[8] * ox + w[9] * oy + w[10] * oz + w[11]
+    dxo = w[0] * dx + w[1] * dy + w[2] * dz
+    dyo = w[4] * dx + w[5] * dy + w[6] * dz
+    dzo = w[8] * dx + w[9] * dy + w[10] * dz
+    return oxo, oyo, ozo, dxo, dyo, dzo
+
+
+def _torus_quartic_coeffs(oxo, oyo, ozo, dxo, dyo, dzo, Rmaj, rmin):
+    """Monic quartic coefficients in the closest-approach frame. Returns
+    (b3, b2, b1, b0, tshift, px, py, pz)."""
+    m = torch.clamp(dxo * dxo + dyo * dyo + dzo * dzo, min=1e-30)
+    tshift = -(oxo * dxo + oyo * dyo + ozo * dzo) / m
+    px = oxo + tshift * dxo
+    py = oyo + tshift * dyo
+    pz = ozo + tshift * dzo
+    od = px * dxo + py * dyo + pz * dzo
+    oo = px * px + py * py + pz * pz
+    R2 = Rmaj * Rmaj
+    k = oo + R2 - rmin * rmin
+    dxz2 = dxo * dxo + dzo * dzo
+    oxz_dxz = px * dxo + pz * dzo
+    oxz2 = px * px + pz * pz
+    inv4 = 1.0 / (m * m)
+    b3 = 4.0 * m * od * inv4
+    b2 = (2.0 * m * k + 4.0 * od * od - 4.0 * R2 * dxz2) * inv4
+    b1 = (4.0 * od * k - 8.0 * R2 * oxz_dxz) * inv4
+    b0 = (k * k - 4.0 * R2 * oxz2) * inv4
+    return b3, b2, b1, b0, tshift, px, py, pz
+
+
+def _torus_obj_normal(px, py, pz, dxo, dyo, dzo, troot, Rmaj, hitm):
+    """Object-space normal at p* + troot*d: p - R * normalize((x, 0, z)).
+    Misses are sanitized (BIG roots would make 0*inf NaNs)."""
+    ts = torch.where(hitm, troot, 0.0)
+    pxh = px + ts * dxo
+    pyh = py + ts * dyo
+    pzh = pz + ts * dzo
+    xz = torch.sqrt(torch.clamp(pxh * pxh + pzh * pzh, min=1e-30))
+    scale = 1.0 - Rmaj / xz
+    return pxh * scale, pyh, pzh * scale
+
+
+def _obj_normal_to_world(w, nx, ny, nz):
+    """World normal via the inverse-transpose: w2o's rotation rows applied
+    as columns."""
+    return (nx * w[0] + ny * w[4] + nz * w[8],
+            nx * w[1] + ny * w[5] + nz * w[9],
+            nx * w[2] + ny * w[6] + nz * w[10])
+
+
+def _torus_boxes(w2o_rows, rad, chunk: int):
+    """Per-torus world AABBs + `chunk`-torus chunk AABBs.
+
+    The object-space box (R+r, r, R+r) mapped through the o2w rotation (the
+    adjugate inverse of w2o's rotation rows) with the |M| h trick. Dead rows
+    (minor radius <= 0) get far point boxes and drop out of the chunk
+    reduction; a fully dead chunk keeps a far point box.
+    w2o_rows: (Kp, 12); rad: (Kp, 2) [major, minor]; Kp % chunk == 0.
+    Returns (tor_lo, tor_hi, chunk_lo, chunk_hi)."""
+    r0 = w2o_rows[:, 0:3]
+    r1 = w2o_rows[:, 4:7]
+    r2 = w2o_rows[:, 8:11]
+    tv = torch.stack([w2o_rows[:, 3], w2o_rows[:, 7], w2o_rows[:, 11]], dim=1)
+    c0 = torch.linalg.cross(r1, r2, dim=1)
+    c1 = torch.linalg.cross(r2, r0, dim=1)
+    c2 = torch.linalg.cross(r0, r1, dim=1)
+    det = (r0 * c0).sum(dim=1, keepdim=True)
+    ok = det.abs() > 1e-30
+    inv_det = torch.where(ok, 1.0, 0.0) / torch.where(ok, det, 1.0)
+    rot = torch.stack([c0, c1, c2], dim=2) * inv_det[:, :, None]  # o2w (K,3,3)
+    wc = -(rot[:, :, 0] * tv[:, 0:1] + rot[:, :, 1] * tv[:, 1:2]
+           + rot[:, :, 2] * tv[:, 2:3])
+    rmin_abs = rad[:, 1].abs()
+    h_obj = torch.stack([rad[:, 0] + rmin_abs, rmin_abs,
+                         rad[:, 0] + rmin_abs], dim=1)
+    arot = rot.abs()
+    h_w = (arot[:, :, 0] * h_obj[:, 0:1] + arot[:, :, 1] * h_obj[:, 1:2]
+           + arot[:, :, 2] * h_obj[:, 2:3])
+    alive = (rad[:, 1] > 0.0)[:, None]
+    tor_lo = torch.where(alive, wc - h_w, 2.0e38)
+    tor_hi = torch.where(alive, wc + h_w, 2.0e38)
+
+    C = w2o_rows.shape[0] // chunk
+    any_alive = alive.reshape(C, chunk).any(dim=1)[:, None]
+    clo = tor_lo.reshape(C, chunk, 3).amin(dim=1)
+    chi = torch.where(alive, wc + h_w, -2.0e38).reshape(C, chunk, 3).amax(dim=1)
+    chi = torch.where(any_alive, chi, 2.0e38)
+    return tor_lo, tor_hi, clo, chi
+
+
+def _quartic_t(w, Rmaj, rmin, o, d, tmax, cand):
+    """Closest root of each (torus, ray) pair: t (BIG where none or where
+    `cand` is False) plus what the normal needs."""
+    oxo, oyo, ozo, dxo, dyo, dzo = _w2o_rays(w, *o, *d)
+    b3, b2, b1, b0, tshift, px, py, pz = _torus_quartic_coeffs(
+        oxo, oyo, ozo, dxo, dyo, dzo, Rmaj, rmin)
+    troot = quartic_min_positive(b3, b2, b1, b0, TMIN - tshift, tmax - tshift,
+                                 newton_iters=3, extra_valid=cand,
+                                 cubic="newton")
+    t = torch.where(troot < BIG, troot + tshift, BIG)
+    return t, troot, (px, py, pz, dxo, dyo, dzo)
+
+
+def _winner_attrs(w2o_rows, rad, mat, idx, troot, o, d, hit):
+    """(15, N) attrs of each ray's winning torus (zero on a miss),
+    recomputed from the winner's index and shifted-frame root — the same
+    arithmetic the kernels run after their walks."""
+    k = idx.long()
+    w = [w2o_rows[k, i] for i in range(12)]
+    Rmaj = rad[k, 0]
+    oxo, oyo, ozo, dxo, dyo, dzo = _w2o_rays(w, *o, *d)
+    _, _, _, _, _, px, py, pz = _torus_quartic_coeffs(
+        oxo, oyo, ozo, dxo, dyo, dzo, Rmaj, rad[k, 1])
+    nx, ny, nz = _torus_obj_normal(px, py, pz, dxo, dyo, dzo, troot, Rmaj,
+                                   hit)
+    nrm = torch.stack(_obj_normal_to_world(w, nx, ny, nz), dim=0)
+    attrs = torch.cat([nrm, mat[k].T], dim=0)
+    return torch.where(hit, attrs, 0.0)
+
+
+def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
+                        clo, chi, order, chunk: int, mat=None,
+                        occlusion: bool = False):
+    """Plain PyTorch twin of K2: vectorized over rays, one loop step per
+    chunk in `order`. Returns (t, idx[, attrs])."""
+    n = origins.shape[1]
+    o = [origins[a] for a in range(3)]
+    d = [dirs[a] for a in range(3)]
+    inv = [_inv_dir(d[a]) for a in range(3)]
+    best = torch.full((n,), BIG, dtype=torch.float32, device=origins.device)
+    bidx = torch.zeros((n,), dtype=torch.int32, device=origins.device)
+    broot = torch.zeros_like(best)
+    for c in order.tolist():
+        if occlusion:
+            bound = torch.where(best < BIG, -1.0, tmax)
+        else:
+            bound = torch.minimum(tmax, best)
+        ks = slice(c * chunk, (c + 1) * chunk)
+        tn, tf = slab(tor_lo[ks, None, :], tor_hi[ks, None, :], o, inv)
+        cand = (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) \
+            & (tmax > TMIN) & (rad[ks, 1:2] > 0.0)               # (chunk, N)
+        if not bool(cand.any()):
+            continue
+        w = [w2o_rows[ks, i:i + 1] for i in range(12)]
+        t, troot, _ = _quartic_t(w, rad[ks, 0:1], rad[ks, 1:2], o, d, tmax,
+                                 cand)
+        ct, arg = torch.min(t, dim=0)
+        better = ct < best
+        best = torch.where(better, ct, best)
+        bidx = torch.where(better, (c * chunk + arg).to(torch.int32), bidx)
+        broot = torch.where(better, troot.gather(0, arg[None, :])[0], broot)
+    if mat is None:
+        return best, bidx
+    hit = best < BIG
+    return best, bidx, _winner_attrs(w2o_rows, rad, mat, bidx, broot, o, d,
+                                     hit)
+
+
+def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
+                      occlusion: bool = False):
+    """Plain PyTorch twin of K3. par: (K, 32) per-torus blocks [w2o (12),
+    Rmaj, rmin, box lo (3), box hi (3), mat (12)]. Returns (t, idx[,
+    attrs])."""
+    n = origins.shape[1]
+    K = par.shape[0]
+    o = [origins[a] for a in range(3)]
+    d = [dirs[a] for a in range(3)]
+    inv = [_inv_dir(d[a]) for a in range(3)]
+    ulo, uhi = par[0, 14:17], par[0, 17:20]
+    for k in range(1, K):
+        ulo = torch.minimum(ulo, par[k, 14:17])
+        uhi = torch.maximum(uhi, par[k, 17:20])
+    tn, tf = slab(ulo, uhi, o, inv)
+    any_cand = (tn <= torch.minimum(tf, tmax)) & (tf >= TMIN) & (tmax > TMIN)
+
+    best = torch.full((n,), BIG, dtype=torch.float32, device=origins.device)
+    barg = torch.zeros((n,), dtype=torch.int32, device=origins.device)
+    broot = torch.zeros_like(best)
+    for k in range(K):
+        if occlusion:
+            bound = torch.where(best < BIG, -1.0, tmax)
+        else:
+            bound = torch.minimum(tmax, best)
+        tn, tf = slab(par[k, 14:17], par[k, 17:20], o, inv)
+        cand = any_cand & (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) \
+            & (tmax > TMIN) & (par[k, 13] > 0.0)
+        w = [par[k, i] for i in range(12)]
+        t, troot, _ = _quartic_t(w, par[k, 12], par[k, 13], o, d, tmax, cand)
+        if occlusion:
+            best = torch.minimum(best, t)
+            continue
+        better = t < best
+        best = torch.where(better, t, best)
+        barg = torch.where(better, k, barg)
+        broot = torch.where(better, troot, broot)
+    if not emit_attrs:
+        return best, barg
+    hit = best < BIG
+    return best, barg, _winner_attrs(par[:, :12], par[:, 12:14], par[:, 20:],
+                                     barg, broot, o, d, hit)
+
+
+def _tables(w2o, major, minor, chunk: int):
+    K = major.shape[0]
+    Kp = round_up(K, chunk)
+    w2o_rows = w2o.reshape(K, 12)
+    rad = torch.stack([major, minor], dim=1)
+    if Kp != K:
+        pad = Kp - K
+        eye = torch.eye(3, 4, dtype=torch.float32, device=w2o.device)
+        w2o_rows = torch.cat([w2o_rows, eye.reshape(1, 12).expand(pad, 12)])
+        pad_rad = torch.tensor([[0.0, -1.0]], dtype=torch.float32,
+                               device=w2o.device)
+        rad = torch.cat([rad, pad_rad.expand(pad, 2)])
+    return w2o_rows.contiguous(), rad.contiguous()
+
+
+def chunked_inputs(origins, w2o, major, minor, mat_table=None,
+                   n_batch: int | None = None):
+    """K2's table inputs, as the wrapper passes them to the kernel or its
+    twin: (w2o_rows, rad, tor_lo, tor_hi, chunk_lo, chunk_hi, order, chunk,
+    mat), the tables padded to whole chunks."""
+    K = major.shape[0]
+    chunk = GATED_TORUS_CHUNK if K > 64 else TORUS_CHUNK
+    w2o_rows, rad = _tables(w2o, major, minor, chunk)
+    tor_lo, tor_hi, clo, chi = (a.contiguous() for a in
+                                _torus_boxes(w2o_rows, rad, chunk))
+    order = visit_order(clo, chi, origins, n_batch or origins.shape[1])
+    mat = None
+    if mat_table is not None:
+        mat = torch.cat([mat_table, mat_table.new_zeros(
+            (w2o_rows.shape[0] - K, 12))]).contiguous()
+    return w2o_rows, rad, tor_lo, tor_hi, clo, chi, order, chunk, mat
+
+
+def small_params(w2o, major, minor, mat_table=None):
+    """K3's (K, 32) per-torus parameter blocks [w2o (12), Rmaj, rmin, box lo
+    (3), box hi (3), mat (12)]."""
+    K = major.shape[0]
+    w2o_rows, rad = _tables(w2o, major, minor, 1)
+    tor_lo, tor_hi, _, _ = _torus_boxes(w2o_rows, rad, 1)
+    mat = mat_table if mat_table is not None else w2o_rows.new_zeros((K, 12))
+    return torch.cat([w2o_rows, rad, tor_lo, tor_hi, mat], dim=1).contiguous()
+
+
+def torus_closest_hit_chunked(origins, dirs, tmax, w2o, major, minor,
+                              mat_table=None, occlusion: bool = False,
+                              n_batch: int | None = None):
+    """K2 wrapper. origins/dirs (3, N); w2o (K, 3, 4); major/minor (K,);
+    mat_table optional (K, 12). n_batch: batch size the chunk visit order
+    averages origins over (default N)."""
+    check_rays(origins, dirs, tmax)
+    n = origins.shape[1]
+    args = chunked_inputs(origins, w2o, major, minor, mat_table, n_batch)
+    w2o_rows, rad, tor_lo, tor_hi, clo, chi, order, chunk, mat = args
+    Kp, C = w2o_rows.shape[0], clo.shape[0]
+    check_args(origins.device, w2o=(w2o_rows, (Kp, 12), F32),
+               rad=(rad, (Kp, 2), F32), tor_lo=(tor_lo, (Kp, 3), F32),
+               tor_hi=(tor_hi, (Kp, 3), F32), clo=(clo, (C, 3), F32),
+               chi=(chi, (C, 3), F32), order=(order, (C,), I32),
+               mat=(mat, (Kp, 12), F32))
+
+    if not origins.is_cuda:
+        return torus_chunked_plain(origins, dirs, tmax, *args,
+                                   occlusion=occlusion)
+
+    t = torch.empty((n,), dtype=torch.float32, device=origins.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
+    attrs = (torch.empty((N_ATTR, n), dtype=torch.float32,
+                         device=origins.device) if mat is not None else None)
+    if n:
+        launch("trt_torus_closest_hit", origins, dirs, tmax, n, w2o_rows, rad,
+               tor_lo, tor_hi, clo, chi, order, C, chunk, mat,
+               int(occlusion), t, idx, attrs)
+    return (t, idx) + ((attrs,) if attrs is not None else ())
+
+
+def torus_closest_hit_small(origins, dirs, tmax, w2o, major, minor,
+                            mat_table=None, occlusion: bool = False):
+    """K3 wrapper (K <= TORUS_SMALL_MAX_K tori); same contract as K2."""
+    check_rays(origins, dirs, tmax)
+    n = origins.shape[1]
+    K = major.shape[0]
+    if not 1 <= K <= TORUS_SMALL_MAX_K:
+        raise ValueError(f"K3 takes 1..{TORUS_SMALL_MAX_K} tori, got {K}")
+    par = small_params(w2o, major, minor, mat_table)
+    check_args(origins.device, par=(par, (K, 32), F32))
+    emit_attrs = mat_table is not None
+
+    if not origins.is_cuda:
+        return torus_small_plain(origins, dirs, tmax, par, emit_attrs,
+                                 occlusion)
+
+    t = torch.empty((n,), dtype=torch.float32, device=origins.device)
+    idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
+    attrs = (torch.empty((N_ATTR, n), dtype=torch.float32,
+                         device=origins.device) if emit_attrs else None)
+    if n:
+        launch("trt_torus_closest_hit_small", origins, dirs, tmax, n, par, K,
+               int(emit_attrs), int(occlusion), t, idx, attrs)
+    return (t, idx) + ((attrs,) if attrs is not None else ())
+
+
+def use_small_kernel(n_batch: int, K: int) -> bool:
+    """The TPU launcher's K3 route (torus_kernel.py:392-394) on a batch of
+    `n_batch` rays (the caller's padded batch)."""
+    return (K <= TORUS_SMALL_MAX_K
+            and n_batch <= max(TORUS_SMALL_MAX_RAYS, TORUS_SMALL_WORK_MAX // K)
+            and n_batch % TORUS_SMALL_TILE == 0)
+
+
+def torus_closest_hit(origins, dirs, tmax, w2o, major, minor, mat_table=None,
+                      occlusion: bool = False, n_batch: int | None = None):
+    """Route to K3 or K2 as the TPU launcher does, then run it."""
+    n_batch = n_batch or origins.shape[1]
+    if use_small_kernel(n_batch, major.shape[0]):
+        return torus_closest_hit_small(origins, dirs, tmax, w2o, major, minor,
+                                       mat_table=mat_table,
+                                       occlusion=occlusion)
+    return torus_closest_hit_chunked(origins, dirs, tmax, w2o, major, minor,
+                                     mat_table=mat_table, occlusion=occlusion,
+                                     n_batch=n_batch)

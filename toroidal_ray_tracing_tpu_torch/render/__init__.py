@@ -1,0 +1,5 @@
+from toroidal_ray_tracing_tpu_torch.render.renderer import (  # noqa: F401
+    autofill_pixel_spread,
+    render,
+    tonemap,
+)

@@ -5,18 +5,35 @@ Usage (from the repository root, on a machine with a CUDA GPU):
 
     python3 chip_smoke.py
 
-Phases, each printed on its own lines:
+Phases, each printed on its own lines with its wall seconds:
   1. device: the card's name and power limit (nvidia-smi);
-  2. build: nvcc compiles the port's CUDA kernels from csrc/;
+  2. build: nvcc compiles the port's CUDA kernels from csrc/, one process
+     per source, all started together;
   3. each kernel against its plain PyTorch twin on the card, same inputs,
-     at the main path's shapes (K1 on config 6's 1080p rays, K2 on config 3
-     and config 4, K3 on config 3 at 512x512), with CUDA-event timings;
-  4. the main path: `render(..., backend="kernel", device="cuda")` at
-     1920x1080 for config 3, config 6, config 4 and the toroidal capture,
-     plus config 3 at 512x512 (the K3 route), with the kernel launch
-     counts of that run; each scene also renders at 480x270 on both
-     backends, which must agree;
-  5. the goldens of tests/golden on the card.
+     at the main path's shapes, with CUDA-event timings and the least time
+     the card could take for the same work (bound_ms, from the bytes the
+     call must move and the slab / Woop / quartic tests the twin counts):
+     K1 on config 6's 1080p rays, K2 on config 3 and config 4, K3 on
+     config 3 at 512x512, K4 on config 7's 1080p primary-hit texel indices
+     (bit-equal; beside it the one-call PyTorch gather, library_ms), K5 on
+     a contiguous block-major patch of 32,768 of config 8's 1080p primary
+     rays, and K5 against K6 on the full 1080p frame (bit-equal, closest
+     with attrs and any-hit);
+  4. the main path, each path run with the launch counts set to 0 just
+     before it and read just after: `render(..., backend="kernel",
+     device="cuda")` at 1920x1080 for config 3, config 6, config 4, the
+     toroidal capture, config 7 (textured: K1, K3, K4) and config 8 (1.18M
+     triangles: K5), config 8 again with the group switch on (K6; the image
+     must be bit-equal to K5's), plus config 3 at 512x512 (the K3 route);
+     then `render_frames` over config 7's 4-camera orbit and
+     `render_sequence` over config 8's 2-camera orbit at 1080p, each frame
+     equal to a per-frame `render` with exact ray counts. Each scene also
+     renders on both backends, which must agree (480x270; config 8 at
+     128x72, where the torch backend's dense 1.18M-triangle query is
+     affordable);
+  5. the goldens of tests/golden on the card, on both backends;
+  6. one profiled 1080p frame per cell (torch.profiler): device busy time,
+     CUDA kernel launches, the port's kernels' share, idle share.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -27,6 +44,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -37,9 +55,22 @@ OUT_DIR = os.path.join(ROOT, "smoke_out")
 DEVICE = "cuda"
 FULL = (1920, 1080)       # the ladder's frame size
 SUBSET = 262144           # rays compared against the dense plain twins
+PATCH = 32768             # config 8's contiguous block-major K5 patch
 K3_RES = 512              # config 3 at this square size routes to K3
 CHECK_RES = (480, 270)    # kernel-vs-torch backend agreement renders
+CHECK_RES_C8 = (128, 72)  # the same for config 8 (1.18M triangles)
 FAILURES: list[str] = []
+
+# The least time the card could take (H100 SXM datasheet peaks at its
+# 700 W limit): f32 outside the tensor cores, HBM3.
+PEAK_F32 = 67e12          # operations / s
+PEAK_BYTES = 3.35e12      # bytes / s
+# Operations per test, as the kernels' source notes count them.
+SLAB_OPS = 26             # (ray, box) slab test, csrc/common.cuh
+WOOP_OPS = 50             # (ray, triangle) Woop test, csrc/common.cuh
+QUARTIC_OPS = 600         # (ray, torus) quartic test, csrc/torus_hit.cu
+KERNEL_DIR = "toroidal_ray_tracing_tpu_torch/csrc"
+JAX_OPS = "toroidal_ray_tracing_tpu/ops"
 
 
 def check(ok: bool, what: str) -> bool:
@@ -73,12 +104,47 @@ def cuda_ms(fn, reps: int = 5) -> float:
     return statistics.median(times)
 
 
+def bound(nbytes: float, ops: float):
+    """(bound_ms, bound_by): the larger of bytes / HBM rate and operations
+    / f32 rate."""
+    tb = nbytes / PEAK_BYTES * 1e3
+    to = ops / PEAK_F32 * 1e3
+    return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def hit_bound(n, counts, prim_ops, table_bytes, out_rows):
+    """bound_ms of a closest-hit call on n rays: rays in (3 + 3 + 1 f32),
+    out_rows f32/i32 rows out, the table bytes the call needs; the counted
+    slab tests and primitive tests."""
+    nbytes = n * 4 * (7 + out_rows) + table_bytes
+    ops = counts.get("box", 0) * SLAB_OPS + counts.get("prim", 0) * prim_ops
+    print(f"  bound: {nbytes / 1e6:.1f} MB, {counts.get('box', 0)} slab "
+          f"tests, {counts.get('prim', 0)} primitive tests", flush=True)
+    return bound(nbytes, ops)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors
+               if t is not None)
+
+
+def tri_table_bytes(torch, counts, tri, boxes, tables, t, idx):
+    """The table bytes a triangle hit call needs: the Woop inputs (12 + 9
+    f32 per triangle) of the triangles some ray tested (the twin's "rows"),
+    the cluster boxes in full, and the attribute columns (21 + 8 + 8 f32)
+    of the distinct winning triangles."""
+    woop = (tri.woop_o[..., 0].numel() + tri.woop_d[..., 0].numel()) * 4
+    cols = sum(a.shape[0] * a.element_size() for a in tables)
+    winners = int(torch.unique(idx[t < 1e30]).numel())
+    print(f"  tables: {counts.get('rows', 0)} triangles tested, {winners} "
+          "distinct winners", flush=True)
+    return counts.get("rows", 0) * woop + nbytes(*boxes) + winners * cols
+
+
 def compare_hits(name, got, ref, n, attr_rows=None, occlusion=False):
     """Print and check kernel-vs-twin agreement. got/ref: (t, idx[, ...]).
     Pass: t within rtol 1e-5 on common hits, mask and idx mismatches at
     most 1e-4 of the rays, attrs within 1e-4."""
-    import torch
-
     hit_g, hit_r = got[0] < 1e30, ref[0] < 1e30
     mask_bad = int((hit_g != hit_r).sum())
     line = f"  {name}: rays {n}, mask mismatches {mask_bad}"
@@ -106,20 +172,75 @@ def compare_hits(name, got, ref, n, attr_rows=None, occlusion=False):
     return err
 
 
+def bit_equal(a, b) -> bool:
+    import torch
+
+    return len(a) == len(b) and all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+_SCENES: dict = {}
+
+
+def scene_of(name, build):
+    """Each scene is built once per run (config 8's 1.18M-triangle host
+    build takes a while) and kept on the card."""
+    if name not in _SCENES:
+        t0 = time.perf_counter()
+        _SCENES[name] = build().to(DEVICE)
+        print(f"  built {name} in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+    return _SCENES[name]
+
+
+def config(num):
+    from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
+
+    sc = SCENARIOS[num]
+    return sc, scene_of(sc.name, sc.build)
+
+
+def shadow_rays(torch, o, d, t_hit, light):
+    """Rays from the closest hits toward the point light (tmax 0 on a
+    miss)."""
+    hit = t_hit < 1e30
+    p = o + torch.where(hit, t_hit, 0.0)[None, :] * d
+    L = light.to(o.device)[:, None] - p
+    dist = torch.linalg.vector_norm(L, dim=0)
+    return (p.contiguous(), (L / dist.clamp(min=1e-20)).contiguous(),
+            torch.where(hit, dist, 0.0))
+
+
+def tri_tables(torch, scene):
+    """The triangle tables as the main path passes them: loose tail
+    clusters hoisted to far boxes, attr tables."""
+    from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
+        _tri_attr_tables)
+
+    cs, n_cl = scene.cluster_size, scene.cluster_lo.shape[0]
+    n_tail = (scene.loose_tris + cs - 1) // cs
+    far = torch.full((n_tail, 3), 2.0e38, device=DEVICE)
+    clo = torch.cat([scene.cluster_lo[:n_cl - n_tail], far]).contiguous()
+    chi = torch.cat([scene.cluster_hi[:n_cl - n_tail], far]).contiguous()
+    return clo, chi, _tri_attr_tables(scene)
+
+
 def phase_kernels(torch, results):
+    from toroidal_ray_tracing_tpu_torch import render
     from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera
     from toroidal_ray_tracing_tpu_torch.cameras.pinhole import pick_block
+    from toroidal_ray_tracing_tpu_torch.ops import tex_kernel as txk
     from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tk
     from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
+    from toroidal_ray_tracing_tpu_torch.ops import tri_stream as tsk
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (round_up,
                                                                   visit_order)
-    from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
-        _material_rows, _tri_attr_tables)
-    from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
-                                                      build_scene, procedural)
+    from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import _material_rows
+    from toroidal_ray_tracing_tpu_torch.scene import RenderSettings
+    from toroidal_ray_tracing_tpu_torch.trace import shade
 
     dev = torch.device(DEVICE)
     st = RenderSettings.default(max_depth=3)
+    light = st.light.position
     gen = torch.Generator().manual_seed(0)
 
     def rays(cam, w, h):
@@ -139,14 +260,10 @@ def phase_kernels(torch, results):
 
     # --- K1: config 6 mesh, the tables as the main path passes them -------
     print("K1 tri_closest_hit (config 6, 23k-triangle mesh)", flush=True)
-    scene = build_scene(procedural.scene_multi_torus(False)).to(dev)
+    _, scene = config(6)
     tri = scene.triangles
-    cs, n_cl = scene.cluster_size, scene.cluster_lo.shape[0]
-    n_tail = (scene.loose_tris + cs - 1) // cs
-    far = torch.full((n_tail, 3), 2.0e38, device=dev)
-    clo = torch.cat([scene.cluster_lo[:n_cl - n_tail], far]).contiguous()
-    chi = torch.cat([scene.cluster_hi[:n_cl - n_tail], far]).contiguous()
-    tables = _tri_attr_tables(scene)
+    cs = scene.cluster_size
+    clo, chi, tables = tri_tables(torch, scene)
     wrows = trk.woop_rows(tri.woop_o, tri.woop_d)
 
     def k1(o_, d_, tm, attrs=True, occl=False):
@@ -154,15 +271,16 @@ def phase_kernels(torch, results):
                                    chi, cs, attr_tables=tables if attrs
                                    else None, occlusion=occl)
 
-    def k1_plain(o_, d_, tm, attrs=True, occl=False):
+    def k1_plain(o_, d_, tm, attrs=True, occl=False, counts=None):
         order = visit_order(clo, chi, o_, o_.shape[1])
         return trk.tri_closest_hit_plain(o_, d_, tm, wrows, clo, chi, order,
                                          cs, True, tables if attrs else None,
-                                         occl)
+                                         occl, counts=counts)
 
     tm_sub = torch.full((n_sub,), 1e4, device=dev)
+    counts: dict = {}
     got = k1(os_, ds_, tm_sub)
-    ref = k1_plain(os_, ds_, tm_sub)
+    ref = k1_plain(os_, ds_, tm_sub, counts=counts)
     err = compare_hits("closest+attrs", got, ref, n_sub, attr_rows=4)
     # u/v are the true barycentrics on both sides
     same = (got[0] < 1e30) & (ref[0] < 1e30) & (got[1] == ref[1])
@@ -173,16 +291,12 @@ def phase_kernels(torch, results):
     plain_ms = cuda_ms(lambda: k1_plain(os_, ds_, tm_sub))
     tm_full = torch.full((n_full,), 1e4, device=dev)
     ms_full = cuda_ms(lambda: k1(o, d, tm_full))
+    b_ms, b_by = hit_bound(n_sub, counts, WOOP_OPS, tri_table_bytes(
+        torch, counts, tri, (clo, chi), tables, ref[0], ref[1]), 4 + 21)
     print(f"  closest+attrs: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms "
-          f"at {n_sub} rays; kernel {ms_full:.3f} ms at {n_full} rays",
-          flush=True)
-    # shadow rays toward the light from the closest hits
-    hit = got[0] < 1e30
-    p = os_ + torch.where(hit, got[0], 0.0)[None, :] * ds_
-    L = st.light.position.to(dev)[:, None] - p
-    dist = torch.linalg.vector_norm(L, dim=0)
-    so, sd = p.contiguous(), (L / dist.clamp(min=1e-20)).contiguous()
-    stm = torch.where(hit, dist, 0.0)
+          f"at {n_sub} rays (bound {b_ms:.4f} ms, {b_by}); kernel "
+          f"{ms_full:.3f} ms at {n_full} rays", flush=True)
+    so, sd, stm = shadow_rays(torch, os_, ds_, got[0], light)
     compare_hits("occlusion (shadow rays)",
                  k1(so, sd, stm, False, True), k1_plain(so, sd, stm, False,
                                                         True),
@@ -192,37 +306,40 @@ def phase_kernels(torch, results):
     print(f"  occlusion: kernel {occ_ms:.3f} ms vs plain {occ_plain:.3f} ms",
           flush=True)
     results["tri_closest_hit"] = dict(
-        source="toroidal_ray_tracing_tpu_torch/csrc/tri_hit.cu",
-        replaces="toroidal_ray_tracing_tpu/ops/tri_kernel.py:77",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, rays=n_sub,
-        ms_full=ms_full, rays_full=n_full)
+        source=f"{KERNEL_DIR}/tri_hit.cu",
+        replaces=f"{JAX_OPS}/tri_kernel.py:77", max_abs_err=err, ms=ms,
+        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
+        rays=n_sub, ms_full=ms_full, rays_full=n_full)
 
     # --- K2: config 3 tori at 1080p, config 4 tori on a subset ------------
     print("K2 torus_closest_hit", flush=True)
-    s3 = build_scene(procedural.scene_multi_torus(True)).to(dev)
+    _, s3 = config(3)
     tor = s3.tori
     mat3 = _material_rows(s3, tor.mat_id).contiguous()
 
-    def k2(sc, mat, o_, d_, tm, plain=False):
+    def k2(sc, mat, o_, d_, tm, plain=False, counts=None):
         t = sc.tori
         args = (o_, d_, tm, t.world_to_obj, t.major_radius, t.minor_radius)
         if not plain:
             return tk.torus_closest_hit_chunked(*args, mat_table=mat)
         return tk.torus_chunked_plain(*args[:3], *tk.chunked_inputs(
-            o_, t.world_to_obj, t.major_radius, t.minor_radius, mat))
+            o_, t.world_to_obj, t.major_radius, t.minor_radius, mat),
+            counts=counts)
 
+    counts = {}
     err3 = compare_hits("config 3 (4 tori) closest+attrs",
                         k2(s3, mat3, o, d, tm_full),
-                        k2(s3, mat3, o, d, tm_full, plain=True), n_full,
-                        attr_rows=2)
+                        k2(s3, mat3, o, d, tm_full, plain=True,
+                           counts=counts), n_full, attr_rows=2)
     ms3 = cuda_ms(lambda: k2(s3, mat3, o, d, tm_full))
     plain3 = cuda_ms(lambda: k2(s3, mat3, o, d, tm_full, plain=True))
+    b3, b3_by = hit_bound(n_full, counts, QUARTIC_OPS, 0, 2 + 15)
     print(f"  config 3: kernel {ms3:.3f} ms vs plain {plain3:.3f} ms at "
-          f"{n_full} rays", flush=True)
+          f"{n_full} rays (bound {b3:.4f} ms, {b3_by})", flush=True)
     cam4 = PinholeCamera(eye=(25.0, 18.0, 25.0), center=(0.0, 0.0, 0.0))
     o4, d4 = rays(cam4, *FULL)
     o4s, d4s = o4[:, sel].contiguous(), d4[:, sel].contiguous()
-    s4 = build_scene(procedural.scene_instanced_torus_grid(n=1024)).to(dev)
+    _, s4 = config(4)
     mat4 = _material_rows(s4, s4.tori.mat_id).contiguous()
     compare_hits("config 4 (1,024 tori) closest+attrs",
                  k2(s4, mat4, o4s, d4s, tm_sub),
@@ -235,10 +352,11 @@ def phase_kernels(torch, results):
           f"{n_sub} rays; kernel {ms4_full:.3f} ms at {n_full} rays",
           flush=True)
     results["torus_closest_hit"] = dict(
-        source="toroidal_ray_tracing_tpu_torch/csrc/torus_hit.cu",
-        replaces="toroidal_ray_tracing_tpu/ops/torus_kernel.py:136",
-        max_abs_err=err3, ms=ms3, plain_ms=plain3, rays=n_full,
-        config4_ms=ms4, config4_plain_ms=plain4, config4_rays=n_sub,
+        source=f"{KERNEL_DIR}/torus_hit.cu",
+        replaces=f"{JAX_OPS}/torus_kernel.py:136", max_abs_err=err3,
+        ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=b3_by,
+        library_ms=None, rays=n_full, config4_ms=ms4,
+        config4_plain_ms=plain4, config4_rays=n_sub,
         config4_ms_full=ms4_full)
 
     # --- K3: config 3 tori at 512x512 -------------------------------------
@@ -252,17 +370,136 @@ def phase_kernels(torch, results):
     a3 = (o5, d5, tm5, tor.world_to_obj, tor.major_radius, tor.minor_radius)
     par = tk.small_params(tor.world_to_obj, tor.major_radius,
                           tor.minor_radius, mat3)
+    counts = {}
     err5 = compare_hits(
         "closest+attrs", tk.torus_closest_hit_small(*a3, mat_table=mat3),
-        tk.torus_small_plain(o5, d5, tm5, par, True), n5, attr_rows=2)
+        tk.torus_small_plain(o5, d5, tm5, par, True, counts=counts), n5,
+        attr_rows=2)
     ms5 = cuda_ms(lambda: tk.torus_closest_hit_small(*a3, mat_table=mat3))
     plain5 = cuda_ms(lambda: tk.torus_small_plain(o5, d5, tm5, par, True))
-    print(f"  kernel {ms5:.3f} ms vs plain {plain5:.3f} ms at {n5} rays",
-          flush=True)
+    b5, b5_by = hit_bound(n5, counts, QUARTIC_OPS, nbytes(par), 2 + 15)
+    print(f"  kernel {ms5:.3f} ms vs plain {plain5:.3f} ms at {n5} rays "
+          f"(bound {b5:.4f} ms, {b5_by})", flush=True)
     results["torus_closest_hit_small"] = dict(
-        source="toroidal_ray_tracing_tpu_torch/csrc/torus_hit.cu",
-        replaces="toroidal_ray_tracing_tpu/ops/torus_kernel.py:530",
-        max_abs_err=err5, ms=ms5, plain_ms=plain5, rays=n5)
+        source=f"{KERNEL_DIR}/torus_hit.cu",
+        replaces=f"{JAX_OPS}/torus_kernel.py:530", max_abs_err=err5,
+        ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=b5_by,
+        library_ms=None, rays=n5)
+
+    # --- K4: config 7's 1080p primary-hit texel indices --------------------
+    print("K4 quad_gather (config 7, primary hits at 1080p)", flush=True)
+    sc7, s7 = config(7)
+    taken = []
+    real = shade.quad_gather
+
+    def record(*args):
+        taken.append(tuple(a.clone() for a in args))
+        return real(*args)
+
+    shade.quad_gather = record
+    try:
+        render(s7, sc7.camera, *FULL, RenderSettings.default(max_depth=1),
+               backend="kernel", device=DEVICE)
+    finally:
+        shade.quad_gather = real
+    data4q, f0, f1, valid = taken[0]
+    n7 = f0.shape[0]
+    got = txk.quad_gather(data4q, f0, f1, valid)
+    ref = txk.quad_gather_plain(data4q, f0, f1, valid)
+    eq = bit_equal(got, ref)
+    print(f"  {n7} rays, {int(valid.sum())} valid, atlas {data4q.shape[0]} "
+          f"texels: words bit-equal {eq}", flush=True)
+    check(eq, "K4 bit-equal to its plain twin")
+
+    def library():
+        return tuple(torch.where(valid[None, :], data4q[f.long()].T, 0)
+                     for f in (f0, f1))
+
+    check(bit_equal(library(), ref), "K4 library gather computes the same")
+    ms7 = cuda_ms(lambda: txk.quad_gather(data4q, f0, f1, valid))
+    plain7 = cuda_ms(lambda: txk.quad_gather_plain(data4q, f0, f1, valid))
+    lib7 = cuda_ms(library)
+    b7, b7_by = bound(nbytes(f0, f1, valid, data4q) + 2 * 3 * 4 * n7, 0)
+    print(f"  kernel {ms7:.4f} ms vs plain {plain7:.4f} ms vs library "
+          f"{lib7:.4f} ms (bound {b7:.4f} ms, {b7_by})", flush=True)
+    results["quad_gather"] = dict(
+        source=f"{KERNEL_DIR}/tex_gather.cu",
+        replaces=f"{JAX_OPS}/tex_kernel.py:57", max_abs_err=0.0, ms=ms7,
+        plain_ms=plain7, bound_ms=b7, bound_by=b7_by, library_ms=lib7,
+        rays=n7)
+
+    # --- K5 / K6: config 8, 1.18M triangles ---------------------------------
+    sc8, s8 = config(8)
+    tri8 = s8.triangles
+    cs8 = s8.cluster_size
+    clo8, chi8, tables8 = tri_tables(torch, s8)
+    g, S = tsk.superblocks(clo8, chi8, cs8)[:2]
+    print(f"K5 tri_closest_hit_stream (config 8: {tri8.count} triangles, "
+          f"{clo8.shape[0]} clusters, {S} superblocks of {g})", flush=True)
+    o8, d8 = rays(sc8.camera, *FULL)
+    n8 = o8.shape[1]
+    start = (n8 // 2) // PATCH * PATCH
+    op, dp = (a[:, start:start + PATCH].contiguous() for a in (o8, d8))
+    tm_p = torch.full((PATCH,), 1e4, device=dev)
+
+    def k5(o_, d_, tm, attrs=True, occl=False, group=0):
+        return tsk.tri_closest_hit_stream(
+            o_, d_, tm, tri8.woop_o, tri8.woop_d, clo8, chi8, cs8,
+            attr_tables=tables8 if attrs else None, occlusion=occl,
+            group=group)
+
+    inputs = tsk.stream_inputs(op, tri8.woop_o, tri8.woop_d, clo8, chi8, cs8)
+
+    def k5_plain(counts=None):
+        return tsk.tri_closest_hit_stream_plain(op, dp, tm_p, *inputs, cs8,
+                                                tables8, counts=counts)
+
+    counts = {}
+    t0 = time.perf_counter()
+    ref = k5_plain(counts)
+    sync(torch)
+    plain8 = (time.perf_counter() - t0) * 1e3
+    got = k5(op, dp, tm_p)
+    err8 = compare_hits(f"closest+attrs, patch of {PATCH} block-major rays",
+                        got, ref, PATCH, attr_rows=4)
+    print(f"  K5 bit-equal to its twin on the patch: {bit_equal(got, ref)}",
+          flush=True)
+    got6 = k5(op, dp, tm_p, group=16)
+    check(bit_equal(got6, got), "K6 bit-equal to K5 on the patch")
+    ms8 = cuda_ms(lambda: k5(op, dp, tm_p))
+    ms6 = cuda_ms(lambda: k5(op, dp, tm_p, group=16))
+    b8, b8_by = hit_bound(PATCH, counts, WOOP_OPS, tri_table_bytes(
+        torch, counts, tri8, (clo8, chi8), tables8, ref[0], ref[1]), 4 + 21)
+    print(f"  patch: K5 {ms8:.3f} ms, K6 {ms6:.3f} ms vs plain {plain8:.1f} "
+          f"ms (once) (bound {b8:.4f} ms, {b8_by})", flush=True)
+    print("K5 vs K6 on the full 1080p frame", flush=True)
+    tm8 = torch.full((n8,), 1e4, device=dev)
+    full5 = k5(o8, d8, tm8)
+    full6 = k5(o8, d8, tm8, group=16)
+    check(bit_equal(full5, full6), "K6 bit-equal to K5, closest+attrs, 1080p")
+    so, sd, stm = shadow_rays(torch, o8, d8, full5[0], light)
+    occ5 = k5(so, sd, stm, False, True)
+    occ6 = k5(so, sd, stm, False, True, group=16)
+    check(torch.equal(occ5[0] < 1e30, occ6[0] < 1e30),
+          "K6 any-hit masks equal to K5's, 1080p shadow rays")
+    f5 = cuda_ms(lambda: k5(o8, d8, tm8))
+    f6 = cuda_ms(lambda: k5(o8, d8, tm8, group=16))
+    fo5 = cuda_ms(lambda: k5(so, sd, stm, False, True))
+    fo6 = cuda_ms(lambda: k5(so, sd, stm, False, True, group=16))
+    print(f"  {n8} rays, {int((full5[0] < 1e30).sum())} hits: closest+attrs "
+          f"K5 {f5:.3f} ms, K6 {f6:.3f} ms; any-hit K5 {fo5:.3f} ms, K6 "
+          f"{fo6:.3f} ms", flush=True)
+    common = dict(max_abs_err=err8, plain_ms=plain8, bound_ms=b8,
+                  bound_by=b8_by, library_ms=None, rays=PATCH,
+                  rays_full=n8)
+    results["tri_closest_hit_stream"] = dict(
+        source=f"{KERNEL_DIR}/tri_stream.cu",
+        replaces=f"{JAX_OPS}/tri_stream.py:202", ms=ms8, ms_full=f5,
+        occlusion_ms_full=fo5, **common)
+    results["tri_closest_hit_stream_grouped"] = dict(
+        source=f"{KERNEL_DIR}/tri_stream.cu",
+        replaces=f"{JAX_OPS}/tri_stream.py:303", ms=ms6, ms_full=f6,
+        occlusion_ms_full=fo6, **common)
 
 
 def write_ppm(path, image):
@@ -275,62 +512,95 @@ def write_ppm(path, image):
         f.write(img.tobytes())
 
 
-def phase_main_path(torch):
-    from toroidal_ray_tracing_tpu_torch import render, tonemap
-    from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
-                                                        ToroidalCamera)
-    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-        LAUNCHES, reset_launches)
+def main_cells():
+    """(name, scene key, build, camera, settings, width, height, kernels
+    that must launch, stream group)."""
+    from toroidal_ray_tracing_tpu_torch.cameras import ToroidalCamera
+    from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
     from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
                                                       build_scene, procedural)
 
-    cam36 = PinholeCamera(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0))
     W, H = FULL
-    cells = [
-        ("config3_multi_torus", procedural.scene_multi_torus(True), cam36,
-         RenderSettings.default(max_depth=3), W, H, ["torus_closest_hit"]),
-        ("config3_multi_torus_k3", procedural.scene_multi_torus(True), cam36,
-         RenderSettings.default(max_depth=3), K3_RES, K3_RES,
-         ["torus_closest_hit_small"]),
-        ("config6_mesh_torus", procedural.scene_multi_torus(False), cam36,
-         RenderSettings.default(max_depth=3), W, H, ["tri_closest_hit"]),
-        ("config4_instanced_grid",
-         procedural.scene_instanced_torus_grid(n=1024),
-         PinholeCamera(eye=(25.0, 18.0, 25.0), center=(0.0, 0.0, 0.0)),
-         RenderSettings.default(max_depth=5), W, H, ["torus_closest_hit"]),
-        # the capture experiment's settings (reference default depth 10)
-        ("cornellish_toroidal_rho4", procedural.scene_cornellish(),
-         ToroidalCamera(eye=(0.0, 1.0, 0.0), center=(8.0, 0.0, 0.0)),
-         RenderSettings.default(rho=4.0), W, H, ["tri_closest_hit"]),
-    ]
-    scenes = {name: build_scene(sd).to(DEVICE) for name, sd, *_ in cells}
+    cells = []
+    for num, needs in ((3, ["torus_closest_hit"]),
+                       (6, ["tri_closest_hit"]),
+                       (4, ["torus_closest_hit"]),
+                       (7, ["tri_closest_hit", "torus_closest_hit_small",
+                            "quad_gather"]),
+                       (8, ["tri_closest_hit_stream"])):
+        sc = SCENARIOS[num]
+        cells.append((sc.name, sc.name, sc.build, sc.camera, sc.settings(),
+                      W, H, needs, 0))
+    sc3 = SCENARIOS[3]
+    cells.insert(1, ("config3_multi_torus_k3", sc3.name, sc3.build,
+                     sc3.camera, sc3.settings(), K3_RES, K3_RES,
+                     ["torus_closest_hit_small"], 0))
+    # the capture experiment's settings (reference default depth 10)
+    cells.insert(4, ("cornellish_toroidal_rho4", "cornellish",
+                     lambda: build_scene(procedural.scene_cornellish()),
+                     ToroidalCamera(eye=(0.0, 1.0, 0.0),
+                                    center=(8.0, 0.0, 0.0)),
+                     RenderSettings.default(rho=4.0), W, H,
+                     ["tri_closest_hit"], 0))
+    sc8 = SCENARIOS[8]
+    cells.append(("config8_streamed_mesh_k6", sc8.name, sc8.build,
+                  sc8.camera, sc8.settings(), W, H,
+                  ["tri_closest_hit_stream_grouped"], 16))
+    return cells
+
+
+def counted(LAUNCHES, reset, fn):
+    """Run one path with the launch counts set to 0 just before it; return
+    (its result, the counts read just after)."""
+    reset()
+    out = fn()
+    return out, dict(LAUNCHES)
+
+
+def phase_main_path(torch, totals):
+    from toroidal_ray_tracing_tpu_torch import (render, render_frames,
+                                                render_sequence, tonemap)
+    from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
+    from toroidal_ray_tracing_tpu_torch.ops import tri_stream
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+
+    cells = main_cells()
     os.makedirs(OUT_DIR, exist_ok=True)
 
-    # the main path's run: every launch count starts at 0 here
-    reset_launches()
-    stats = []
-    for name, _, cam, st, w, h, needs in cells:
-        before = dict(LAUNCHES)
+    def add(launched):
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+
+    stats, images = [], {}
+    for name, key, build, cam, st, w, h, needs, group in cells:
+        scene = scene_of(key, build)
+        tri_stream.STREAM_GROUP = group
 
         def run():
-            out = render(scenes[name], cam, w, h, st, backend="kernel",
+            out = render(scene, cam, w, h, st, backend="kernel",
                          device=DEVICE)
             sync(torch)
             return out
 
-        out = run()                                   # warm-up
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            out = run()
-            times.append((time.perf_counter() - t0) * 1e3)
-        ms = statistics.median(times)
+        def timed():
+            out = run()                               # warm-up
+            times = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                out = run()
+                times.append((time.perf_counter() - t0) * 1e3)
+            return out, statistics.median(times)
+
+        (out, ms), launched = counted(LAUNCHES, reset_launches, timed)
+        tri_stream.STREAM_GROUP = 0
+        add(launched)
         rays = out["rays_traced"]
-        launched = {k: LAUNCHES[k] - before[k] for k in LAUNCHES}
         print(f"{name} {w}x{h}: {ms:.2f} ms/frame (median of 3), "
               f"{rays} rays/frame, {rays / ms / 1e3:.2f} Mrays/s, "
               f"launches {launched}", flush=True)
         img = out["image"]
+        images[name] = img
         check(tuple(img.shape) == (h, w, 3)
               and bool(torch.isfinite(img).all()), f"{name}: image finite")
         for k in needs:
@@ -338,30 +608,73 @@ def phase_main_path(torch):
         stats.append(dict(cell=name, width=w, height=h, ms_per_frame=ms,
                           rays_per_frame=rays,
                           mrays_per_s=rays / ms / 1e3, launches=launched))
-    main_launches = dict(LAUNCHES)
-    for k, v in main_launches.items():
+    check(torch.equal(images["config8_streamed_mesh_k6"],
+                      images["config8_streamed_mesh"]),
+          "config 8 frame through K6 bit-equal to the K5 frame")
+
+    # render_frames over config 7's orbit, render_sequence over config 8's
+    for num, front, n_frames, needs in (
+            (7, "render_frames", 4,
+             ["tri_closest_hit", "torus_closest_hit_small", "quad_gather"]),
+            (8, "render_sequence", 2, ["tri_closest_hit_stream"])):
+        sc, scene = config(num)
+        cams = sc.cameras_seq(n_frames)
+        st = sc.settings()
+        fn = render_frames if front == "render_frames" else render_sequence
+
+        def run():
+            t0 = time.perf_counter()
+            out = fn(scene, cams, *FULL, st, backend="kernel", device=DEVICE)
+            sync(torch)
+            return out, (time.perf_counter() - t0) * 1e3
+
+        (out, ms), launched = counted(LAUNCHES, reset_launches, run)
+        add(launched)
+        print(f"{front} {sc.name} x{n_frames} at {FULL[0]}x{FULL[1]}: "
+              f"{ms:.1f} ms, {out['rays_traced']} rays, launches "
+              f"{launched}", flush=True)
+        for k in needs:
+            check(launched[k] > 0, f"{front} {sc.name}: {k} launched")
+        worst, total = 0.0, 0
+        for f, cam in enumerate(cams):
+            one = render(scene, cam, *FULL, st, backend="kernel",
+                         device=DEVICE)
+            got = out["images"][f]
+            if front == "render_frames":
+                got = got.permute(1, 2, 0)
+            worst = max(worst, float((got - one["image"]).abs().max()))
+            total += one["rays_traced"]
+        check(worst <= 1e-6 and out["rays_traced"] == total,
+              f"{front} {sc.name}: each frame equals render (max diff "
+              f"{worst:.2e}), rays {out['rays_traced']} == {total}")
+        stats.append(dict(cell=f"{front}_{sc.name}", frames=n_frames,
+                          ms=ms, rays=out["rays_traced"], launches=launched))
+    for k, v in totals.items():
         check(v > 0, f"main path launched {k} ({v} times)")
 
-    # each scene at 480x270: kernel backend against the torch backend
-    cw, ch = CHECK_RES
-    for name, _, cam, st, w, h, _ in cells:
-        if (w, h) != FULL:
+    # each scene on both backends: kernel against torch
+    for name, key, _, cam, st, w, h, _, group in cells:
+        if (w, h) != FULL or group:
             continue
-        a = render(scenes[name], cam, cw, ch, st, backend="kernel",
+        cw, ch = CHECK_RES_C8 if key == SCENARIOS[8].name else CHECK_RES
+        a = render(_SCENES[key], cam, cw, ch, st, backend="kernel",
                    device=DEVICE)
-        b = render(scenes[name], cam, cw, ch, st, backend="torch",
+        t0 = time.perf_counter()
+        b = render(_SCENES[key], cam, cw, ch, st, backend="torch",
                    device=DEVICE)
+        torch_s = time.perf_counter() - t0
         diff = (a["image"] - b["image"]).abs()
         rmse = float(diff.pow(2).mean().sqrt())
         bad = int((diff.amax(dim=-1) > 1e-3).sum())
         print(f"{name} {cw}x{ch} kernel vs torch: rmse {rmse:.3e}, "
               f"{bad} pixels off by > 1e-3, rays {a['rays_traced']} vs "
-              f"{b['rays_traced']}", flush=True)
+              f"{b['rays_traced']} (torch backend {torch_s:.1f} s)",
+              flush=True)
         check(rmse < 1e-4 and bad <= 1e-3 * cw * ch,
               f"{name}: kernel backend agrees with torch backend")
         write_ppm(os.path.join(OUT_DIR, f"chip_smoke_{name}.ppm"),
                   tonemap(a["image"]).cpu().numpy())
-    return main_launches, stats
+    return stats, cells
 
 
 def phase_goldens(torch):
@@ -397,21 +710,63 @@ def phase_goldens(torch):
                                     f"{name}.npz"))["image"]
         scene = build_scene(sd).to(DEVICE)
         for backend in ("torch", "kernel"):
-            if backend == "kernel" and name == "textured_mesh":
-                continue          # textures on the kernel path wait for K4
             got = render(scene, cam, 32, 32, st, backend=backend,
                          device=DEVICE)["image"].cpu().numpy()
             err = float(np.abs(got - want).max())
             check(err < 5e-4, f"golden {name} ({backend}): max diff {err:.2e}")
-    # no silent fallback: a textured scene on the kernel backend needs K4
-    try:
-        render(build_scene(cases["textured_mesh"][0]).to(DEVICE),
-               cases["textured_mesh"][1], 8, 8, backend="kernel",
-               device=DEVICE)
-        raised = ""
-    except NotImplementedError as e:
-        raised = str(e)
-    check("K4" in raised, "textured scene on backend='kernel' raises naming K4")
+
+
+def phase_profile(torch, cells, stats):
+    """One profiled frame per 1080p cell: device busy = the sum of the CUDA
+    events' device times; the idle share is taken against the same run's
+    unprofiled frame time (the profiler's overhead inflates its own)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops import tri_stream
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
+
+    frame_ms = {s["cell"]: s["ms_per_frame"] for s in stats
+                if "ms_per_frame" in s}
+    ours = re.compile(r"(\w+)\(")
+    rows = []
+    for name, key, _, cam, st, w, h, _, group in cells:
+        if (w, h) != FULL:
+            continue
+        tri_stream.STREAM_GROUP = group
+        scene = _SCENES[key]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            render(scene, cam, w, h, st, backend="kernel", device=DEVICE)
+            sync(torch)
+        tri_stream.STREAM_GROUP = 0
+        dev = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+        mine: dict = {}
+        for e in dev:
+            m = ours.search(e.name.split("::")[-1])
+            if m and m.group(1) in LAUNCHES:
+                ms, calls = mine.get(m.group(1), (0.0, 0))
+                mine[m.group(1)] = (ms + e.time_range.elapsed_us() / 1e3,
+                                    calls + 1)
+        row = dict(cell=name, frame_ms=frame_ms[name],
+                   device_busy_ms=busy if dev else None,
+                   idle_share=(1 - busy / frame_ms[name]) if dev else None,
+                   cuda_events=len(dev),
+                   kernels={k: dict(ms=v[0], calls=v[1])
+                            for k, v in mine.items()})
+        rows.append(row)
+        if not dev:
+            print(f"{name}: the profiler saw no device time (not measured)",
+                  flush=True)
+            continue
+        print(f"{name}: frame {frame_ms[name]:.2f} ms, device busy "
+              f"{busy:.2f} ms, idle {100 * row['idle_share']:.0f}%, "
+              f"{len(dev)} CUDA events, ours "
+              + ", ".join(f"{k} {v[0]:.2f} ms x{v[1]}"
+                          for k, v in mine.items()), flush=True)
+    return rows
 
 
 def main() -> int:
@@ -423,7 +778,17 @@ def main() -> int:
     import toroidal_ray_tracing_tpu_torch  # noqa: F401  (sets TF32 off)
     from toroidal_ray_tracing_tpu_torch.ops import kernel_common
 
-    print("== 1. device", flush=True)
+    phase_s = {}
+
+    def phase(title):
+        phase_s[title] = time.perf_counter()
+        print(f"== {title}", flush=True)
+
+    def done(title):
+        phase_s[title] = time.perf_counter() - phase_s[title]
+        print(f"-- {title}: {phase_s[title]:.1f} s", flush=True)
+
+    phase("1. device")
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -433,27 +798,38 @@ def main() -> int:
     name = torch.cuda.get_device_name(0)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} on {name}",
           flush=True)
+    done("1. device")
 
-    print("== 2. build", flush=True)
-    t0 = time.perf_counter()
+    phase("2. build")
     path = kernel_common.build_library()
     kernel_common.library()
-    print(f"built {os.path.relpath(path)} in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+    print(f"built {os.path.relpath(path)} in "
+          f"{kernel_common.BUILD_LOG['seconds']} s", flush=True)
     for line in kernel_common.BUILD_LOG["ptxas"].splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if ("registers" in line or "Compiling entry" in line
+                or "smem" in line):
             print("  " + line.strip(), flush=True)
+    done("2. build")
 
-    print("== 3. kernels against their plain twins", flush=True)
+    phase("3. kernels against their plain twins")
     results: dict = {}
     phase_kernels(torch, results)
+    done("3. kernels against their plain twins")
 
-    print("== 4. main path: render(backend='kernel', device='cuda')",
-          flush=True)
-    launches, stats = phase_main_path(torch)
+    phase("4. main path: render / render_frames / render_sequence "
+          "(backend='kernel', device='cuda')")
+    launches: dict = {}
+    stats, cells = phase_main_path(torch, launches)
+    done("4. main path: render / render_frames / render_sequence "
+         "(backend='kernel', device='cuda')")
 
-    print("== 5. goldens on the card", flush=True)
+    phase("5. goldens on the card")
     phase_goldens(torch)
+    done("5. goldens on the card")
+
+    phase("6. profile: one 1080p frame per cell")
+    profile_rows = phase_profile(torch, cells, stats)
+    done("6. profile: one 1080p frame per cell")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
@@ -461,12 +837,15 @@ def main() -> int:
             print("  " + f, file=sys.stderr)
         return 1
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
-        json.dump({"kernels": results, "cells": stats}, f, indent=1)
-    kernels = [dict(name=k, route="cuda", source=v["source"],
-                    replaces=v["replaces"], launches=launches[k],
-                    max_abs_err=v["max_abs_err"], ms=v["ms"],
-                    plain_ms=v["plain_ms"], rays=v["rays"])
-               for k, v in results.items()]
+        json.dump({"device": smi.stdout.strip(), "kernels": results,
+                   "cells": stats, "profile": profile_rows,
+                   "phase_seconds": phase_s}, f, indent=1)
+    keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for k, v in results.items():
+        row = dict(v, name=k, route="cuda", launches=launches[k])
+        kernels.append({"name": k, **{key: row[key] for key in keys}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

@@ -71,5 +71,5 @@ def test_toroidal_eye_equals_center_stays_finite():
     cam = ToroidalCamera(eye=(0.0, 1.0, 0.0), center=(0.0, 1.0, 0.0))
     for backend in ("torch", "kernel"):
         out = render(scene, cam, 8, 8, RenderSettings.default(max_depth=2),
-                     backend=backend)
+                     backend=backend, device="cpu")
         assert torch.isfinite(out["image"]).all(), backend

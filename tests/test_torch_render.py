@@ -18,7 +18,10 @@ from toroidal_ray_tracing_tpu.render import render as jax_render
 from toroidal_ray_tracing_tpu.scene import RenderSettings as JaxSettings
 from toroidal_ray_tracing_tpu.scene import build_scene as jax_build
 from toroidal_ray_tracing_tpu.scene import procedural as jax_proc
-from toroidal_ray_tracing_tpu_torch import render
+from toroidal_ray_tracing_tpu_torch import (render, render_frames,
+                                            render_sequence)
+from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as port_tk
+from toroidal_ray_tracing_tpu_torch.ops import tri_stream as port_ts
 from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
                                                     ToroidalCamera)
 from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, build_scene,
@@ -31,9 +34,11 @@ torch.set_num_threads(2)
 RES = 24
 GOLDEN = os.path.join(os.path.dirname(__file__), "golden")
 
-# the five scenes of tests/test_pallas.py::test_pallas_matches_jnp
+# the five scenes of tests/test_pallas.py::test_pallas_matches_jnp, and
+# config 7's textured scene (K4 on the kernel backend)
 SCENES = {
     "multi_torus": (lambda p: p.scene_multi_torus(True), 2),
+    "textured": (lambda p: p.scene_textured_mesh(), 2),
     "cornellish": (lambda p: p.scene_cornellish(), 2),
     "torus_plane": (lambda p: p.scene_torus_plane(True), 1),
     "instanced": (lambda p: p.scene_instanced_torus_grid(n=32), 2),
@@ -56,7 +61,7 @@ def test_render_matches_jax(name, backend):
                      jst)
     out = render(scene_from_numpy(jscene),
                  PinholeCamera(eye=eye, center=center), RES, RES,
-                 settings_from_numpy(jst), backend=backend)
+                 settings_from_numpy(jst), backend=backend, device="cpu")
     assert out["image"].shape == (RES, RES, 3)
     err = rmse(out["image"].numpy(), ref["image"])
     assert err < 1e-5, f"{name}/{backend}: rmse {err}"
@@ -64,6 +69,32 @@ def test_render_matches_jax(name, backend):
     for key in ("hit_position", "ray_origin", "ray_dir"):
         np.testing.assert_allclose(out[key].numpy(), np.asarray(ref[key]),
                                    atol=1e-5, rtol=0, err_msg=key)
+
+
+@pytest.mark.parametrize("gate_boxes", [512, 8])
+def test_streamed_mesh_render_matches_jax(gate_boxes, monkeypatch):
+    """A small config 8: the 4,608-triangle torus mesh over its floor with
+    TRI_STREAM_MIN patched low, so the kernel backend runs the stream
+    twin (with 8 gate boxes: 4 clusters per superblock) against the JAX
+    jnp render."""
+    monkeypatch.setattr(port_tk, "TRI_STREAM_MIN", 1024)
+    monkeypatch.setattr(port_ts, "STREAM_GATE_BOXES", gate_boxes)
+    calls = []
+    stream = port_tk.tri_closest_hit_stream
+    monkeypatch.setattr(port_tk, "tri_closest_hit_stream",
+                        lambda *a, **k: calls.append(1) or stream(*a, **k))
+    jscene = jax_build(jax_proc.scene_hires_mesh(seg=48))
+    jst = JaxSettings.default(max_depth=2)
+    eye, center = (6.0, 4.0, 6.0), (0.0, 0.6, 0.0)
+    ref = jax_render(jscene, JaxPinhole(eye=eye, center=center), RES, RES,
+                     jst)
+    out = render(scene_from_numpy(jscene),
+                 PinholeCamera(eye=eye, center=center), RES, RES,
+                 settings_from_numpy(jst), backend="kernel", device="cpu")
+    assert calls
+    err = rmse(out["image"].numpy(), ref["image"])
+    assert err < 1e-5, f"rmse {err}"
+    assert out["rays_traced"] == int(float(ref["rays_traced"]))
 
 
 # tests/test_golden.py's cases, built by the port's own scene build
@@ -87,17 +118,15 @@ GOLDEN_CASES = {
 }
 
 
-# every golden on the torch backend; the untextured ones on the kernel
-# backend too (textures on the kernel path wait for the K4 port)
 @pytest.mark.parametrize("name,backend", (
     [(name, "torch") for name in sorted(GOLDEN_CASES)]
-    + [(name, "kernel") for name in sorted(GOLDEN_CASES)
-       if name != "textured_mesh"]))
+    + [(name, "kernel") for name in sorted(GOLDEN_CASES)]))
 def test_golden(name, backend):
     sd, cam, kw = GOLDEN_CASES[name]
     want = np.load(os.path.join(GOLDEN, f"{name}.npz"))["image"]
     got = render(build_scene(sd()), cam, 32, 32,
-                 RenderSettings.default(**kw), backend=backend)["image"]
+                 RenderSettings.default(**kw), backend=backend,
+                 device="cpu")["image"]
     err = np.abs(got.numpy() - want).max()
     assert err < 5e-4, f"{name}/{backend}: max pixel diff {err}"
 
@@ -109,9 +138,9 @@ def test_max_depth_zero_traces_one_segment(backend):
     scene = build_scene(procedural.scene_multi_torus(True))
     cam = PinholeCamera(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0))
     a = render(scene, cam, 16, 16, RenderSettings.default(max_depth=0),
-               backend=backend)
+               backend=backend, device="cpu")
     b = render(scene, cam, 16, 16, RenderSettings.default(max_depth=1),
-               backend=backend)
+               backend=backend, device="cpu")
     assert a["rays_traced"] >= 16 * 16
     assert a["rays_traced"] == b["rays_traced"]
     torch.testing.assert_close(a["image"], b["image"], rtol=0, atol=0)
@@ -123,16 +152,32 @@ def test_banded_and_spp_render():
     scene = build_scene(procedural.scene_torus_plane(True))
     cam = PinholeCamera(eye=(7.0, 4.0, 7.0), center=(0.0, 0.5, 0.0))
     st = RenderSettings.default(max_depth=2)
-    full = render(scene, cam, 24, 16, st)
-    banded = render(scene, cam, 24, 16, st, tile_rows=5)
+    full = render(scene, cam, 24, 16, st, device="cpu")
+    banded = render(scene, cam, 24, 16, st, tile_rows=5, device="cpu")
     assert banded["rays_traced"] == full["rays_traced"]
     for key in ("image", "hit_position", "ray_origin", "ray_dir"):
         torch.testing.assert_close(banded[key], full[key], rtol=0, atol=1e-6)
-    a = render(scene, cam, 24, 16, st, spp=3, seed=7)
-    b = render(scene, cam, 24, 16, st, spp=3, seed=7)
+    a = render(scene, cam, 24, 16, st, spp=3, seed=7, device="cpu")
+    b = render(scene, cam, 24, 16, st, spp=3, seed=7, device="cpu")
     torch.testing.assert_close(a["image"], b["image"], rtol=0, atol=0)
     assert a["rays_traced"] > full["rays_traced"]
     assert rmse(a["image"].numpy(), full["image"].numpy()) > 0
+
+
+def test_entry_points_default_to_cuda():
+    """render, render_sequence and render_frames run on the CUDA device
+    unless asked for the CPU: with no GPU the default raises."""
+    scene = build_scene(procedural.scene_torus_plane(True))
+    cam = PinholeCamera(eye=(7.0, 4.0, 7.0), center=(0.0, 0.5, 0.0))
+    calls = (lambda: render(scene, cam, 8, 8)["image"],
+             lambda: render_sequence(scene, [cam], 8, 8)["images"],
+             lambda: render_frames(scene, [cam], 8, 8)["images"])
+    for call in calls:
+        if torch.cuda.is_available():
+            assert call().is_cuda
+        else:
+            with pytest.raises(RuntimeError, match="CUDA"):
+                call()
 
 
 def test_cuda_device_without_gpu_raises():

@@ -100,17 +100,38 @@ def test_kernel_backend_matches_pallas(name, monkeypatch):
     assert LAUNCHES["tri_closest_hit"] == launches["tri_closest_hit"]
 
 
-def test_streamed_size_mesh_raises_naming_k5():
-    """Meshes above 65,536 triangles take the streamed kernel K5 on the
-    TPU path; the port raises instead of quietly using K1's contract."""
-    from toroidal_ray_tracing_tpu_torch.scene import build_scene as tbuild
-    from toroidal_ray_tracing_tpu_torch.scene import procedural as tproc
-
-    scene = tbuild(tproc.scene_hires_mesh(seg=185))       # 68,450 tris
+def test_streamed_size_mesh_raises_naming_k5(monkeypatch):
+    """At the real threshold (no patched TRI_STREAM_MIN), a mesh above
+    65,536 triangles takes the streamed route on the kernel backend,
+    `tri_closest_hit_stream` and never K1, and its hits match the JAX
+    package's `closest_hit_pallas`, which streams the same mesh."""
+    jscene = build_scene(procedural.scene_hires_mesh(seg=185))  # 68,450 tris
+    scene = scene_from_numpy(jscene)
     assert scene.triangles.count > tk.TRI_STREAM_MIN
-    o = torch.zeros((3, 4))
-    d = torch.tensor([[0.0], [-1.0], [0.0]]).expand(3, 4).contiguous()
-    with pytest.raises(NotImplementedError, match="K5"):
-        closest_hit(scene, o, d, backend="kernel", want_attrs=True)
-    hit = closest_hit(scene, o, d, backend="torch")   # the torch path serves it
-    assert hit.t.shape == (4,)
+    calls = []
+    stream = tk.tri_closest_hit_stream
+    monkeypatch.setattr(tk, "tri_closest_hit_stream",
+                        lambda *a, **k: calls.append(1) or stream(*a, **k))
+    monkeypatch.setattr(tk, "tri_closest_hit",
+                        lambda *a, **k: pytest.fail("K1 route taken"))
+    o = np.array([[0.3, -0.2, 2.1, 0.0], [5.0, 5.0, 5.0, 5.0],
+                  [0.1, 1.7, 0.2, 4.0]], np.float32)
+    d = np.ascontiguousarray(np.broadcast_to(
+        np.array([[0.0], [-1.0], [0.0]], np.float32), (3, 4)))
+    tmax = np.full((4,), 1e4, np.float32)
+    ref = closest_hit_pallas(jscene, jax_isect.geom_from_scene(jscene),
+                             jnp.asarray(o), jnp.asarray(d),
+                             jnp.asarray(tmax), want_attrs=True)
+    hit = closest_hit(scene, torch.from_numpy(o), torch.from_numpy(d),
+                      torch.from_numpy(tmax), backend="kernel",
+                      want_attrs=True)
+    assert calls
+    assert (hit.kind >= 0).all()
+    np.testing.assert_array_equal(hit.kind.numpy(), np.asarray(ref.kind))
+    np.testing.assert_array_equal(hit.prim.numpy(), np.asarray(ref.prim))
+    np.testing.assert_allclose(hit.t.numpy(), np.asarray(ref.t), rtol=1e-5,
+                               atol=1e-4)
+    for field in ("pos", "nrm", "uv", "diffuse"):
+        np.testing.assert_allclose(getattr(hit.attrs, field).numpy(),
+                                   np.asarray(getattr(ref.attrs, field)),
+                                   atol=1e-4, err_msg=field)

@@ -4,11 +4,14 @@ PyTorch, with hand-written CUDA kernels for the closest-hit queries.
 The port of the JAX package of this repository (which stays the
 reference). Main path: `scene.build.build_scene` -> camera raygen (pinhole,
 toroidal) -> `trace.wavefront.trace_rays` (closest hit, Lambert/Phong
-shading with shadow rays and mirror reflections) -> `render.render`.
+shading with shadow rays and mirror reflections, trilinear mip textures) ->
+`render.render`, with `render_sequence` and `render_frames` for many
+frames. Every entry point renders on the CUDA device unless the caller
+passes `device="cpu"`.
 
 Backends: `backend="torch"` runs plain tensor ops on any device;
-`backend="kernel"` runs the closest-hit / any-hit queries through the
-kernels of `ops/` (CUDA sources in `csrc/`, built with nvcc at first use):
+`backend="kernel"` runs the closest-hit / any-hit queries and the texture
+gather through the kernels of `ops/` (CUDA sources in `csrc/`, built with nvcc at first use):
 on CUDA tensors the kernels launch, on CPU tensors their plain PyTorch
 twins run.
 
@@ -40,5 +43,7 @@ from toroidal_ray_tracing_tpu_torch.cameras import (  # noqa: E402,F401
 )
 from toroidal_ray_tracing_tpu_torch.render.renderer import (  # noqa: E402,F401
     render,
+    render_frames,
+    render_sequence,
     tonemap,
 )

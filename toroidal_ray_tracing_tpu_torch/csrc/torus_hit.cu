@@ -19,9 +19,12 @@
 // slab against its running best. With attrs, the winner's world normal and
 // 12 material values are written once after the walk.
 //
-// What bounds it: the per-ray quartic — a long dependent float chain (~300
-// operations with an exp, a log, a cos and several divisions and square
-// roots) per candidate torus — not memory: the tables are 32 floats per
+// What bounds it: the per-ray quartic — a long dependent float chain per
+// candidate torus, about 600 operations as written (transform and
+// coefficients ~85, the resolvent cubic with an exp, a log, a cos and 3
+// polish steps ~110, four root candidates with 3 polish steps and a residual
+// check ~100 each) — and the slab tests (26 operations each, common.cuh),
+// not memory: the tables are 32 floats per
 // torus (128 KB at 1,024 tori), read as warp-wide broadcasts that stay in
 // L1/L2. Culling (chunk box, torus box, running best) is what cuts the
 // work; block-major ray order keeps a warp's rays on the same candidates.

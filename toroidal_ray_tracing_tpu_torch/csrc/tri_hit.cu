@@ -13,11 +13,11 @@
 // With attrs, the winner's 21 interpolated shading rows are written once
 // after the walk (A0 + u*A1 + v*A2 for rows 0-7, A0 for rows 8-20).
 //
-// What bounds it: the per-ray dependent ALU/latency chain (12 Woop dot
-// FMAs-worth of multiply-adds, a division and the compares per triangle),
-// not bytes: the Woop table is 96 B per triangle (2.2 MB for the 23k-tri
-// mesh) and every lane of a warp reads the same row, so the loads are
-// broadcasts that stay L1/L2-resident. Rays arrive block-major (compact
+// What bounds it: the per-ray dependent ALU/latency chain (about 50
+// operations per (ray, triangle) Woop test and 26 per (ray, box) slab test,
+// as common.cuh writes them), not bytes: the Woop table is 96 B per
+// triangle (2.2 MB for the 23k-tri mesh) and every lane of a warp reads the
+// same row, so the loads are broadcasts that stay L1/L2-resident. Rays arrive block-major (compact
 // screen patches), so a warp's rays visit nearly the same clusters and
 // divergence stays low. No tensor cores, TMA or shared-memory staging in
 // this first version.
@@ -55,20 +55,9 @@ __global__ void tri_closest_hit(
       continue;
     const int base = c * cluster;
     for (int j = 0; j < cluster; ++j) {
-      const float* w = wrows + (size_t)(base + j) * 24;
-      const float opx = ((w[0] * o[0] + w[1] * o[1]) + w[2] * o[2]) + w[3];
-      const float opy = ((w[4] * o[0] + w[5] * o[1]) + w[6] * o[2]) + w[7];
-      const float opz = ((w[8] * o[0] + w[9] * o[1]) + w[10] * o[2]) + w[11];
-      const float dpx = (w[12] * d[0] + w[13] * d[1]) + w[14] * d[2];
-      const float dpy = (w[16] * d[0] + w[17] * d[1]) + w[18] * d[2];
-      const float dpz = (w[20] * d[0] + w[21] * d[1]) + w[22] * d[2];
-      const bool dz_ok = fabsf(dpz) > TRT_F(1e-12);
-      const float inv_dz = (dz_ok ? 1.0f : 0.0f) / (dz_ok ? dpz : 1.0f);
-      const float t = -opz * inv_dz;
-      const float u = opx + t * dpx;
-      const float v = opy + t * dpy;
-      const bool hit = dz_ok && u >= 0.0f && v >= 0.0f && u + v <= 1.0f &&
-                       t >= TRT_TMIN && t <= tm;
+      float t, u, v;
+      const bool hit = trt::woop_test(wrows + (size_t)(base + j) * 24, o, d,
+                                      tm, &t, &u, &v);
       if (hit && t < best) {
         best = t;
         bidx = base + j;
@@ -85,18 +74,9 @@ __global__ void tri_closest_hit(
   idx_out[i] = bidx;
   u_out[i] = bu;
   v_out[i] = bv;
-  if (attr_out != nullptr) {
-    const bool hit = best < TRT_BIG;
-#pragma unroll
-    for (int r = 0; r < 8; ++r) {
-      const size_t k = (size_t)r * n_tris + bidx;
-      attr_out[(size_t)r * n + i] =
-          hit ? (a0[k] + bu * a1[k]) + bv * a2[k] : 0.0f;
-    }
-#pragma unroll
-    for (int r = 8; r < 21; ++r)
-      attr_out[(size_t)r * n + i] = hit ? a0[(size_t)r * n_tris + bidx] : 0.0f;
-  }
+  if (attr_out != nullptr)
+    trt::write_tri_attrs(a0, a1, a2, n_tris, attr_out, n, i, best, bidx, bu,
+                         bv);
 }
 
 }  // namespace

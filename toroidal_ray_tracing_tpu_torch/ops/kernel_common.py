@@ -1,10 +1,12 @@
-"""Shared pieces of the trace kernels: constants, the slab-test reciprocal,
-front-to-back visit order, input checks, launch counters, and the nvcc
-build + ctypes loader of the hand-written CUDA kernels in `csrc/`.
+"""Shared pieces of the trace kernels: constants, the slab-test reciprocal
+and pass rule, front-to-back visit order, the plain twins' work counts,
+input checks, launch counters, and the nvcc build + ctypes loader of the
+hand-written CUDA kernels in `csrc/`.
 
-Build: every `csrc/*.cu` compiles with nvcc into ONE shared library with a
-plain C interface, `build/libtrt_kernels_<hash>.so`, where the hash covers
-the sources and the flags. It happens at the first CUDA call (or
+Build: every `csrc/*.cu` compiles with its own nvcc process (all started
+together) and the objects link into ONE shared library with a plain C
+interface, `build/libtrt_kernels_<hash>.so`, where the hash covers the
+sources and the flags. It happens at the first CUDA call (or
 `build_library()`), never at import, so the package imports on a machine
 with no CUDA at all. `--fmad=false` keeps the kernels' rounding equal to
 their plain PyTorch twins (no fused multiply-add contraction).
@@ -34,14 +36,15 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 # Kernel launches per kernel name. Each wrapper adds one exactly where it
 # launches its CUDA kernel (never on the CPU twin path), so a run can show
 # which kernels the main path went through. Reset with `reset_launches`.
 LAUNCHES = {"tri_closest_hit": 0, "torus_closest_hit": 0,
-            "torus_closest_hit_small": 0}
+            "torus_closest_hit_small": 0, "quad_gather": 0,
+            "tri_closest_hit_stream": 0,
+            "tri_closest_hit_stream_grouped": 0}
 
 
 def reset_launches() -> None:
@@ -69,6 +72,27 @@ def slab(lo, hi, o, inv):
                                      torch.maximum(t0[1], t1[1])),
                        torch.maximum(t0[2], t1[2]))
     return tn, tf
+
+
+def walk_bound(best, tmax, occlusion: bool):
+    """The slab bound of the next box: min(best, tmax), or -1 once an
+    any-hit ray has its hit."""
+    if occlusion:
+        return torch.where(best < BIG, -1.0, tmax)
+    return torch.minimum(best, tmax)
+
+
+def box_pass(lo, hi, o, inv, bound, tmax):
+    """The walks' slab rule: tn <= min(tf, bound), tf >= TMIN and
+    tmax > TMIN."""
+    tn, tf = slab(lo, hi, o, inv)
+    return (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) & (tmax > TMIN)
+
+
+def count(counts, key: str, k) -> None:
+    """Add k (int or 0-d tensor) to counts[key] when counting is on."""
+    if counts is not None:
+        counts[key] = counts.get(key, 0) + int(k)
 
 
 def visit_order(lo, hi, origins, n_batch: int):
@@ -137,6 +161,16 @@ _SIGNATURES = {
     # stream
     "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
                                     _P, _P],
+    # data4q, n_texels, f0, f1, valid, n, q0, q1, stream
+    "trt_quad_gather": [_P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # origins, dirs, tmax, n, wrows, n_tris, sb_lo, sb_hi, order, n_sb, clo,
+    # chi, g, cluster, a0, a1, a2, occlusion, t, idx, u, v, attrs, stream
+    "trt_tri_closest_hit_stream": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
+                                   _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
+                                   _P, _P, _P, _P],
+    "trt_tri_closest_hit_stream_grouped": [_P, _P, _P, _I, _P, _I, _P, _P,
+                                           _P, _I, _P, _P, _I, _I, _P, _P,
+                                           _P, _I, _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -163,24 +197,49 @@ def _nvcc() -> str:
     return path
 
 
+def _run(procs):
+    """Wait for each (name, Popen); raise with the first failure's stderr.
+    Returns the stderr texts."""
+    errs = []
+    for name, proc in procs:
+        _, err = proc.communicate(timeout=900)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed on {name} "
+                               f"({proc.returncode}):\n{err}")
+        errs.append(err)
+    return errs
+
+
 def build_library() -> str:
     """Compile csrc/*.cu into the shared library (once per source hash) and
-    return its path. Raises with nvcc's stderr if the build fails."""
-    out = os.path.join(BUILD_DIR, f"libtrt_kernels_{_digest()}.so")
+    return its path: one nvcc per source in parallel, then one link. Raises
+    with nvcc's stderr if a step fails."""
+    digest = _digest()
+    out = os.path.join(BUILD_DIR, f"libtrt_kernels_{digest}.so")
     if os.path.exists(out):
         BUILD_LOG["path"] = out
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
+    tag = f"{digest}.{os.getpid()}"
+    srcs = [s for s in _sources() if s.endswith(".cu")]
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(s)}.{tag}.o")
+            for s in srcs]
+    popen = dict(stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    ptxas = _run([(os.path.basename(s), subprocess.Popen(
+        [_nvcc(), *NVCC_FLAGS, "-c", s, "-o", o], **popen))
+        for s, o in zip(srcs, objs)])
+    tmp = f"{out}.{os.getpid()}.tmp"
+    _run([("link", subprocess.Popen([_nvcc(), "-shared", "-o", tmp, *objs],
+                                    **popen))])
+    for o in objs:
+        os.remove(o)
     os.replace(tmp, out)
     BUILD_LOG.update(seconds=time.perf_counter() - t0, path=out,
-                     ptxas=proc.stderr)
+                     ptxas="".join(ptxas))
     return out
 
 

@@ -24,8 +24,8 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.torus import quartic_min_positive
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, F32, I32, TMIN, _inv_dir, check_args, check_rays, launch, round_up,
-    slab, visit_order)
+    BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_rays, count,
+    launch, round_up, slab, visit_order)
 
 TORUS_CHUNK = 8           # tori per chunk, K <= 64
 GATED_TORUS_CHUNK = 16    # tori per chunk, K > 64
@@ -163,9 +163,11 @@ def _winner_attrs(w2o_rows, rad, mat, idx, troot, o, d, hit):
 
 def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
                         clo, chi, order, chunk: int, mat=None,
-                        occlusion: bool = False):
+                        occlusion: bool = False, counts=None):
     """Plain PyTorch twin of K2: vectorized over rays, one loop step per
-    chunk in `order`. Returns (t, idx[, attrs])."""
+    chunk in `order`. Returns (t, idx[, attrs]). counts: optional dict of
+    the kernel's (ray, box) slab tests ("box": chunk and torus boxes) and
+    (ray, torus) quartic tests ("prim")."""
     n = origins.shape[1]
     o = [origins[a] for a in range(3)]
     d = [dirs[a] for a in range(3)]
@@ -182,6 +184,11 @@ def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
         tn, tf = slab(tor_lo[ks, None, :], tor_hi[ks, None, :], o, inv)
         cand = (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) \
             & (tmax > TMIN) & (rad[ks, 1:2] > 0.0)               # (chunk, N)
+        if counts is not None:
+            chunk_pass = box_pass(clo[c], chi[c], o, inv, bound, tmax)
+            count(counts, "box", (best >= BIG).sum() if occlusion else n)
+            count(counts, "box", chunk * chunk_pass.sum())
+            count(counts, "prim", (cand & chunk_pass).sum())
         if not bool(cand.any()):
             continue
         w = [w2o_rows[ks, i:i + 1] for i in range(12)]
@@ -200,10 +207,10 @@ def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
 
 
 def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
-                      occlusion: bool = False):
+                      occlusion: bool = False, counts=None):
     """Plain PyTorch twin of K3. par: (K, 32) per-torus blocks [w2o (12),
     Rmaj, rmin, box lo (3), box hi (3), mat (12)]. Returns (t, idx[,
-    attrs])."""
+    attrs]). counts: as `torus_chunked_plain`'s (union and torus boxes)."""
     n = origins.shape[1]
     K = par.shape[0]
     o = [origins[a] for a in range(3)]
@@ -215,6 +222,7 @@ def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
         uhi = torch.maximum(uhi, par[k, 17:20])
     tn, tf = slab(ulo, uhi, o, inv)
     any_cand = (tn <= torch.minimum(tf, tmax)) & (tf >= TMIN) & (tmax > TMIN)
+    count(counts, "box", n)
 
     best = torch.full((n,), BIG, dtype=torch.float32, device=origins.device)
     barg = torch.zeros((n,), dtype=torch.int32, device=origins.device)
@@ -227,6 +235,9 @@ def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
         tn, tf = slab(par[k, 14:17], par[k, 17:20], o, inv)
         cand = any_cand & (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) \
             & (tmax > TMIN) & (par[k, 13] > 0.0)
+        count(counts, "box", (any_cand & (best >= BIG)).sum() if occlusion
+              else any_cand.sum())
+        count(counts, "prim", cand.sum())
         w = [par[k, i] for i in range(12)]
         t, troot, _ = _quartic_t(w, par[k, 12], par[k, 13], o, d, tmax, cand)
         if occlusion:

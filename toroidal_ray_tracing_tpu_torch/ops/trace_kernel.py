@@ -7,7 +7,10 @@ Per query:
      are tested densely in plain torch, their clusters get far boxes, and
      their hits tighten the triangle kernel's tmax. A plane-only triangle
      set launches no triangle kernel at all;
-  2. K1 (`tri_closest_hit`) over the remaining clusters;
+  2. K1 (`tri_closest_hit`) over the remaining clusters, or K5/K6
+     (`tri_stream.tri_closest_hit_stream`) for meshes above
+     `TRI_STREAM_MIN` triangles cut into whole 128-multiple clusters (the
+     TPU route, trace_kernel.py:345-352);
   3. triangle hits fold into the torus query's tmax, then K2/K3
      (`torus_closest_hit`, routed as the TPU launcher routes);
   4. with want_attrs, the kernels' 21-row (triangle) and 15-row (torus)
@@ -26,11 +29,12 @@ import torch
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, TMIN, round_up
 from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import torus_closest_hit
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import tri_closest_hit
+from toroidal_ray_tracing_tpu_torch.ops.tri_stream import (
+    TRI_STREAM_MIN, tri_closest_hit_stream)
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
 from toroidal_ray_tracing_tpu_torch.trace import intersect as _isect
 
 RAY_TILE = 2048          # the TPU orchestrator's batch padding
-TRI_STREAM_MIN = 65536   # above this the TPU path runs K5 (not ported yet)
 
 
 def _material_rows(scene: Scene, mat_id):
@@ -130,11 +134,6 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
 
     if has_tris:
         T = geom.woop_o.shape[2]
-        if T > TRI_STREAM_MIN:
-            raise NotImplementedError(
-                f"{T} triangles: meshes above {TRI_STREAM_MIN} take the "
-                "streamed triangle kernel K5 (tri_stream._tri_stream_kernel), "
-                "which is not ported yet")
         cs = scene.cluster_size
         n_cl = geom.cluster_lo.shape[0]
         aligned = n_cl * cs == T
@@ -174,10 +173,11 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             # the hoist covered every live triangle: no K1 launch at all
             tri_attr = loose_attr
         else:
-            out = tri_closest_hit(origins, dirs, tri_tmax, geom.woop_o,
-                                  geom.woop_d, clo, chi, cs,
-                                  attr_tables=tables, occlusion=occlusion,
-                                  n_batch=n_batch)
+            stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
+            launch = tri_closest_hit_stream if stream else tri_closest_hit
+            out = launch(origins, dirs, tri_tmax, geom.woop_o, geom.woop_d,
+                         clo, chi, cs, attr_tables=tables,
+                         occlusion=occlusion, n_batch=n_batch)
             tt, ti, tu, tv = out[:4]
             better = tt < t_best
             if want_attrs:

@@ -23,8 +23,8 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.triangle import woop_dots, woop_hit
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, F32, I32, TMIN, _inv_dir, check_args, check_rays, launch, slab,
-    visit_order)
+    BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_rays, count,
+    launch, visit_order, walk_bound)
 
 N_ATTR = 21
 
@@ -39,54 +39,81 @@ def woop_rows(woop_o, woop_d):
                       wd4.permute(2, 0, 1).reshape(T, 12)], dim=1).contiguous()
 
 
-def tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi, order,
-                          cluster: int, box_test: bool, attr_tables=None,
-                          occlusion: bool = False):
-    """Plain PyTorch twin of the CUDA kernel: vectorized over rays, one
-    loop step per cluster in `order`. Returns (t, idx, u, v[, attrs])."""
+def woop_block(wrows, lo: int, hi: int, o, d, tmax):
+    """Woop test of table rows [lo, hi) against every ray: (t, u, v), each
+    (rows, N), t BIG where a pair misses."""
+    w = wrows[lo:hi].T.reshape(6, 4, hi - lo, 1)
+    comps = woop_dots(w[0:3], w[3:6], *o, *d)            # each (rows, N)
+    t, u, v, _ = woop_hit(*comps, TMIN, tmax)
+    return t, u, v
+
+
+def fold_block(state, t, u, v, base: int, occlusion: bool):
+    """Fold one block's (rows, N) Woop results into the running (best, idx,
+    u, v): the block minimum (first minimal row on ties) replaces the best
+    only if strictly smaller. Occlusion keeps only the minimum t."""
+    best, bidx, bu, bv = state
+    ct, arg = torch.min(t, dim=0)
+    if occlusion:
+        return torch.minimum(best, ct), bidx, bu, bv
+    better = ct < best
+    ar = arg[None, :]
+    return (torch.where(better, ct, best),
+            torch.where(better, (base + arg).to(torch.int32), bidx),
+            torch.where(better, u.gather(0, ar)[0], bu),
+            torch.where(better, v.gather(0, ar)[0], bv))
+
+
+def walk_start(origins, dirs):
+    """Per-ray rows o, d, slab reciprocals and the empty running best."""
     n = origins.shape[1]
     o = [origins[a] for a in range(3)]
     d = [dirs[a] for a in range(3)]
     inv = [_inv_dir(d[a]) for a in range(3)]
     best = torch.full((n,), BIG, dtype=torch.float32, device=origins.device)
     bidx = torch.zeros((n,), dtype=torch.int32, device=origins.device)
-    bu = torch.zeros_like(best)
-    bv = torch.zeros_like(best)
-    for c in order.tolist():
-        if occlusion:
-            bound = torch.where(best < BIG, -1.0, tmax)
-        else:
-            bound = torch.minimum(best, tmax)
-        box = None
-        if box_test:
-            tn, tf = slab(clo[c], chi[c], o, inv)
-            box = (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) \
-                & (tmax > TMIN)
-            if not bool(box.any()):
-                continue
-        w = wrows[c * cluster:(c + 1) * cluster].T.reshape(6, 4, cluster, 1)
-        comps = woop_dots(w[0:3], w[3:6], *o, *d)          # each (C, N)
-        t, u, v, _ = woop_hit(*comps, TMIN, tmax)
-        if box is not None:
-            t = torch.where(box, t, BIG)
-        ct, arg = torch.min(t, dim=0)       # first minimal index on ties
-        if occlusion:
-            best = torch.minimum(best, ct)
-            continue
-        better = ct < best
-        best = torch.where(better, ct, best)
-        bidx = torch.where(better, (c * cluster + arg).to(torch.int32), bidx)
-        ar = arg[None, :]
-        bu = torch.where(better, u.gather(0, ar)[0], bu)
-        bv = torch.where(better, v.gather(0, ar)[0], bv)
-    out = (best, bidx, bu, bv)
-    if attr_tables is None:
-        return out
+    return o, d, inv, (best, bidx, torch.zeros_like(best),
+                       torch.zeros_like(best))
+
+
+def winner_attrs(attr_tables, best, bidx, bu, bv):
+    """(21, N) attrs of each ray's winning triangle, zero on a miss:
+    A0[:, p] + u*A1[:, p] + v*A2[:, p] for rows 0-7, A0 rows 8-20."""
     a0, a1, a2 = attr_tables
     p = bidx.long()
     top = (a0[:8, p] + bu * a1[:, p]) + bv * a2[:, p]
     attrs = torch.cat([top, a0[8:, p]], dim=0)
-    return out + (torch.where(best < BIG, attrs, 0.0),)
+    return torch.where(best < BIG, attrs, 0.0)
+
+
+def tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi, order,
+                          cluster: int, box_test: bool, attr_tables=None,
+                          occlusion: bool = False, counts=None):
+    """Plain PyTorch twin of the CUDA kernel: vectorized over rays, one
+    loop step per cluster in `order`. Returns (t, idx, u, v[, attrs]).
+    counts: optional dict; adds the (ray, box) slab tests under "box", the
+    (ray, triangle) Woop tests under "prim" that the kernel runs, and the
+    distinct triangles some ray tests under "rows"."""
+    n = origins.shape[1]
+    o, d, inv, state = walk_start(origins, dirs)
+    for c in order.tolist():
+        bound = walk_bound(state[0], tmax, occlusion)
+        box = None
+        if box_test:
+            count(counts, "box", (state[0] >= BIG).sum() if occlusion else n)
+            box = box_pass(clo[c], chi[c], o, inv, bound, tmax)
+            if not bool(box.any()):
+                continue
+        count(counts, "prim", cluster * (n if box is None else box.sum()))
+        count(counts, "rows", cluster)
+        t, u, v = woop_block(wrows, c * cluster, (c + 1) * cluster, o, d,
+                             tmax)
+        if box is not None:
+            t = torch.where(box, t, BIG)
+        state = fold_block(state, t, u, v, c * cluster, occlusion)
+    if attr_tables is None:
+        return state
+    return state + (winner_attrs(attr_tables, *state),)
 
 
 def tri_closest_hit(origins, dirs, tmax, woop_o, woop_d, cluster_lo,

@@ -1,4 +1,5 @@
-"""Top-level render entry point.
+"""Top-level render entry points: `render` (one frame), `render_sequence`
+and `render_frames` (many frames).
 
 One call replaces the reference's per-frame command buffer (`raytrace()` +
 offscreen image + RenderedData SSBO,
@@ -8,7 +9,8 @@ camera, run the wavefront bounce loop, and return the image plus the
 shaders/host_device.h:101-107).
 
 The image is linear color; `tonemap` applies the post pass's gamma
-(post.frag:35-36) for display.
+(post.frag:35-36) for display. Every entry point renders on the CUDA device
+unless the caller passes `device="cpu"`; without a GPU, the default raises.
 """
 
 from __future__ import annotations
@@ -47,22 +49,29 @@ def autofill_pixel_spread(settings: RenderSettings, camera, width, height):
     return settings
 
 
+def _rays(camera, params, width, height, settings, jitter, device):
+    """Raygen of one frame in block-major pixel order (each warp of a trace
+    kernel covers a compact screen patch): (3, N) origins and dirs."""
+    return camera.device_rays(params, width, height, settings, jitter=jitter,
+                              block=pick_block(width, height), rows=True,
+                              device=device)
+
+
+def _unswizzle(a, width, height):
+    """(C, N) block-major rows -> (H, W, C) row-major."""
+    return block_unswizzle(a.T, width, height, pick_block(width, height))
+
+
 def _frame(scene, settings, camera, params, width, height, backend, jitter,
            device):
-    """Raygen + trace + unswizzle of one frame. Rays are traced in
-    block-major pixel order (each warp of a trace kernel covers a compact
-    screen patch); outputs come back row-major (H, W, 3)."""
-    block = pick_block(width, height)
-    origins, dirs = camera.device_rays(params, width, height, settings,
-                                       jitter=jitter, block=block, rows=True,
-                                       device=device)
+    """Raygen + trace + unswizzle of one frame; outputs come back row-major
+    (H, W, 3)."""
+    origins, dirs = _rays(camera, params, width, height, settings, jitter,
+                          device)
     color, hitpos, nrays = trace_rays(scene, settings, origins, dirs,
                                       backend=backend)
-
-    def unsw(a):
-        return block_unswizzle(a.T, width, height, block)
-
-    return unsw(color), unsw(hitpos), unsw(origins), unsw(dirs), nrays
+    return (*(_unswizzle(a, width, height)
+              for a in (color, hitpos, origins, dirs)), nrays)
 
 
 def _render_banded(scene, camera, width, height, settings, backend, spp,
@@ -102,43 +111,28 @@ def _render_banded(scene, camera, width, height, settings, backend, spp,
     }
 
 
-def render(scene: Scene, camera, width: int, height: int,
-           settings: RenderSettings | None = None, backend: str = "torch",
-           spp: int = 1, seed: int = 0, tile_rows: int | None = None,
-           device=None):
-    """Render one frame.
-
-    backend: "torch" (plain tensor ops) or "kernel" (the hand-written
-         closest-hit kernels on CUDA; their plain twins on the CPU).
-    spp: samples per pixel; > 1 adds jittered samples (a torch.Generator
-         seeded with `seed`) after the centered one.
-    tile_rows: render in horizontal bands of this many rows.
-    device: where to render (default: the scene's device). "cuda" without a
-         GPU raises — there is no CPU fallback.
-
-    Returns a dict: image, hit_position, ray_origin, ray_dir — each
-    (H, W, 3) — and rays_traced (int).
-    """
-    device = torch.device(device) if device is not None else scene.device
+def _setup(scene, settings, camera, width, height, device):
+    """Check the device and move the scene and settings onto it."""
+    device = torch.device(device)
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("render(device='cuda'): no CUDA device available")
+        raise RuntimeError(f"render on {device}: no CUDA device available "
+                           "(pass device='cpu' to render on the CPU)")
     if settings is None:
         settings = RenderSettings.default()
     settings = autofill_pixel_spread(settings, camera, width, height)
-    scene = scene.to(device)
-    settings = settings.to(device)
-    gen = torch.Generator().manual_seed(seed)
+    return scene.to(device), settings.to(device), device
 
-    if tile_rows is not None and tile_rows < height:
-        return _render_banded(scene, camera, width, height, settings,
-                              backend, spp, gen, device, tile_rows)
 
+def _spp_frame(scene, settings, camera, width, height, backend, spp, gen,
+               device):
+    """One frame's spp samples, the centered one first (it also provides
+    the hit/ray dumps); jitter from `gen`. Returns (image, hit_position,
+    ray_origin, ray_dir) as (H, W, 3) and the exact ray count."""
     params = camera.ray_params(width, height, settings)
     n = width * height
-    acc = hitpos = origins = dirs = None
+    acc = dumps = None
     nrays = 0
     for s in range(max(spp, 1)):
-        # center sample first (it also provides the hit/ray dumps)
         jitter = (None if s == 0 else
                   torch.rand((n, 2), generator=gen).to(device))
         c, hp, o, d, nr = _frame(scene, settings, camera, params, width,
@@ -146,11 +140,161 @@ def render(scene: Scene, camera, width: int, height: int,
         acc = c if acc is None else acc + c
         nrays += nr
         if s == 0:
-            hitpos, origins, dirs = hp, o, d
+            dumps = (hp, o, d)
+    return (acc / float(max(spp, 1)), *dumps), nrays
+
+
+def render(scene: Scene, camera, width: int, height: int,
+           settings: RenderSettings | None = None, backend: str = "torch",
+           spp: int = 1, seed: int = 0, tile_rows: int | None = None,
+           device="cuda"):
+    """Render one frame.
+
+    backend: "torch" (plain tensor ops) or "kernel" (the hand-written
+         closest-hit and texture kernels on CUDA; their plain twins on the
+         CPU).
+    spp: samples per pixel; > 1 adds jittered samples (a torch.Generator
+         seeded with `seed`) after the centered one.
+    tile_rows: render in horizontal bands of this many rows.
+    device: where to render, the CUDA device by default. Without a GPU
+         that raises — there is no CPU fallback; pass device="cpu" for the
+         CPU.
+
+    Returns a dict: image, hit_position, ray_origin, ray_dir — each
+    (H, W, 3) — and rays_traced (int).
+    """
+    scene, settings, device = _setup(scene, settings, camera, width, height,
+                                     device)
+    gen = torch.Generator().manual_seed(seed)
+    if tile_rows is not None and tile_rows < height:
+        return _render_banded(scene, camera, width, height, settings,
+                              backend, spp, gen, device, tile_rows)
+    (image, hitpos, origins, dirs), nrays = _spp_frame(
+        scene, settings, camera, width, height, backend, spp, gen, device)
     return {
-        "image": acc / float(max(spp, 1)),
+        "image": image,
         "hit_position": hitpos,
         "ray_origin": origins,
         "ray_dir": dirs,
         "rays_traced": nrays,
     }
+
+
+def _frame_groups(n_frames: int, width: int, height: int, spp: int,
+                  frames_per_batch: int | None):
+    """Frames traced per wavefront batch: `frames_per_batch`, or (None) the
+    largest divisor of the frame count that keeps a batch within ~2M rays
+    (the JAX package's rule; spp > 1 traces frames one by one)."""
+    if frames_per_batch is not None:
+        group = frames_per_batch
+    else:
+        group = 1
+        if spp <= 1:
+            target = max(1, (2 * 1024 * 1024) // max(width * height, 1))
+            for g in range(2, n_frames + 1):
+                if n_frames % g == 0 and g <= target:
+                    group = g
+    if group > 1 and (spp > 1 or n_frames % group):
+        raise ValueError(f"frames_per_batch={group} needs spp == 1 and a "
+                         f"frame count ({n_frames}) it divides")
+    return max(group, 1)
+
+
+def _frames(scene, cameras, width, height, settings, backend, spp, seed,
+            frames_per_batch, device, dumps):
+    """Yield (frame index, (image, hit_position, ray_origin, ray_dir) as
+    (H, W, 3) or (image,) without dumps, ray count) over the cameras.
+
+    With spp > 1, frame f's jitter comes from a torch.Generator seeded with
+    seed + f, so frame f equals render(cameras[f], spp=spp, seed=seed + f).
+    A group of frames (frames_per_batch) is traced as one wavefront batch:
+    their rays concatenate and every per-ray result is the frame's own."""
+    scene, settings, device = _setup(scene, settings, cameras[0], width,
+                                     height, device)
+    group = _frame_groups(len(cameras), width, height, spp, frames_per_batch)
+    if group == 1:
+        for f, cam in enumerate(cameras):
+            gen = torch.Generator().manual_seed(seed + f)
+            outs, nrays = _spp_frame(scene, settings, cam, width, height,
+                                     backend, spp, gen, device)
+            yield f, outs if dumps else outs[:1], nrays
+        return
+    n = width * height
+    for f0 in range(0, len(cameras), group):
+        rays = [_rays(cam, cam.ray_params(width, height, settings), width,
+                      height, settings, None, device)
+                for cam in cameras[f0:f0 + group]]
+        origins = torch.cat([o for o, _ in rays], dim=1)
+        dirs = torch.cat([d for _, d in rays], dim=1)
+        color, hitpos, nrays = trace_rays(scene, settings, origins, dirs,
+                                          backend=backend)
+        bufs = (color, hitpos, origins, dirs) if dumps else (color,)
+        for g in range(group):
+            sl = slice(g * n, (g + 1) * n)
+            yield (f0 + g,
+                   tuple(_unswizzle(a[:, sl], width, height) for a in bufs),
+                   nrays if g == 0 else 0)
+
+
+def render_sequence(scene: Scene, cameras, width: int, height: int,
+                    settings: RenderSettings | None = None,
+                    backend: str = "torch", spp: int = 1, seed: int = 0,
+                    keep_images: bool = True,
+                    frames_per_batch: int | None = None, device="cuda"):
+    """Render an animated frame sequence, one camera per frame (the
+    reference's frame loop with the camera animating between captures,
+    main.cpp:269-403).
+
+    keep_images: False returns only the ray count (throughput runs).
+    frames_per_batch: trace this many frames' rays as one wavefront batch
+         (None = enough frames to fill ~2M-ray batches, dividing the frame
+         count; 1 disables; needs spp == 1).
+    spp / seed: as `render`; frame f's jitter is seeded with seed + f.
+    device: as `render` (the CUDA device unless device="cpu").
+
+    Returns {"images": (F, H, W, 3) linear color (if keep_images),
+             "rays_traced": int}.
+    """
+    images = []
+    total = 0
+    for _, outs, nrays in _frames(scene, cameras, width, height, settings,
+                                  backend, spp, seed, frames_per_batch,
+                                  device, dumps=False):
+        total += nrays
+        if keep_images:
+            images.append(outs[0])
+    out = {"rays_traced": total}
+    if keep_images:
+        out["images"] = torch.stack(images)
+    return out
+
+
+def render_frames(scene: Scene, cameras, width: int, height: int,
+                  settings: RenderSettings | None = None,
+                  backend: str = "torch", spp: int = 1, seed: int = 0,
+                  dumps: bool = True, frames_per_batch: int | None = None,
+                  device="cuda"):
+    """Render a batch of frames, each with the full RenderedData set.
+
+    cameras: a list of cameras (one per frame) or a single camera.
+    dumps: False skips the per-frame hit_position / ray buffers.
+    frames_per_batch, spp, seed, device: as `render_sequence`.
+
+    Outputs are channel-major, as the JAX package's: {"images": (F, 3, H,
+    W) linear color, "hit_positions" / "ray_origins" / "ray_dirs": (F, 3,
+    H, W) (when dumps), "rays_traced": int}.
+    """
+    if not isinstance(cameras, (list, tuple)):
+        cameras = [cameras]
+    keys = ("images", "hit_positions", "ray_origins", "ray_dirs")
+    bufs: dict = {k: [] for k in keys[:4 if dumps else 1]}
+    total = 0
+    for _, outs, nrays in _frames(scene, cameras, width, height, settings,
+                                  backend, spp, seed, frames_per_batch,
+                                  device, dumps):
+        total += nrays
+        for k, a in zip(bufs, outs):
+            bufs[k].append(a.permute(2, 0, 1))
+    out = {k: torch.stack(v) for k, v in bufs.items()}
+    out["rays_traced"] = total
+    return out

@@ -13,12 +13,20 @@ Phases, each printed on its own lines with its wall seconds:
      at the main path's shapes, with CUDA-event timings and the least time
      the card could take for the same work (bound_ms, from the bytes the
      call must move and the slab / Woop / quartic tests the twin counts):
-     K1 on config 6's 1080p rays, K2 on config 3 and config 4, K3 on
+     K1 on config 6's 1080p rays (a 262,144-ray subset and the full
+     frame; any-hit on the subset's shadow rays), K2 on config 3 and
+     config 4 (subset and full frame), K3 on
      config 3 at 512x512, K4 on config 7's 1080p primary-hit texel indices
      (bit-equal; beside it the one-call PyTorch gather, library_ms), K5 on
      a contiguous block-major patch of 32,768 of config 8's 1080p primary
-     rays, and K5 against K6 on the full 1080p frame (bit-equal, closest
-     with attrs and any-hit);
+     rays (closest with attrs, and any-hit on their shadow rays; the flat
+     twin's slab / Woop tests per ray beside the tree walks' own counters),
+     and K5 against K6 on the full 1080p frame (bit-equal, closest with
+     attrs and any-hit; both also against the flat twin on every 63rd ray
+     of the frame and as many rays near the mesh), each bound from the
+     kernel's counters; K5's wrapper against its bare launch beside the
+     per-scene table preparation it no longer repeats, and a render of
+     config 8 from its host scene;
   4. the main path, each path run with the launch counts set to 0 just
      before it and read just after: `render(..., backend="kernel",
      device="cuda")` at 1920x1080 for config 3, config 6, config 4, the
@@ -56,6 +64,7 @@ DEVICE = "cuda"
 FULL = (1920, 1080)       # the ladder's frame size
 SUBSET = 262144           # rays compared against the dense plain twins
 PATCH = 32768             # config 8's contiguous block-major K5 patch
+FRAME_STRIDE = 63         # K5/K6 meet the twin on every 63rd 1080p ray
 K3_RES = 512              # config 3 at this square size routes to K3
 CHECK_RES = (480, 270)    # kernel-vs-torch backend agreement renders
 CHECK_RES_C8 = (128, 72)  # the same for config 8 (1.18M triangles)
@@ -102,6 +111,15 @@ def cuda_ms(fn, reps: int = 5) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def once_ms(torch, fn):
+    """(fn(), its milliseconds): one call, host clock, synchronized."""
+    sync(torch)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(torch)
+    return out, (time.perf_counter() - t0) * 1e3
 
 
 def bound(nbytes: float, ops: float):
@@ -179,14 +197,16 @@ def bit_equal(a, b) -> bool:
 
 
 _SCENES: dict = {}
+_HOST_SCENES: dict = {}
 
 
 def scene_of(name, build):
     """Each scene is built once per run (config 8's 1.18M-triangle host
-    build takes a while) and kept on the card."""
+    build takes a while) and kept on the card, its host copy beside it."""
     if name not in _SCENES:
         t0 = time.perf_counter()
-        _SCENES[name] = build().to(DEVICE)
+        _HOST_SCENES[name] = build()
+        _SCENES[name] = _HOST_SCENES[name].to(DEVICE)
         print(f"  built {name} in {time.perf_counter() - t0:.1f} s",
               flush=True)
     return _SCENES[name]
@@ -231,7 +251,6 @@ def phase_kernels(torch, results):
     from toroidal_ray_tracing_tpu_torch.ops import tex_kernel as txk
     from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tk
     from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
-    from toroidal_ray_tracing_tpu_torch.ops import tri_stream as tsk
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (round_up,
                                                                   visit_order)
     from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import _material_rows
@@ -297,19 +316,36 @@ def phase_kernels(torch, results):
           f"at {n_sub} rays (bound {b_ms:.4f} ms, {b_by}); kernel "
           f"{ms_full:.3f} ms at {n_full} rays", flush=True)
     so, sd, stm = shadow_rays(torch, os_, ds_, got[0], light)
-    compare_hits("occlusion (shadow rays)",
-                 k1(so, sd, stm, False, True), k1_plain(so, sd, stm, False,
-                                                        True),
-                 n_sub, occlusion=True)
+    counts = {}
+    occ = k1_plain(so, sd, stm, False, True, counts=counts)
+    compare_hits("occlusion (shadow rays)", k1(so, sd, stm, False, True),
+                 occ, n_sub, occlusion=True)
     occ_ms = cuda_ms(lambda: k1(so, sd, stm, False, True))
     occ_plain = cuda_ms(lambda: k1_plain(so, sd, stm, False, True))
-    print(f"  occlusion: kernel {occ_ms:.3f} ms vs plain {occ_plain:.3f} ms",
+    bo, bo_by = hit_bound(n_sub, counts, WOOP_OPS, tri_table_bytes(
+        torch, counts, tri, (clo, chi), (), occ[0], occ[1]), 4)
+    print(f"  occlusion: kernel {occ_ms:.3f} ms vs plain {occ_plain:.3f} ms "
+          f"(bound {bo:.4f} ms, {bo_by})", flush=True)
+    # the full frame, as the main path launches K1 on its primary rays
+    counts = {}
+    got = k1(o, d, tm_full)
+    ref, plain_full = once_ms(torch, lambda: k1_plain(o, d, tm_full,
+                                                      counts=counts))
+    err_full = compare_hits("closest+attrs, full frame", got, ref, n_full,
+                            attr_rows=4)
+    bf, bf_by = hit_bound(n_full, counts, WOOP_OPS, tri_table_bytes(
+        torch, counts, tri, (clo, chi), tables, ref[0], ref[1]), 4 + 21)
+    del ref
+    print(f"  full frame: kernel {ms_full:.3f} ms vs plain {plain_full:.1f} "
+          f"ms (once) at {n_full} rays (bound {bf:.4f} ms, {bf_by})",
           flush=True)
     results["tri_closest_hit"] = dict(
         source=f"{KERNEL_DIR}/tri_hit.cu",
-        replaces=f"{JAX_OPS}/tri_kernel.py:77", max_abs_err=err, ms=ms,
-        plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None,
-        rays=n_sub, ms_full=ms_full, rays_full=n_full)
+        replaces=f"{JAX_OPS}/tri_kernel.py:77", max_abs_err=err_full,
+        ms=ms_full, plain_ms=plain_full, bound_ms=bf, bound_by=bf_by,
+        library_ms=None, rays=n_full, subset_ms=ms, subset_plain_ms=plain_ms,
+        subset_bound_ms=b_ms, subset_rays=n_sub, occlusion_ms=occ_ms,
+        occlusion_plain_ms=occ_plain, occlusion_bound_ms=bo)
 
     # --- K2: config 3 tori at 1080p, config 4 tori on a subset ------------
     print("K2 torus_closest_hit", flush=True)
@@ -348,16 +384,25 @@ def phase_kernels(torch, results):
     ms4 = cuda_ms(lambda: k2(s4, mat4, o4s, d4s, tm_sub))
     plain4 = cuda_ms(lambda: k2(s4, mat4, o4s, d4s, tm_sub, plain=True))
     ms4_full = cuda_ms(lambda: k2(s4, mat4, o4, d4, tm_full))
+    counts = {}
+    ref, plain4_full = once_ms(torch, lambda: k2(s4, mat4, o4, d4, tm_full,
+                                                 plain=True, counts=counts))
+    compare_hits("config 4 (1,024 tori) closest+attrs, full frame",
+                 k2(s4, mat4, o4, d4, tm_full), ref, n_full, attr_rows=2)
+    del ref
+    b4, b4_by = hit_bound(n_full, counts, QUARTIC_OPS, 0, 2 + 15)
     print(f"  config 4: kernel {ms4:.3f} ms vs plain {plain4:.3f} ms at "
-          f"{n_sub} rays; kernel {ms4_full:.3f} ms at {n_full} rays",
-          flush=True)
+          f"{n_sub} rays; kernel {ms4_full:.3f} ms vs plain "
+          f"{plain4_full:.1f} ms (once) at {n_full} rays (bound {b4:.4f} "
+          f"ms, {b4_by})", flush=True)
     results["torus_closest_hit"] = dict(
         source=f"{KERNEL_DIR}/torus_hit.cu",
         replaces=f"{JAX_OPS}/torus_kernel.py:136", max_abs_err=err3,
         ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=b3_by,
         library_ms=None, rays=n_full, config4_ms=ms4,
         config4_plain_ms=plain4, config4_rays=n_sub,
-        config4_ms_full=ms4_full)
+        config4_ms_full=ms4_full, config4_plain_ms_full=plain4_full,
+        config4_bound_ms_full=b4)
 
     # --- K3: config 3 tori at 512x512 -------------------------------------
     print("K3 torus_closest_hit_small (config 3 at 512x512)", flush=True)
@@ -429,77 +474,256 @@ def phase_kernels(torch, results):
         rays=n7)
 
     # --- K5 / K6: config 8, 1.18M triangles ---------------------------------
+    phase_stream(torch, results, rays, light)
+
+
+def stream_bound(torch, n, work, st, attr_tables, t, idx, out_rows):
+    """bound_ms of a K5/K6 call on n rays from the kernel's own counters:
+    work = (slab tests, Woop tests). Bytes: rays in (7 f32) and out_rows
+    f32/i32 rows out, the tree's node boxes and links, the cluster boxes,
+    the rank, and the Woop row (96 B) and attribute columns of each
+    distinct winner (the rows a ray tested but did not keep are not
+    counted, so the bytes side is a lower bound)."""
+    winners = int(torch.unique(idx[t < 1e30]).numel())
+    cols = 96 + (sum(a.shape[0] * 4 for a in attr_tables)
+                 if attr_tables is not None else 0)
+    nb = (n * 4 * (7 + out_rows) + nbytes(st.tree_lo, st.tree_hi,
+                                          st.tree_link, st.clo, st.chi)
+          + st.sb_lo.shape[0] * 4 + winners * cols)
+    box, prim = work
+    print(f"  bound: {nb / 1e6:.1f} MB ({winners} distinct winners), {box} "
+          f"slab tests ({box / n:.1f} per ray), {prim} Woop tests "
+          f"({prim / n:.1f} per ray)", flush=True)
+    return bound(nb, box * SLAB_OPS + prim * WOOP_OPS)
+
+
+def phase_stream(torch, results, rays, light):
+    """K5 and K6 on config 8: the patch against the flat twin (its counts
+    beside the tree walk's), then the full 1080p frame, closest+attrs and
+    the shadow rays any-hit, with bounds from the kernels' counters; the
+    per-call table preparation against the bare launch."""
+    from toroidal_ray_tracing_tpu_torch.ops import tri_stream as tsk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        _inv_dir, box_pass, launch, visit_order)
+    from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import woop_rows
+
+    dev = torch.device(DEVICE)
     sc8, s8 = config(8)
     tri8 = s8.triangles
     cs8 = s8.cluster_size
     clo8, chi8, tables8 = tri_tables(torch, s8)
-    g, S = tsk.superblocks(clo8, chi8, cs8)[:2]
+    sync(torch)
+    t0 = time.perf_counter()
+    st = tsk.stream_tables(tri8.woop_o, tri8.woop_d, clo8, chi8, cs8)
+    sync(torch)
+    build_ms = (time.perf_counter() - t0) * 1e3
+    S, M = st.sb_lo.shape[0], st.tree_lo.shape[0]
     print(f"K5 tri_closest_hit_stream (config 8: {tri8.count} triangles, "
-          f"{clo8.shape[0]} clusters, {S} superblocks of {g})", flush=True)
+          f"{st.clo.shape[0]} clusters, {S} superblocks of {st.g}; tree of "
+          f"{M} nodes, {(M + 1) // 2} leaves, depth {st.depth}, built in "
+          f"{build_ms:.1f} ms)", flush=True)
     o8, d8 = rays(sc8.camera, *FULL)
     n8 = o8.shape[1]
     start = (n8 // 2) // PATCH * PATCH
     op, dp = (a[:, start:start + PATCH].contiguous() for a in (o8, d8))
     tm_p = torch.full((PATCH,), 1e4, device=dev)
 
-    def k5(o_, d_, tm, attrs=True, occl=False, group=0):
+    def k5(o_, d_, tm, attrs=True, occl=False, group=0, work=None):
         return tsk.tri_closest_hit_stream(
-            o_, d_, tm, tri8.woop_o, tri8.woop_d, clo8, chi8, cs8,
-            attr_tables=tables8 if attrs else None, occlusion=occl,
-            group=group)
+            o_, d_, tm, st, attr_tables=tables8 if attrs else None,
+            occlusion=occl, group=group, counters=work)
 
-    inputs = tsk.stream_inputs(op, tri8.woop_o, tri8.woop_d, clo8, chi8, cs8)
+    def counted_call(*args, **kw):
+        work = torch.zeros(2, dtype=torch.int64, device=dev)
+        out = k5(*args, work=work, **kw)
+        return out, tuple(int(x) for x in work.tolist())
 
     def k5_plain(counts=None):
-        return tsk.tri_closest_hit_stream_plain(op, dp, tm_p, *inputs, cs8,
-                                                tables8, counts=counts)
+        order = visit_order(st.sb_lo, st.sb_hi, op, PATCH)
+        return tsk.tri_closest_hit_stream_plain(
+            op, dp, tm_p, st.wrows, st.sb_lo, st.sb_hi, order, st.clo,
+            st.chi, st.g, cs8, tables8, counts=counts)
 
-    counts = {}
+    counts: dict = {}
     t0 = time.perf_counter()
     ref = k5_plain(counts)
     sync(torch)
     plain8 = (time.perf_counter() - t0) * 1e3
-    got = k5(op, dp, tm_p)
+    got, w5p = counted_call(op, dp, tm_p)
     err8 = compare_hits(f"closest+attrs, patch of {PATCH} block-major rays",
                         got, ref, PATCH, attr_rows=4)
     print(f"  K5 bit-equal to its twin on the patch: {bit_equal(got, ref)}",
           flush=True)
-    got6 = k5(op, dp, tm_p, group=16)
+    got6, w6p = counted_call(op, dp, tm_p, group=16)
     check(bit_equal(got6, got), "K6 bit-equal to K5 on the patch")
+    so, sd, stm = shadow_rays(torch, op, dp, got[0], light)
+    compare_hits("any-hit, the patch's shadow rays",
+                 k5(so, sd, stm, False, True),
+                 tsk.tri_closest_hit_stream_plain(
+                     so, sd, stm, st.wrows, st.sb_lo, st.sb_hi,
+                     visit_order(st.sb_lo, st.sb_hi, so, PATCH), st.clo,
+                     st.chi, st.g, cs8, None, True), PATCH, occlusion=True)
+    print(f"  per ray on the patch: flat twin {counts['box'] / PATCH:.1f} "
+          f"slab / {counts['prim'] / PATCH:.1f} Woop tests; K5 tree "
+          f"{w5p[0] / PATCH:.1f} / {w5p[1] / PATCH:.1f}; K6 packet "
+          f"{w6p[0] / PATCH:.1f} / {w6p[1] / PATCH:.1f}", flush=True)
     ms8 = cuda_ms(lambda: k5(op, dp, tm_p))
     ms6 = cuda_ms(lambda: k5(op, dp, tm_p, group=16))
     b8, b8_by = hit_bound(PATCH, counts, WOOP_OPS, tri_table_bytes(
         torch, counts, tri8, (clo8, chi8), tables8, ref[0], ref[1]), 4 + 21)
+    bt8, bt8_by = stream_bound(torch, PATCH, w5p, st, tables8, got[0],
+                               got[1], 4 + 21)
     print(f"  patch: K5 {ms8:.3f} ms, K6 {ms6:.3f} ms vs plain {plain8:.1f} "
-          f"ms (once) (bound {b8:.4f} ms, {b8_by})", flush=True)
+          f"ms (once); bound {b8:.4f} ms ({b8_by}) from the flat twin's "
+          f"work, {bt8:.4f} ms ({bt8_by}) from the tree walk's", flush=True)
+
     print("K5 vs K6 on the full 1080p frame", flush=True)
     tm8 = torch.full((n8,), 1e4, device=dev)
-    full5 = k5(o8, d8, tm8)
-    full6 = k5(o8, d8, tm8, group=16)
+    full5, w5 = counted_call(o8, d8, tm8)
+    full6, w6 = counted_call(o8, d8, tm8, group=16)
     check(bit_equal(full5, full6), "K6 bit-equal to K5, closest+attrs, 1080p")
     so, sd, stm = shadow_rays(torch, o8, d8, full5[0], light)
-    occ5 = k5(so, sd, stm, False, True)
-    occ6 = k5(so, sd, stm, False, True, group=16)
+    occ5, wo5 = counted_call(so, sd, stm, False, True)
+    occ6, wo6 = counted_call(so, sd, stm, False, True, group=16)
     check(torch.equal(occ5[0] < 1e30, occ6[0] < 1e30),
           "K6 any-hit masks equal to K5's, 1080p shadow rays")
+    # A ray's result does not depend on the other rays of its batch: hold
+    # both kernels' full-frame outputs against the flat twin on a sample,
+    # with the visit order of the whole frame. The sample: every
+    # FRAME_STRIDE-th ray (all over the frame), and as many again spread
+    # over the rays that enter the tree's root box (where every hit,
+    # silhouette and incoherent warp lies).
+    def sample(o_, d_, tm):
+        every = torch.arange(0, n8, FRAME_STRIDE, device=dev)
+        near = torch.nonzero(box_pass(st.tree_lo[0], st.tree_hi[0], o_,
+                                      _inv_dir(d_), tm, tm))[:, 0]
+        step = max(1, near.shape[0] // every.shape[0])
+        return torch.unique(torch.cat([every, near[::step]]))
+
+    def twin_at(pick, o_, d_, tm, attrs, occl):
+        return tsk.tri_closest_hit_stream_plain(
+            o_[:, pick].contiguous(), d_[:, pick].contiguous(),
+            tm[pick].contiguous(), st.wrows, st.sb_lo, st.sb_hi,
+            visit_order(st.sb_lo, st.sb_hi, o_, n8), st.clo, st.chi, st.g,
+            cs8, attrs, occl)
+
+    pick = sample(o8, d8, tm8)
+    m8 = pick.shape[0]
+    ref, twin_frame = once_ms(torch, lambda: twin_at(pick, o8, d8, tm8,
+                                                     tables8, False))
+    frame_err = {}
+    for name, out in (("K5", full5), ("K6", full6)):
+        got = tuple(x[..., pick] for x in out)
+        frame_err[name] = compare_hits(
+            f"{name} closest+attrs, {m8} sampled rays of the 1080p frame",
+            got, ref, m8, attr_rows=4)
+        print(f"  {name} bit-equal to its twin there: {bit_equal(got, ref)}",
+              flush=True)
+    pick = sample(so, sd, stm)
+    m8o = pick.shape[0]
+    ref, twin_occ = once_ms(torch, lambda: twin_at(pick, so, sd, stm, None,
+                                                   True))
+    for name, out in (("K5", occ5), ("K6", occ6)):
+        compare_hits(f"{name} any-hit, {m8o} sampled shadow rays",
+                     tuple(x[pick] for x in out), ref, m8o, occlusion=True)
+    del ref
+    print(f"  flat twin on the samples: {twin_frame:.0f} ms closest+attrs, "
+          f"{twin_occ:.0f} ms any-hit (once)", flush=True)
+    hits = int((full5[0] < 1e30).sum())
+    live = int((stm > 1e-3).sum())
     f5 = cuda_ms(lambda: k5(o8, d8, tm8))
     f6 = cuda_ms(lambda: k5(o8, d8, tm8, group=16))
     fo5 = cuda_ms(lambda: k5(so, sd, stm, False, True))
     fo6 = cuda_ms(lambda: k5(so, sd, stm, False, True, group=16))
-    print(f"  {n8} rays, {int((full5[0] < 1e30).sum())} hits: closest+attrs "
+    print(f"  {n8} rays, {hits} hits, {live} live shadow rays: closest+attrs "
           f"K5 {f5:.3f} ms, K6 {f6:.3f} ms; any-hit K5 {fo5:.3f} ms, K6 "
           f"{fo6:.3f} ms", flush=True)
-    common = dict(max_abs_err=err8, plain_ms=plain8, bound_ms=b8,
-                  bound_by=b8_by, library_ms=None, rays=PATCH,
-                  rays_full=n8)
+    bounds = {}
+    for name, n_, work, out, tabs, rows in (
+            ("K5 closest+attrs", n8, w5, full5, tables8, 4 + 21),
+            ("K6 closest+attrs", n8, w6, full6, tables8, 4 + 21),
+            ("K5 any-hit", n8, wo5, occ5, None, 4),
+            ("K6 any-hit", n8, wo6, occ6, None, 4)):
+        print(f" {name}:", flush=True)
+        bounds[name] = stream_bound(torch, n_, work, st, tabs, out[0],
+                                    out[1], rows)
+
+    # the per-call table preparation the per-scene tables save, against
+    # the wrapper (rank, checks, allocations) and the bare launch
+    order8 = visit_order(st.sb_lo, st.sb_hi, o8, n8)
+    rank8 = tsk.tree_rank(order8)
+    outs = [torch.empty((n8,), device=dev) for _ in range(4)]
+    outs[1] = outs[1].to(torch.int32)
+    attrs8 = torch.empty((21, n8), device=dev)
+
+    def bare(entry="", depth=st.depth):
+        launch("trt_tri_closest_hit_stream" + entry, o8, d8, tm8, n8,
+               st.wrows, st.wrows.shape[0], st.tree_lo, st.tree_hi,
+               st.tree_link, M, depth, rank8, st.clo, st.chi, st.g, cs8,
+               *tables8, 0, *outs, attrs8, None)
+
+    refused = 0
+    for entry in ("", "_grouped"):
+        try:
+            bare(entry, depth=1 << 20)
+        except RuntimeError:
+            refused += 1
+    check(refused == 2, "K5 and K6 refuse a tree deeper than their stack")
+    bare_ms = cuda_ms(bare)
+    wrows_ms = cuda_ms(lambda: woop_rows(tri8.woop_o, tri8.woop_d))
+    sb_ms = cuda_ms(lambda: tsk.superblocks(clo8, chi8, cs8))
+    cat_ms = cuda_ms(lambda: tri_tables(torch, s8)[:2])
+    print(f"  K5 full frame: wrapper {f5:.3f} ms, bare launch {bare_ms:.3f} "
+          f"ms; per-call preparation kept per scene: Woop rows "
+          f"{wrows_ms:.3f} ms, superblocks {sb_ms:.3f} ms, tree "
+          f"{build_ms:.1f} ms (stream_tables, host), hoisted cluster boxes "
+          f"and attribute tables {cat_ms:.3f} ms", flush=True)
+    # render() from the scene on the host moves it to the card at every
+    # call; the copies share the scene's tables, so only the first call
+    # builds them
+    from toroidal_ray_tracing_tpu_torch import render
+
+    def render8(scene):
+        return render(scene, sc8.camera, *FULL, sc8.settings(),
+                      backend="kernel", device=DEVICE)
+
+    host8 = _HOST_SCENES[sc8.name]
+    first, host_first = once_ms(torch, lambda: render8(host8))
+    _, host_again = once_ms(torch, lambda: render8(host8))
+    again, card_ms = once_ms(torch, lambda: render8(s8))
+    check(torch.equal(first["image"], again["image"]),
+          "config 8 renders the same from the host scene")
+    print(f"  render of config 8 from the host scene: {host_first:.1f} ms "
+          f"(first call: builds the tables), {host_again:.1f} ms (second); "
+          f"from the scene on the card {card_ms:.1f} ms (one call each)",
+          flush=True)
+    common = dict(plain_ms=plain8, plain_rays=PATCH, library_ms=None,
+                  rays=n8, patch_bound_ms=b8, patch_bound_tree_ms=bt8,
+                  patch_flat_work=(counts["box"], counts["prim"]),
+                  tree_depth=st.depth, tree_nodes=M, table_build_ms=build_ms,
+                  woop_rows_ms=wrows_ms, superblocks_ms=sb_ms,
+                  boxes_tables_ms=cat_ms, bare_launch_ms=bare_ms,
+                  frame_twin_rays=(m8, m8o), frame_twin_ms=twin_frame,
+                  frame_twin_occlusion_ms=twin_occ,
+                  render_host_scene_ms=(host_first, host_again),
+                  render_card_scene_ms=card_ms)
     results["tri_closest_hit_stream"] = dict(
         source=f"{KERNEL_DIR}/tri_stream.cu",
-        replaces=f"{JAX_OPS}/tri_stream.py:202", ms=ms8, ms_full=f5,
-        occlusion_ms_full=fo5, **common)
+        replaces=f"{JAX_OPS}/tri_stream.py:202",
+        max_abs_err=max(err8, frame_err["K5"]), ms=f5,
+        bound_ms=bounds["K5 closest+attrs"][0],
+        bound_by=bounds["K5 closest+attrs"][1], occlusion_ms=fo5,
+        occlusion_bound_ms=bounds["K5 any-hit"][0], work=w5,
+        occlusion_work=wo5, patch_ms=ms8, patch_work=w5p, **common)
     results["tri_closest_hit_stream_grouped"] = dict(
         source=f"{KERNEL_DIR}/tri_stream.cu",
-        replaces=f"{JAX_OPS}/tri_stream.py:303", ms=ms6, ms_full=f6,
-        occlusion_ms_full=fo6, **common)
+        replaces=f"{JAX_OPS}/tri_stream.py:303",
+        max_abs_err=max(err8, frame_err["K6"]), ms=f6,
+        bound_ms=bounds["K6 closest+attrs"][0],
+        bound_by=bounds["K6 closest+attrs"][1], occlusion_ms=fo6,
+        occlusion_bound_ms=bounds["K6 any-hit"][0], work=w6,
+        occlusion_work=wo6, patch_ms=ms6, patch_work=w6p,
+        **common)
 
 
 def write_ppm(path, image):
@@ -728,7 +952,7 @@ def phase_profile(torch, cells, stats):
 
     frame_ms = {s["cell"]: s["ms_per_frame"] for s in stats
                 if "ms_per_frame" in s}
-    ours = re.compile(r"(\w+)\(")
+    ours = re.compile(r"(\w+)(?:<[^>]*>)?\(")   # name, template args
     rows = []
     for name, key, _, cam, st, w, h, _, group in cells:
         if (w, h) != FULL:

@@ -57,9 +57,11 @@ def _compare(mesh, o, d, tmax, mode):
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     tri = scene.triangles
     launches = dict(LAUNCHES)
+    st = port_ts.stream_tables(t(tri.woop_o), t(tri.woop_d),
+                               t(scene.cluster_lo), t(scene.cluster_hi),
+                               scene.cluster_size)
     got = [x.numpy() for x in port_ts.tri_closest_hit_stream(
-        t(o), t(d), t(tmax), t(tri.woop_o), t(tri.woop_d),
-        t(scene.cluster_lo), t(scene.cluster_hi), scene.cluster_size,
+        t(o), t(d), t(tmax), st,
         attr_tables=None if tables is None else tuple(t(a) for a in tables),
         occlusion=occl, n_batch=o.shape[1])]
     assert LAUNCHES == launches        # CPU tensors: the twin, no launch

@@ -163,14 +163,16 @@ _SIGNATURES = {
                                     _P, _P],
     # data4q, n_texels, f0, f1, valid, n, q0, q1, stream
     "trt_quad_gather": [_P, _I, _P, _P, _P, _I, _P, _P, _P],
-    # origins, dirs, tmax, n, wrows, n_tris, sb_lo, sb_hi, order, n_sb, clo,
-    # chi, g, cluster, a0, a1, a2, occlusion, t, idx, u, v, attrs, stream
+    # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
+    # n_nodes, depth, rank, clo, chi, g, cluster, a0, a1, a2, occlusion, t,
+    # idx, u, v, attrs, counters, stream
     "trt_tri_closest_hit_stream": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
-                                   _P, _P, _I, _I, _P, _P, _P, _I, _P, _P,
-                                   _P, _P, _P, _P],
+                                   _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
+                                   _P, _P, _P, _P, _P, _P, _P],
     "trt_tri_closest_hit_stream_grouped": [_P, _P, _P, _I, _P, _I, _P, _P,
-                                           _P, _I, _P, _P, _I, _I, _P, _P,
-                                           _P, _I, _P, _P, _P, _P, _P, _P],
+                                           _P, _I, _I, _P, _P, _P, _I, _I,
+                                           _P, _P, _P, _I, _P, _P, _P, _P,
+                                           _P, _P, _P],
 }
 
 

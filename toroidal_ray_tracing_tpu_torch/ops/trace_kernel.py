@@ -30,7 +30,7 @@ from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, TMIN, round_up
 from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import torus_closest_hit
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import tri_closest_hit
 from toroidal_ray_tracing_tpu_torch.ops.tri_stream import (
-    TRI_STREAM_MIN, tri_closest_hit_stream)
+    TRI_STREAM_MIN, stream_tables, tri_closest_hit_stream)
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
 from toroidal_ray_tracing_tpu_torch.trace import intersect as _isect
 
@@ -67,6 +67,16 @@ def _tri_attr_tables(scene: Scene):
     a1 = torch.cat([tris.e1, tris.n1 - tris.n0, tris.uv1 - tris.uv0], dim=1).T
     a2 = torch.cat([tris.e2, tris.n2 - tris.n0, tris.uv2 - tris.uv0], dim=1).T
     return a0.contiguous(), a1.contiguous(), a2.contiguous()
+
+
+def _kept(scene: Scene, key: str, make):
+    """scene.kernel_tables[(key, device)]: built by make() at the scene's
+    first query on its device. The tables are the scene's own: the query's
+    geometry is the whole scene (`GeomSlice`)."""
+    k = (key, scene.device)
+    if k not in scene.kernel_tables:
+        scene.kernel_tables[k] = make()
+    return scene.kernel_tables[k]
 
 
 def _loose_tri_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int):
@@ -144,7 +154,8 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             cs, n_cl = T, 1
             clo = torch.full((1, 3), -3e38, device=dev)
             chi = torch.full((1, 3), 3e38, device=dev)
-        tables = _tri_attr_tables(scene) if want_attrs else None
+        tables = (_kept(scene, "tri_attrs", lambda: _tri_attr_tables(scene))
+                  if want_attrs else None)
 
         L = scene.loose_tris
         n_tail = (L + cs - 1) // cs if L > 0 and aligned else 0
@@ -173,11 +184,18 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             # the hoist covered every live triangle: no K1 launch at all
             tri_attr = loose_attr
         else:
-            stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
-            launch = tri_closest_hit_stream if stream else tri_closest_hit
-            out = launch(origins, dirs, tri_tmax, geom.woop_o, geom.woop_d,
-                         clo, chi, cs, attr_tables=tables,
-                         occlusion=occlusion, n_batch=n_batch)
+            kw = dict(attr_tables=tables, occlusion=occlusion,
+                      n_batch=n_batch)
+            if T > TRI_STREAM_MIN and cs % 128 == 0 and aligned:
+                # the scene-constant K5/K6 tables; only the rank is per call
+                st = _kept(scene, "stream",
+                           lambda: stream_tables(geom.woop_o, geom.woop_d,
+                                                 clo, chi, cs))
+                out = tri_closest_hit_stream(origins, dirs, tri_tmax, st,
+                                             **kw)
+            else:
+                out = tri_closest_hit(origins, dirs, tri_tmax, geom.woop_o,
+                                      geom.woop_d, clo, chi, cs, **kw)
             tt, ti, tu, tv = out[:4]
             better = tt < t_best
             if want_attrs:

@@ -3,11 +3,13 @@
 
 `tri_closest_hit_stream` is the wrapper. On CUDA tensors it launches the
 hand-written kernel `csrc/tri_stream.cu::tri_closest_hit_stream` (K5, one
-thread per ray), or `tri_closest_hit_stream_grouped` (K6, one CTA of 128
-rays stages each superblock in shared memory) when `STREAM_GROUP > 1`; on
-CPU tensors it runs `tri_closest_hit_stream_plain`, the plain PyTorch twin
-of both. They replace the JAX package's TPU kernels `ops/tri_stream.py:202`
-(`_tri_stream_kernel`) and `:303` (`_tri_stream_grouped_kernel`).
+thread per ray, the 32 rays of a warp walking as a packet), or
+`tri_closest_hit_stream_grouped` (K6, one CTA of 128 rays walks as a
+packet and bulk-copies each leaf's rows into shared memory) when
+`STREAM_GROUP > 1`; on CPU tensors it runs `tri_closest_hit_stream_plain`,
+the plain PyTorch twin of both. They replace the JAX package's TPU kernels
+`ops/tri_stream.py:202` (`_tri_stream_kernel`) and `:303`
+(`_tri_stream_grouped_kernel`).
 
 Contract (the JAX launcher's, `tri_stream.py:468`): K1's, with clusters
 grouped into superblocks of `g` clusters. The superblock set-up is the
@@ -20,6 +22,23 @@ passing superblock the kernels also skip clusters by their own boxes, in
 index order: a skipped cluster holds no hit below the running bound, so the
 key's minimum is unchanged. u/v are the true barycentrics in every mode.
 
+The twin walks every superblock in rank order. The kernels walk a binary
+tree over the superblock boxes instead (`build_tree`): its leaves are the
+non-empty superblocks, one each, with the superblock's own box; each inner
+node's box is the exact min/max of its children's. A packet enters a node
+when any of its rays passes the node at its own bound. Visiting order no
+longer follows the rank, so the kernels compare the full (t, rank, row)
+key and take the rank as `rank[s]`. Where a hit lies within rounding of
+its box's entry face, the bound a box meets can differ between the two
+orders; everywhere else the two walks return the same bits.
+
+The scene-constant tables (`StreamTables`: the Woop rows, the padded
+cluster boxes, the superblock boxes and the tree) are built by
+`stream_tables`, once per mesh: the tree is a host build (~0.3 s at config
+8), so the wrapper takes the tables and never builds them. The
+orchestrator keeps them per scene and device. Only the rank, which depends
+on the batch's mean origin, is computed per call.
+
 Not carried over (TPU machinery, default-off A/B paths): the per-span XLA
 visit gate and its packed SMEM rows, the visit-row cap and its overflow
 fallback, and the HIER / NOGATE / DIAG / SUB switches.
@@ -27,8 +46,10 @@ fallback, and the HIER / NOGATE / DIAG / SUB switches.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 
+import numpy as np
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
@@ -44,6 +65,7 @@ STREAM_GROUP = int(os.environ.get("TRT_STREAM_GROUP", "0"))
 # > 1 selects K6, as the same switch selects the grouped TPU kernel
 # (tri_stream.py:446); 0, the default, runs K5. On the GPU a group is one
 # CTA of 128 rays whatever the value.
+SAH_BINS = 16
 
 
 def superblocks(cluster_lo, cluster_hi, cluster: int):
@@ -72,15 +94,139 @@ def superblocks(cluster_lo, cluster_hi, cluster: int):
             sb_hi.contiguous())
 
 
+def build_tree(sb_lo, sb_hi, leaves):
+    """Binary tree over the superblocks `leaves` (ids), top-down binned SAH
+    on the box centroids along the widest centroid axis (object median
+    where binning cannot split). Nodes in depth-first preorder, root 0,
+    left child m + 1. Returns numpy (lo (M, 3) f32, hi (M, 3) f32, link
+    (M, 3) i32, depth): link is (left, right, split axis) for an inner node
+    (left holds the lower centroids) and (-1 - s, -1 - s, -1) for the leaf
+    of superblock s, whose box is the superblock's; depth counts the inner
+    nodes on the longest root-to-leaf path. Two-wide: config 8's 3,339
+    leaves make a tree 16 deep, which the kernels' 64-entry stack holds
+    (their entry points refuse a deeper one); a binary node needs no
+    ordering of its children beyond one direction sign, and a packet
+    pushes at most one far child per level."""
+    slo, shi = np.asarray(sb_lo, np.float32), np.asarray(sb_hi, np.float32)
+    cent = (slo.astype(np.float64) + shi) * 0.5
+    lo, hi, link = [], [], []
+
+    def area(l, h):
+        e = np.maximum(h - l, 0.0)
+        return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] \
+            + e[..., 2] * e[..., 0]
+
+    def split(ids):
+        c = cent[ids]
+        cmin, cmax = c.min(axis=0), c.max(axis=0)
+        axis = int(np.argmax(cmax - cmin))
+        ext = cmax[axis] - cmin[axis]
+        if ext > 0:
+            b = np.minimum(((c[:, axis] - cmin[axis]) / ext
+                            * SAH_BINS).astype(np.int64), SAH_BINS - 1)
+            blo = np.full((SAH_BINS, 3), np.inf)
+            bhi = np.full((SAH_BINS, 3), -np.inf)
+            np.minimum.at(blo, b, slo[ids])
+            np.maximum.at(bhi, b, shi[ids])
+            cnt = np.bincount(b, minlength=SAH_BINS)
+            llo = np.minimum.accumulate(blo)
+            lhi = np.maximum.accumulate(bhi)
+            rlo = np.minimum.accumulate(blo[::-1])[::-1]
+            rhi = np.maximum.accumulate(bhi[::-1])[::-1]
+            nl = np.cumsum(cnt)
+            cost = area(llo[:-1], lhi[:-1]) * nl[:-1] \
+                + area(rlo[1:], rhi[1:]) * (len(ids) - nl[:-1])
+            cost[(nl[:-1] == 0) | (nl[:-1] == len(ids))] = np.inf
+            k = int(np.argmin(cost))
+            if np.isfinite(cost[k]):
+                return axis, ids[b <= k], ids[b > k]
+        ids = ids[np.argsort(c[:, axis], kind="stable")]
+        return axis, ids[:len(ids) // 2], ids[len(ids) // 2:]
+
+    def node(ids):
+        m = len(lo)
+        lo.append(None)
+        hi.append(None)
+        link.append(None)
+        if len(ids) == 1:
+            s = int(ids[0])
+            lo[m], hi[m], link[m] = slo[s], shi[s], (-1 - s, -1 - s, -1)
+            return 0
+        axis, left, right = split(ids)
+        dl = node(left)
+        r = len(lo)
+        dr = node(right)
+        lo[m] = np.minimum(lo[m + 1], lo[r])
+        hi[m] = np.maximum(hi[m + 1], hi[r])
+        link[m] = (m + 1, r, axis)
+        return 1 + max(dl, dr)
+
+    leaves = np.asarray(leaves, np.int64)
+    depth = node(leaves) if len(leaves) else 0
+    return (np.array(lo, np.float32).reshape(-1, 3),
+            np.array(hi, np.float32).reshape(-1, 3),
+            np.array(link, np.int32).reshape(-1, 3), depth)
+
+
+@dataclasses.dataclass
+class StreamTables:
+    """The scene-constant inputs of K5/K6 and their twin."""
+
+    g: int
+    cluster: int
+    wrows: torch.Tensor      # (T, 24) Woop rows
+    clo: torch.Tensor        # (S * g, 3) cluster boxes, far-padded
+    chi: torch.Tensor
+    sb_lo: torch.Tensor      # (S, 3) superblock boxes
+    sb_hi: torch.Tensor
+    tree_lo: torch.Tensor    # (M, 3) node boxes
+    tree_hi: torch.Tensor
+    tree_link: torch.Tensor  # (M, 3) int32, see build_tree
+    depth: int
+
+
+def stream_tables(woop_o, woop_d, cluster_lo, cluster_hi,
+                  cluster: int) -> StreamTables:
+    """Build the scene-constant tables of a mesh: woop_o (3, 4, T); woop_d
+    (3, 3, T); cluster_lo/hi (C, 3) with C * cluster == T and cluster %
+    128 == 0 (the kernels take whole 128-multiple clusters). One host sync:
+    the tree is built on the host from the superblock boxes."""
+    T, C = woop_o.shape[2], cluster_lo.shape[0]
+    if cluster % 128 or C * cluster != T:
+        raise ValueError(f"{C} clusters x {cluster} vs {T} triangles: the "
+                         "stream kernels take whole 128-multiple clusters")
+    g, S, clo, chi, sb_lo, sb_hi = superblocks(cluster_lo, cluster_hi,
+                                               cluster)
+    live = ~(clo[:, 0] > 1e29).reshape(S, g).all(dim=1)
+    tlo, thi, tlink, depth = build_tree(sb_lo.cpu().numpy(),
+                                        sb_hi.cpu().numpy(),
+                                        np.nonzero(live.cpu().numpy())[0])
+    dev = cluster_lo.device
+    return StreamTables(
+        g=g, cluster=cluster, wrows=woop_rows(woop_o, woop_d), clo=clo,
+        chi=chi, sb_lo=sb_lo, sb_hi=sb_hi,
+        tree_lo=torch.from_numpy(tlo).to(dev),
+        tree_hi=torch.from_numpy(thi).to(dev),
+        tree_link=torch.from_numpy(tlink).to(dev), depth=depth)
+
+
+def tree_rank(order):
+    """rank[s]: the position of superblock s in the visit order."""
+    rank = torch.empty_like(order)
+    rank[order.long()] = torch.arange(order.shape[0], dtype=order.dtype,
+                                      device=order.device)
+    return rank
+
+
 def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,
                                  order, clo, chi, g: int, cluster: int,
                                  attr_tables=None, occlusion: bool = False,
                                  counts=None):
     """Plain PyTorch twin of K5 and K6: vectorized over rays, one loop step
     per superblock in `order`, then per cluster in it. Returns (t, idx, u,
-    v[, attrs]). counts: optional dict of the kernels' (ray, box) slab tests
-    ("box"), (ray, triangle) Woop tests ("prim") and the distinct triangles
-    some ray tests ("rows")."""
+    v[, attrs]). counts: optional dict of this flat walk's (ray, box) slab
+    tests ("box"), (ray, triangle) Woop tests ("prim") and the distinct
+    triangles some ray tests ("rows")."""
     n = origins.shape[1]
     T = wrows.shape[0]
     o, d, inv, state = walk_start(origins, dirs)
@@ -115,53 +261,45 @@ def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,
     return state + (winner_attrs(attr_tables, *state),)
 
 
-def stream_inputs(origins, woop_o, woop_d, cluster_lo, cluster_hi,
-                  cluster: int, n_batch: int | None = None):
-    """The tables as the wrapper passes them to the kernels or the twin:
-    (wrows, sb_lo, sb_hi, order, clo, chi, g)."""
-    g, S, clo, chi, sb_lo, sb_hi = superblocks(cluster_lo, cluster_hi,
-                                               cluster)
-    order = visit_order(sb_lo, sb_hi, origins, n_batch or origins.shape[1])
-    return woop_rows(woop_o, woop_d), sb_lo, sb_hi, order, clo, chi, g
-
-
-def tri_closest_hit_stream(origins, dirs, tmax, woop_o, woop_d, cluster_lo,
-                           cluster_hi, cluster: int, attr_tables=None,
-                           occlusion: bool = False,
+def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
+                           attr_tables=None, occlusion: bool = False,
                            n_batch: int | None = None,
-                           group: int | None = None):
-    """K5/K6 wrapper, K1's contract. origins/dirs (3, N); tmax (N,); woop_o
-    (3, 4, T); woop_d (3, 3, T); cluster_lo/hi (C, 3) with C * cluster == T
-    and cluster % 128 == 0. attr_tables: optional ((21, T), (8, T), (8, T)).
-    n_batch: the batch size the superblock rank averages origins over (the
-    caller's padded batch; default N). group: K6 when > 1 (default: the
-    module's STREAM_GROUP). Returns (t, idx, u, v[, attrs (21, N)])."""
+                           group: int | None = None, counters=None):
+    """K5/K6 wrapper, K1's contract. origins/dirs (3, N); tmax (N,);
+    tables: the mesh's `stream_tables`. attr_tables: optional ((21, T), (8,
+    T), (8, T)). n_batch: the batch size the superblock rank averages
+    origins over (the caller's padded batch; default N). group: K6 when > 1
+    (default: the module's STREAM_GROUP). counters: optional (2,) int64
+    CUDA tensor the kernel adds its (ray, box) slab tests and (ray,
+    triangle) Woop tests to. Returns (t, idx, u, v[, attrs (21, N)])."""
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
-    T = woop_o.shape[2]
-    C = cluster_lo.shape[0]
-    if cluster % 128 or C * cluster != T:
-        raise ValueError(f"{C} clusters x {cluster} vs {T} triangles: the "
-                         "stream kernels take whole 128-multiple clusters")
+    tb = tables
     group = STREAM_GROUP if group is None else group
-    wrows, sb_lo, sb_hi, order, clo, chi, g = stream_inputs(
-        origins, woop_o, woop_d, cluster_lo, cluster_hi, cluster, n_batch)
-    S, Cp = sb_lo.shape[0], clo.shape[0]
+    T, S, Cp, M = (tb.wrows.shape[0], tb.sb_lo.shape[0], tb.clo.shape[0],
+                   tb.tree_lo.shape[0])
+    order = visit_order(tb.sb_lo, tb.sb_hi, origins, n_batch or n)
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
-    check_args(origins.device, wrows=(wrows, (T, 24), F32),
-               sb_lo=(sb_lo, (S, 3), F32), sb_hi=(sb_hi, (S, 3), F32),
-               order=(order, (S,), I32), clo=(clo, (Cp, 3), F32),
-               chi=(chi, (Cp, 3), F32), a0=(a0, (N_ATTR, T), F32),
-               a1=(a1, (8, T), F32), a2=(a2, (8, T), F32))
+    check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
+               sb_lo=(tb.sb_lo, (S, 3), F32), sb_hi=(tb.sb_hi, (S, 3), F32),
+               clo=(tb.clo, (Cp, 3), F32), chi=(tb.chi, (Cp, 3), F32),
+               tree_lo=(tb.tree_lo, (M, 3), F32),
+               tree_hi=(tb.tree_hi, (M, 3), F32),
+               tree_link=(tb.tree_link, (M, 3), I32),
+               a0=(a0, (N_ATTR, T), F32), a1=(a1, (8, T), F32),
+               a2=(a2, (8, T), F32),
+               counters=(counters, (2,), torch.int64))
 
     if not origins.is_cuda:
-        return tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo,
-                                            sb_hi, order, clo, chi, g,
-                                            cluster, attr_tables, occlusion)
+        if counters is not None:
+            raise ValueError("counters count the CUDA kernels' work")
+        return tri_closest_hit_stream_plain(
+            origins, dirs, tmax, tb.wrows, tb.sb_lo, tb.sb_hi, order, tb.clo,
+            tb.chi, tb.g, tb.cluster, attr_tables, occlusion)
 
-    # K6 stages one superblock of <= STREAM_MAX_SB rows (48 KB); its entry
-    # point refuses a larger one with an error that `launch` raises
-    name = "trt_tri_closest_hit_stream" + ("_grouped" if group > 1 else "")
+    # the entry points refuse a tree deeper than the kernels' stack, and K6
+    # a superblock of more than STREAM_MAX_SB rows (48 KB staged), with an
+    # error that `launch` raises
     f32 = dict(dtype=torch.float32, device=origins.device)
     t = torch.empty((n,), **f32)
     idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
@@ -170,7 +308,10 @@ def tri_closest_hit_stream(origins, dirs, tmax, woop_o, woop_d, cluster_lo,
     attrs = (torch.empty((N_ATTR, n), **f32) if attr_tables is not None
              else None)
     if n:
-        launch(name, origins, dirs, tmax, n, wrows, T, sb_lo, sb_hi, order,
-               S, clo, chi, g, cluster, a0, a1, a2, int(occlusion), t, idx,
-               u, v, attrs)
+        args = (origins, dirs, tmax, n, tb.wrows, T, tb.tree_lo, tb.tree_hi,
+                tb.tree_link, M, tb.depth, tree_rank(order), tb.clo, tb.chi,
+                tb.g, tb.cluster, a0, a1, a2, int(occlusion), t, idx, u, v,
+                attrs, counters)
+        launch("trt_tri_closest_hit_stream"
+               + ("_grouped" if group > 1 else ""), *args)
     return (t, idx, u, v) + ((attrs,) if attrs is not None else ())

@@ -321,6 +321,12 @@ class Scene:
     cluster_hi: torch.Tensor   # (C, 3) f32
     cluster_size: int = 128
     loose_tris: int = 0
+    # tables the kernel backend derives from the scene, built at its first
+    # query on a device and keyed by (name, device) (ops/trace_kernel.py);
+    # a copy made by `to` shares them, so a scene moved to the card on every
+    # `render` builds them once
+    kernel_tables: dict = dataclasses.field(
+        default_factory=dict, init=False, repr=False, compare=False)
 
     @property
     def num_triangles(self) -> int:
@@ -335,5 +341,8 @@ class Scene:
         return self.cluster_lo.device
 
     def to(self, device) -> "Scene":
-        """The `to_device` analog: a Scene whose tensors live on `device`."""
-        return _to(self, device)
+        """The `to_device` analog: a Scene whose tensors live on `device`,
+        sharing this scene's `kernel_tables`."""
+        moved = _to(self, device)
+        moved.kernel_tables = self.kernel_tables
+        return moved

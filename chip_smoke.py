@@ -230,7 +230,7 @@ def shadow_rays(torch, o, d, t_hit, light):
             torch.where(hit, dist, 0.0))
 
 
-def tri_tables(torch, scene):
+def hoisted_tables(torch, scene):
     """The triangle tables as the main path passes them: loose tail
     clusters hoisted to far boxes, attr tables."""
     from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
@@ -244,6 +244,44 @@ def tri_tables(torch, scene):
     return clo, chi, _tri_attr_tables(scene)
 
 
+def equal_rays(got, ref) -> int:
+    """Rays whose every output (t, idx[, u, v][, attr columns]) is
+    bit-equal in got and ref."""
+    import torch
+
+    same = torch.ones_like(got[0], dtype=torch.bool)
+    for a, b in zip(got, ref):
+        eq = a == b
+        same &= eq.all(dim=0) if eq.dim() == 2 else eq
+    return int(same.sum())
+
+
+def work_bound(torch, n, work, prim_ops, const_bytes, winner_bytes, t, idx,
+               out_rows, prim_name):
+    """bound_ms of a tree-walk call on n rays from the kernel's own
+    counters: work = (slab tests, primitive tests). Bytes: rays in (7 f32)
+    and out_rows f32/i32 rows out, the tables every call reads
+    (const_bytes: tree, boxes, rank) and winner_bytes for each distinct
+    winner (the primitives a ray tested but did not keep are not counted,
+    so the bytes side is a lower bound)."""
+    winners = int(torch.unique(idx[t < 1e30]).numel())
+    nb = n * 4 * (7 + out_rows) + const_bytes + winners * winner_bytes
+    box, prim = work
+    print(f"  bound: {nb / 1e6:.1f} MB ({winners} distinct winners), {box} "
+          f"slab tests ({box / n:.1f} per ray), {prim} {prim_name} "
+          f"({prim / n:.2f} per ray)", flush=True)
+    return bound(nb, box * SLAB_OPS + prim * prim_ops)
+
+
+def refuses_deep_tree(launcher) -> bool:
+    """The entry point returns an error for a tree deeper than kStack."""
+    try:
+        launcher(depth=1 << 20)
+    except RuntimeError:
+        return True
+    return False
+
+
 def phase_kernels(torch, results):
     from toroidal_ray_tracing_tpu_torch import render
     from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera
@@ -251,8 +289,8 @@ def phase_kernels(torch, results):
     from toroidal_ray_tracing_tpu_torch.ops import tex_kernel as txk
     from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tk
     from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
-    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (round_up,
-                                                                  visit_order)
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        launch, round_up, tree_rank, visit_order)
     from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import _material_rows
     from toroidal_ray_tracing_tpu_torch.scene import RenderSettings
     from toroidal_ray_tracing_tpu_torch.trace import shade
@@ -270,139 +308,269 @@ def phase_kernels(torch, results):
     def subset(n, m=SUBSET):
         return torch.randperm(n, generator=gen)[:m].sort().values.to(dev)
 
+    def counters():
+        return torch.zeros(2, dtype=torch.int64, device=dev)
+
     cam36 = PinholeCamera(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0))
     o, d = rays(cam36, *FULL)
     n_full = o.shape[1]
     sel = subset(n_full)
     os_, ds_ = o[:, sel].contiguous(), d[:, sel].contiguous()
     n_sub = os_.shape[1]
+    tm_sub = torch.full((n_sub,), 1e4, device=dev)
+    tm_full = torch.full((n_full,), 1e4, device=dev)
 
     # --- K1: config 6 mesh, the tables as the main path passes them -------
-    print("K1 tri_closest_hit (config 6, 23k-triangle mesh)", flush=True)
     _, scene = config(6)
     tri = scene.triangles
     cs = scene.cluster_size
-    clo, chi, tables = tri_tables(torch, scene)
-    wrows = trk.woop_rows(tri.woop_o, tri.woop_d)
+    clo, chi, tables = hoisted_tables(torch, scene)
+    tb, k1_build_ms = once_ms(torch, lambda: trk.tri_tables(
+        tri.woop_o, tri.woop_d, clo, chi, cs))
+    M1 = tb.tree_lo.shape[0]
+    print(f"K1 tri_closest_hit (config 6: {tri.count} triangles, "
+          f"{clo.shape[0]} clusters; tree of {M1} nodes, {(M1 + 1) // 2} "
+          f"leaves, depth {tb.depth}, tables built in {k1_build_ms:.1f} ms)",
+          flush=True)
 
-    def k1(o_, d_, tm, attrs=True, occl=False):
-        return trk.tri_closest_hit(o_, d_, tm, tri.woop_o, tri.woop_d, clo,
-                                   chi, cs, attr_tables=tables if attrs
-                                   else None, occlusion=occl)
+    def k1(o_, d_, tm, attrs=True, occl=False, work=None):
+        return trk.tri_closest_hit(o_, d_, tm, tb, attr_tables=tables
+                                   if attrs else None, occlusion=occl,
+                                   counters=work)
 
     def k1_plain(o_, d_, tm, attrs=True, occl=False, counts=None):
-        order = visit_order(clo, chi, o_, o_.shape[1])
-        return trk.tri_closest_hit_plain(o_, d_, tm, wrows, clo, chi, order,
-                                         cs, True, tables if attrs else None,
-                                         occl, counts=counts)
+        order = visit_order(tb.clo, tb.chi, o_, o_.shape[1])
+        return trk.tri_closest_hit_plain(o_, d_, tm, tb.wrows, tb.clo,
+                                         tb.chi, order, cs, True,
+                                         tables if attrs else None, occl,
+                                         counts=counts)
 
-    tm_sub = torch.full((n_sub,), 1e4, device=dev)
+    def k1_bare(o_, d_, tm, attrs=True, occl=False):
+        """The kernel's launch alone: the rank and buffers made once."""
+        n_ = o_.shape[1]
+        rank = tree_rank(visit_order(tb.clo, tb.chi, o_, n_))
+        outs = [torch.empty((n_,), device=dev) for _ in range(4)]
+        outs[1] = outs[1].to(torch.int32)
+        attr = torch.empty((21, n_), device=dev) if attrs else None
+
+        def run(depth=tb.depth):
+            launch("trt_tri_closest_hit", o_, d_, tm, n_, tb.wrows,
+                   tb.wrows.shape[0], tb.tree_lo, tb.tree_hi, tb.tree_link,
+                   M1, depth, rank, cs, 1, *(tables if attrs else (None,) * 3),
+                   int(occl), *outs, attr, None)
+        return run
+
+    def k1_counted(*args, **kw):
+        work = counters()
+        out = k1(*args, work=work, **kw)
+        return out, tuple(int(x) for x in work.tolist())
+
+    k1_const = nbytes(tb.tree_lo, tb.tree_hi, tb.tree_link) + \
+        tb.clo.shape[0] * 4
+    k1_cols = 96 + sum(a.shape[0] * 4 for a in tables)
+    check(refuses_deep_tree(k1_bare(os_, ds_, tm_sub)),
+          "K1 refuses a tree deeper than its stack")
+
     counts: dict = {}
-    got = k1(os_, ds_, tm_sub)
+    got, w1s = k1_counted(os_, ds_, tm_sub)
     ref = k1_plain(os_, ds_, tm_sub, counts=counts)
     err = compare_hits("closest+attrs", got, ref, n_sub, attr_rows=4)
+    print(f"  bit-equal rays: {equal_rays(got, ref)} of {n_sub}", flush=True)
     # u/v are the true barycentrics on both sides
     same = (got[0] < 1e30) & (ref[0] < 1e30) & (got[1] == ref[1])
     check(bool(((got[2] - ref[2])[same].abs() <= 1e-4).all()
                and ((got[3] - ref[3])[same].abs() <= 1e-4).all()),
           "K1 u/v within 1e-4 on common winners")
     ms = cuda_ms(lambda: k1(os_, ds_, tm_sub))
+    bare_sub = cuda_ms(k1_bare(os_, ds_, tm_sub))
     plain_ms = cuda_ms(lambda: k1_plain(os_, ds_, tm_sub))
-    tm_full = torch.full((n_full,), 1e4, device=dev)
-    ms_full = cuda_ms(lambda: k1(o, d, tm_full))
     b_ms, b_by = hit_bound(n_sub, counts, WOOP_OPS, tri_table_bytes(
         torch, counts, tri, (clo, chi), tables, ref[0], ref[1]), 4 + 21)
-    print(f"  closest+attrs: kernel {ms:.3f} ms vs plain {plain_ms:.3f} ms "
-          f"at {n_sub} rays (bound {b_ms:.4f} ms, {b_by}); kernel "
-          f"{ms_full:.3f} ms at {n_full} rays", flush=True)
+    bt_ms, bt_by = work_bound(torch, n_sub, w1s, WOOP_OPS, k1_const,
+                              k1_cols, got[0], got[1], 4 + 21, "Woop tests")
+    print(f"  subset closest+attrs: wrapper {ms:.3f} ms, bare launch "
+          f"{bare_sub:.3f} ms vs plain {plain_ms:.3f} ms at {n_sub} rays; "
+          f"bound {b_ms:.4f} ms ({b_by}) from the flat twin's work "
+          f"({counts['box'] / n_sub:.1f} slab / {counts['prim'] / n_sub:.1f}"
+          f" Woop tests per ray), {bt_ms:.4f} ms ({bt_by}) from the tree "
+          f"walk's", flush=True)
     so, sd, stm = shadow_rays(torch, os_, ds_, got[0], light)
     counts = {}
     occ = k1_plain(so, sd, stm, False, True, counts=counts)
-    compare_hits("occlusion (shadow rays)", k1(so, sd, stm, False, True),
-                 occ, n_sub, occlusion=True)
+    got_occ, w1o = k1_counted(so, sd, stm, False, True)
+    compare_hits("occlusion (shadow rays)", got_occ, occ, n_sub,
+                 occlusion=True)
     occ_ms = cuda_ms(lambda: k1(so, sd, stm, False, True))
+    occ_bare = cuda_ms(k1_bare(so, sd, stm, False, True))
     occ_plain = cuda_ms(lambda: k1_plain(so, sd, stm, False, True))
     bo, bo_by = hit_bound(n_sub, counts, WOOP_OPS, tri_table_bytes(
         torch, counts, tri, (clo, chi), (), occ[0], occ[1]), 4)
-    print(f"  occlusion: kernel {occ_ms:.3f} ms vs plain {occ_plain:.3f} ms "
-          f"(bound {bo:.4f} ms, {bo_by})", flush=True)
+    bot, bot_by = work_bound(torch, n_sub, w1o, WOOP_OPS, k1_const, 96,
+                             got_occ[0], got_occ[1], 4, "Woop tests")
+    print(f"  occlusion: wrapper {occ_ms:.3f} ms, bare launch "
+          f"{occ_bare:.3f} ms vs plain {occ_plain:.3f} ms (bound {bo:.4f} "
+          f"ms ({bo_by}) from the flat twin's work, {bot:.4f} ms ({bot_by}) "
+          f"from the tree walk's)", flush=True)
     # the full frame, as the main path launches K1 on its primary rays
     counts = {}
-    got = k1(o, d, tm_full)
+    got, w1f = k1_counted(o, d, tm_full)
     ref, plain_full = once_ms(torch, lambda: k1_plain(o, d, tm_full,
                                                       counts=counts))
     err_full = compare_hits("closest+attrs, full frame", got, ref, n_full,
                             attr_rows=4)
+    print(f"  bit-equal rays: {equal_rays(got, ref)} of {n_full}",
+          flush=True)
     bf, bf_by = hit_bound(n_full, counts, WOOP_OPS, tri_table_bytes(
         torch, counts, tri, (clo, chi), tables, ref[0], ref[1]), 4 + 21)
+    bft, bft_by = work_bound(torch, n_full, w1f, WOOP_OPS, k1_const,
+                             k1_cols, got[0], got[1], 4 + 21, "Woop tests")
+    flat_work = (counts["box"], counts["prim"])
     del ref
-    print(f"  full frame: kernel {ms_full:.3f} ms vs plain {plain_full:.1f} "
-          f"ms (once) at {n_full} rays (bound {bf:.4f} ms, {bf_by})",
-          flush=True)
+    ms_full = cuda_ms(lambda: k1(o, d, tm_full))
+    bare_full = cuda_ms(k1_bare(o, d, tm_full))
+    wrows_ms = cuda_ms(lambda: trk.woop_rows(tri.woop_o, tri.woop_d))
+    print(f"  full frame: wrapper {ms_full:.3f} ms, bare launch "
+          f"{bare_full:.3f} ms vs plain {plain_full:.1f} ms (once) at "
+          f"{n_full} rays; bound {bf:.4f} ms ({bf_by}) from the flat twin's "
+          f"work ({flat_work[0] / n_full:.1f} slab / "
+          f"{flat_work[1] / n_full:.1f} Woop tests per ray), {bft:.4f} ms "
+          f"({bft_by}) from the tree walk's; per-call Woop rows the kept "
+          f"tables save: {wrows_ms:.3f} ms", flush=True)
     results["tri_closest_hit"] = dict(
         source=f"{KERNEL_DIR}/tri_hit.cu",
         replaces=f"{JAX_OPS}/tri_kernel.py:77", max_abs_err=err_full,
-        ms=ms_full, plain_ms=plain_full, bound_ms=bf, bound_by=bf_by,
-        library_ms=None, rays=n_full, subset_ms=ms, subset_plain_ms=plain_ms,
-        subset_bound_ms=b_ms, subset_rays=n_sub, occlusion_ms=occ_ms,
-        occlusion_plain_ms=occ_plain, occlusion_bound_ms=bo)
+        ms=ms_full, bare_ms=bare_full, plain_ms=plain_full, bound_ms=bft,
+        bound_by=bft_by, flat_bound_ms=bf, flat_bound_by=bf_by,
+        library_ms=None, rays=n_full, work=w1f, flat_work=flat_work,
+        tree_nodes=M1, tree_depth=tb.depth, table_build_ms=k1_build_ms,
+        woop_rows_ms=wrows_ms, subset_ms=ms, subset_bare_ms=bare_sub,
+        subset_plain_ms=plain_ms, subset_bound_ms=bt_ms,
+        subset_flat_bound_ms=b_ms, subset_rays=n_sub, occlusion_ms=occ_ms,
+        occlusion_bare_ms=occ_bare, occlusion_plain_ms=occ_plain,
+        occlusion_bound_ms=bot, occlusion_flat_bound_ms=bo)
 
-    # --- K2: config 3 tori at 1080p, config 4 tori on a subset ------------
-    print("K2 torus_closest_hit", flush=True)
-    _, s3 = config(3)
-    tor = s3.tori
-    mat3 = _material_rows(s3, tor.mat_id).contiguous()
-
-    def k2(sc, mat, o_, d_, tm, plain=False, counts=None):
+    # --- K2: config 3 tori at 1080p, config 4 tori on a subset and 1080p --
+    def torus_tables(sc):
         t = sc.tori
-        args = (o_, d_, tm, t.world_to_obj, t.major_radius, t.minor_radius)
-        if not plain:
-            return tk.torus_closest_hit_chunked(*args, mat_table=mat)
-        return tk.torus_chunked_plain(*args[:3], *tk.chunked_inputs(
-            o_, t.world_to_obj, t.major_radius, t.minor_radius, mat),
+        return once_ms(torch, lambda: tk.torus_tables(
+            t.world_to_obj, t.major_radius, t.minor_radius,
+            _material_rows(sc, t.mat_id).contiguous()))
+
+    def k2(tt, o_, d_, tm, attrs=True, occl=False, work=None):
+        return tk.torus_closest_hit_chunked(o_, d_, tm, tt, want_attrs=attrs,
+                                            occlusion=occl, counters=work)
+
+    def k2_plain(tt, o_, d_, tm, attrs=True, occl=False, counts=None):
+        order = visit_order(tt.clo, tt.chi, o_, o_.shape[1])
+        return tk.torus_chunked_plain(
+            o_, d_, tm, tt.w2o_rows, tt.rad, tt.tor_lo, tt.tor_hi, tt.clo,
+            tt.chi, order, tt.chunk, tt.mat if attrs else None, occl,
             counts=counts)
 
-    counts = {}
-    err3 = compare_hits("config 3 (4 tori) closest+attrs",
-                        k2(s3, mat3, o, d, tm_full),
-                        k2(s3, mat3, o, d, tm_full, plain=True,
-                           counts=counts), n_full, attr_rows=2)
-    ms3 = cuda_ms(lambda: k2(s3, mat3, o, d, tm_full))
-    plain3 = cuda_ms(lambda: k2(s3, mat3, o, d, tm_full, plain=True))
-    b3, b3_by = hit_bound(n_full, counts, QUARTIC_OPS, 0, 2 + 15)
-    print(f"  config 3: kernel {ms3:.3f} ms vs plain {plain3:.3f} ms at "
-          f"{n_full} rays (bound {b3:.4f} ms, {b3_by})", flush=True)
+    def k2_bare(tt, o_, d_, tm, attrs=True, occl=False):
+        n_ = o_.shape[1]
+        rank = tree_rank(visit_order(tt.clo, tt.chi, o_, n_))
+        t_ = torch.empty((n_,), device=dev)
+        i_ = torch.empty((n_,), dtype=torch.int32, device=dev)
+        attr = torch.empty((15, n_), device=dev) if attrs else None
+
+        def run(depth=tt.depth):
+            launch("trt_torus_closest_hit", o_, d_, tm, n_, tt.w2o_rows,
+                   tt.rad, tt.tree_lo, tt.tree_hi, tt.tree_link,
+                   tt.tree_lo.shape[0], depth, rank, tt.chunk,
+                   tt.mat if attrs else None, int(occl), t_, i_, attr, None)
+        return run
+
+    def k2_counted(*args, **kw):
+        work = counters()
+        out = k2(*args, work=work, **kw)
+        return out, tuple(int(x) for x in work.tolist())
+
+    def k2_const(tt):
+        return nbytes(tt.tree_lo, tt.tree_hi, tt.tree_link) + \
+            tt.clo.shape[0] * 4
+
+    k2_cols = (12 + 2 + 12) * 4   # a winner's transform, radii, material
+
+    def k2_cell(label, tt, o_, d_, tm, plain_timed):
+        """K2 closest+attrs on one ray set against the flat twin: the
+        comparison, both bounds, wrapper / bare / plain times."""
+        n_ = o_.shape[1]
+        counts: dict = {}
+        got, work = k2_counted(tt, o_, d_, tm)
+        if plain_timed:
+            ref = k2_plain(tt, o_, d_, tm, counts=counts)
+            plain = cuda_ms(lambda: k2_plain(tt, o_, d_, tm))
+            plain_note = f"{plain:.3f} ms"
+        else:
+            ref, plain = once_ms(torch, lambda: k2_plain(tt, o_, d_, tm,
+                                                         counts=counts))
+            plain_note = f"{plain:.1f} ms (once)"
+        err = compare_hits(f"{label} closest+attrs", got, ref, n_,
+                           attr_rows=2)
+        print(f"  bit-equal rays: {equal_rays(got, ref)} of {n_}",
+              flush=True)
+        fb, fb_by = hit_bound(n_, counts, QUARTIC_OPS, 0, 2 + 15)
+        tb_, tb_by = work_bound(torch, n_, work, QUARTIC_OPS, k2_const(tt),
+                                k2_cols, got[0], got[1], 2 + 15, "quartics")
+        del ref
+        wrapped = cuda_ms(lambda: k2(tt, o_, d_, tm))
+        bare = cuda_ms(k2_bare(tt, o_, d_, tm))
+        print(f"  {label}: wrapper {wrapped:.3f} ms, bare launch "
+              f"{bare:.3f} ms vs plain {plain_note} at {n_} rays; bound "
+              f"{fb:.4f} ms ({fb_by}) from the flat twin's work "
+              f"({counts['box'] / n_:.1f} slab tests, "
+              f"{counts['prim'] / n_:.2f} quartics per ray), {tb_:.4f} ms "
+              f"({tb_by}) from the tree walk's", flush=True)
+        return dict(ms=wrapped, bare_ms=bare, plain_ms=plain, bound_ms=tb_,
+                    bound_by=tb_by, flat_bound_ms=fb, flat_bound_by=fb_by,
+                    max_abs_err=err, rays=n_, work=work,
+                    flat_work=(counts["box"], counts["prim"]))
+
+    _, s3 = config(3)
+    tor = s3.tori
+    tt3, tt3_ms = torus_tables(s3)
+    print(f"K2 torus_closest_hit (config 3: 4 tori, tree of "
+          f"{tt3.tree_lo.shape[0]} nodes, depth {tt3.depth}, tables built in "
+          f"{tt3_ms:.1f} ms)", flush=True)
+    check(refuses_deep_tree(k2_bare(tt3, os_, ds_, tm_sub)),
+          "K2 refuses a tree deeper than its stack")
+    c3 = k2_cell("config 3 (4 tori), 1080p", tt3, o, d, tm_full, True)
+    _, s4 = config(4)
+    tt4, tt4_ms = torus_tables(s4)
+    print(f"  config 4: 1,024 tori in {tt4.clo.shape[0]} chunks of "
+          f"{tt4.chunk}, tree of {tt4.tree_lo.shape[0]} nodes, depth "
+          f"{tt4.depth}, tables built in {tt4_ms:.1f} ms", flush=True)
     cam4 = PinholeCamera(eye=(25.0, 18.0, 25.0), center=(0.0, 0.0, 0.0))
     o4, d4 = rays(cam4, *FULL)
     o4s, d4s = o4[:, sel].contiguous(), d4[:, sel].contiguous()
-    _, s4 = config(4)
-    mat4 = _material_rows(s4, s4.tori.mat_id).contiguous()
-    compare_hits("config 4 (1,024 tori) closest+attrs",
-                 k2(s4, mat4, o4s, d4s, tm_sub),
-                 k2(s4, mat4, o4s, d4s, tm_sub, plain=True), n_sub,
-                 attr_rows=2)
-    ms4 = cuda_ms(lambda: k2(s4, mat4, o4s, d4s, tm_sub))
-    plain4 = cuda_ms(lambda: k2(s4, mat4, o4s, d4s, tm_sub, plain=True))
-    ms4_full = cuda_ms(lambda: k2(s4, mat4, o4, d4, tm_full))
-    counts = {}
-    ref, plain4_full = once_ms(torch, lambda: k2(s4, mat4, o4, d4, tm_full,
-                                                 plain=True, counts=counts))
-    compare_hits("config 4 (1,024 tori) closest+attrs, full frame",
-                 k2(s4, mat4, o4, d4, tm_full), ref, n_full, attr_rows=2)
-    del ref
-    b4, b4_by = hit_bound(n_full, counts, QUARTIC_OPS, 0, 2 + 15)
-    print(f"  config 4: kernel {ms4:.3f} ms vs plain {plain4:.3f} ms at "
-          f"{n_sub} rays; kernel {ms4_full:.3f} ms vs plain "
-          f"{plain4_full:.1f} ms (once) at {n_full} rays (bound {b4:.4f} "
-          f"ms, {b4_by})", flush=True)
+    c4s = k2_cell("config 4 (1,024 tori), subset", tt4, o4s, d4s, tm_sub,
+                  True)
+    c4 = k2_cell("config 4 (1,024 tori), 1080p", tt4, o4, d4, tm_full, False)
+    # any-hit on config 4's shadow rays: the queue's early exit
+    hits4 = k2(tt4, o4, d4, tm_full)[0]
+    so4, sd4, stm4 = shadow_rays(torch, o4, d4, hits4, light)
+    occ_ref, occ4_plain = once_ms(torch, lambda: k2_plain(
+        tt4, so4, sd4, stm4, False, True))
+    occ_got, w4o = k2_counted(tt4, so4, sd4, stm4, False, True)
+    compare_hits("config 4 any-hit (1080p shadow rays)", occ_got, occ_ref,
+                 n_full, occlusion=True)
+    del occ_ref
+    occ4 = cuda_ms(lambda: k2(tt4, so4, sd4, stm4, False, True))
+    occ4_bare = cuda_ms(k2_bare(tt4, so4, sd4, stm4, False, True))
+    bo4, bo4_by = work_bound(torch, n_full, w4o, QUARTIC_OPS, k2_const(tt4),
+                             0, occ_got[0], occ_got[1], 2, "quartics")
+    print(f"  config 4 any-hit: wrapper {occ4:.3f} ms, bare launch "
+          f"{occ4_bare:.3f} ms vs plain {occ4_plain:.1f} ms (once); bound "
+          f"{bo4:.4f} ms ({bo4_by}) from the tree walk's work", flush=True)
     results["torus_closest_hit"] = dict(
         source=f"{KERNEL_DIR}/torus_hit.cu",
-        replaces=f"{JAX_OPS}/torus_kernel.py:136", max_abs_err=err3,
-        ms=ms3, plain_ms=plain3, bound_ms=b3, bound_by=b3_by,
-        library_ms=None, rays=n_full, config4_ms=ms4,
-        config4_plain_ms=plain4, config4_rays=n_sub,
-        config4_ms_full=ms4_full, config4_plain_ms_full=plain4_full,
-        config4_bound_ms_full=b4)
+        replaces=f"{JAX_OPS}/torus_kernel.py:136", library_ms=None,
+        **c3, table_build_ms=tt3_ms, config4_subset=c4s, config4=c4,
+        config4_table_build_ms=tt4_ms, config4_occlusion_ms=occ4,
+        config4_occlusion_bare_ms=occ4_bare,
+        config4_occlusion_plain_ms=occ4_plain,
+        config4_occlusion_bound_ms=bo4, config4_occlusion_work=w4o)
 
     # --- K3: config 3 tori at 512x512 -------------------------------------
     print("K3 torus_closest_hit_small (config 3 at 512x512)", flush=True)
@@ -412,24 +580,33 @@ def phase_kernels(torch, results):
     K3 = tor.major_radius.shape[0]
     check(tk.use_small_kernel(round_up(n5, 2048), K3),
           f"{K3_RES}x{K3_RES} config 3 routes to K3")
-    a3 = (o5, d5, tm5, tor.world_to_obj, tor.major_radius, tor.minor_radius)
-    par = tk.small_params(tor.world_to_obj, tor.major_radius,
-                          tor.minor_radius, mat3)
+    par = tt3.par
     counts = {}
     err5 = compare_hits(
-        "closest+attrs", tk.torus_closest_hit_small(*a3, mat_table=mat3),
+        "closest+attrs",
+        tk.torus_closest_hit_small(o5, d5, tm5, tt3, want_attrs=True),
         tk.torus_small_plain(o5, d5, tm5, par, True, counts=counts), n5,
         attr_rows=2)
-    ms5 = cuda_ms(lambda: tk.torus_closest_hit_small(*a3, mat_table=mat3))
+    ms5 = cuda_ms(lambda: tk.torus_closest_hit_small(o5, d5, tm5, tt3,
+                                                     want_attrs=True))
+    t5 = torch.empty((n5,), device=dev)
+    i5 = torch.empty((n5,), dtype=torch.int32, device=dev)
+    a5 = torch.empty((15, n5), device=dev)
+    bare5 = cuda_ms(lambda: launch("trt_torus_closest_hit_small", o5, d5,
+                                   tm5, n5, par, K3, 1, 0, t5, i5, a5))
     plain5 = cuda_ms(lambda: tk.torus_small_plain(o5, d5, tm5, par, True))
+    params_ms = cuda_ms(lambda: tk.small_params(
+        tor.world_to_obj, tor.major_radius, tor.minor_radius, tt3.mat[:K3]))
     b5, b5_by = hit_bound(n5, counts, QUARTIC_OPS, nbytes(par), 2 + 15)
-    print(f"  kernel {ms5:.3f} ms vs plain {plain5:.3f} ms at {n5} rays "
-          f"(bound {b5:.4f} ms, {b5_by})", flush=True)
+    print(f"  wrapper {ms5:.3f} ms, bare launch {bare5:.4f} ms vs plain "
+          f"{plain5:.3f} ms at {n5} rays (bound {b5:.4f} ms, {b5_by}); "
+          f"per-call parameter blocks the kept tables save: {params_ms:.3f} "
+          f"ms", flush=True)
     results["torus_closest_hit_small"] = dict(
         source=f"{KERNEL_DIR}/torus_hit.cu",
         replaces=f"{JAX_OPS}/torus_kernel.py:530", max_abs_err=err5,
-        ms=ms5, plain_ms=plain5, bound_ms=b5, bound_by=b5_by,
-        library_ms=None, rays=n5)
+        ms=ms5, bare_ms=bare5, plain_ms=plain5, bound_ms=b5, bound_by=b5_by,
+        library_ms=None, rays=n5, small_params_ms=params_ms)
 
     # --- K4: config 7's 1080p primary-hit texel indices --------------------
     print("K4 quad_gather (config 7, primary hits at 1080p)", flush=True)
@@ -478,23 +655,16 @@ def phase_kernels(torch, results):
 
 
 def stream_bound(torch, n, work, st, attr_tables, t, idx, out_rows):
-    """bound_ms of a K5/K6 call on n rays from the kernel's own counters:
-    work = (slab tests, Woop tests). Bytes: rays in (7 f32) and out_rows
-    f32/i32 rows out, the tree's node boxes and links, the cluster boxes,
-    the rank, and the Woop row (96 B) and attribute columns of each
-    distinct winner (the rows a ray tested but did not keep are not
-    counted, so the bytes side is a lower bound)."""
-    winners = int(torch.unique(idx[t < 1e30]).numel())
+    """bound_ms of a K5/K6 call on n rays from the kernel's own counters
+    (work_bound): the tree's node boxes and links, the cluster boxes and
+    the rank every call reads; the Woop row (96 B) and attribute columns of
+    each distinct winner."""
     cols = 96 + (sum(a.shape[0] * 4 for a in attr_tables)
                  if attr_tables is not None else 0)
-    nb = (n * 4 * (7 + out_rows) + nbytes(st.tree_lo, st.tree_hi,
-                                          st.tree_link, st.clo, st.chi)
-          + st.sb_lo.shape[0] * 4 + winners * cols)
-    box, prim = work
-    print(f"  bound: {nb / 1e6:.1f} MB ({winners} distinct winners), {box} "
-          f"slab tests ({box / n:.1f} per ray), {prim} Woop tests "
-          f"({prim / n:.1f} per ray)", flush=True)
-    return bound(nb, box * SLAB_OPS + prim * WOOP_OPS)
+    const = nbytes(st.tree_lo, st.tree_hi, st.tree_link, st.clo, st.chi) \
+        + st.sb_lo.shape[0] * 4
+    return work_bound(torch, n, work, WOOP_OPS, const, cols, t, idx,
+                      out_rows, "Woop tests")
 
 
 def phase_stream(torch, results, rays, light):
@@ -504,14 +674,14 @@ def phase_stream(torch, results, rays, light):
     per-call table preparation against the bare launch."""
     from toroidal_ray_tracing_tpu_torch.ops import tri_stream as tsk
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-        _inv_dir, box_pass, launch, visit_order)
+        _inv_dir, box_pass, launch, tree_rank, visit_order)
     from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import woop_rows
 
     dev = torch.device(DEVICE)
     sc8, s8 = config(8)
     tri8 = s8.triangles
     cs8 = s8.cluster_size
-    clo8, chi8, tables8 = tri_tables(torch, s8)
+    clo8, chi8, tables8 = hoisted_tables(torch, s8)
     sync(torch)
     t0 = time.perf_counter()
     st = tsk.stream_tables(tri8.woop_o, tri8.woop_d, clo8, chi8, cs8)
@@ -651,7 +821,7 @@ def phase_stream(torch, results, rays, light):
     # the per-call table preparation the per-scene tables save, against
     # the wrapper (rank, checks, allocations) and the bare launch
     order8 = visit_order(st.sb_lo, st.sb_hi, o8, n8)
-    rank8 = tsk.tree_rank(order8)
+    rank8 = tree_rank(order8)
     outs = [torch.empty((n8,), device=dev) for _ in range(4)]
     outs[1] = outs[1].to(torch.int32)
     attrs8 = torch.empty((21, n8), device=dev)
@@ -672,7 +842,7 @@ def phase_stream(torch, results, rays, light):
     bare_ms = cuda_ms(bare)
     wrows_ms = cuda_ms(lambda: woop_rows(tri8.woop_o, tri8.woop_d))
     sb_ms = cuda_ms(lambda: tsk.superblocks(clo8, chi8, cs8))
-    cat_ms = cuda_ms(lambda: tri_tables(torch, s8)[:2])
+    cat_ms = cuda_ms(lambda: hoisted_tables(torch, s8)[:2])
     print(f"  K5 full frame: wrapper {f5:.3f} ms, bare launch {bare_ms:.3f} "
           f"ms; per-call preparation kept per scene: Woop rows "
           f"{wrows_ms:.3f} ms, superblocks {sb_ms:.3f} ms, tree "

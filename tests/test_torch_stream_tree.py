@@ -1,4 +1,4 @@
-"""The superblock tree of K5/K6 (`ops.tri_stream.build_tree`, built by
+"""The superblock tree of K5/K6 (`ops.kernel_common.build_tree`, built by
 `stream_tables`) and scalar Python references of the CUDA kernels' two
 walks over it. Both walk packets of rays: one stack per packet, a node
 entered when any walking ray passes it at its own bound, near child first
@@ -34,7 +34,7 @@ from toroidal_ray_tracing_tpu.trace import intersect as jax_isect
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as port_tk
 from toroidal_ray_tracing_tpu_torch.ops import tri_stream as port_ts
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, _inv_dir, slab, visit_order)
+    BIG, _inv_dir, slab, tree_rank, visit_order)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (
     winner_attrs, woop_block)
 from toroidal_ray_tracing_tpu_torch.scene import scene_from_numpy
@@ -46,7 +46,7 @@ F32 = np.float32
 TMIN = F32(1e-3)
 # the kernels' stack entries: the one constant, in the CUDA source
 K_STACK = int(re.search(r"constexpr int kStack = (\d+);", (
-    pathlib.Path(port_ts.__file__).parents[1] / "csrc" / "tri_stream.cu"
+    pathlib.Path(port_ts.__file__).parents[1] / "csrc" / "tree_walk.cuh"
 ).read_text()).group(1))
 
 
@@ -85,10 +85,15 @@ def _jmin(a, b):
 
 
 class Walker:
-    """Per-ray state and the kernels' leaf walk, shared by both references.
-    Slab entry/exit of every (node, ray) and (cluster, ray) pair is
-    precomputed with the twin's `slab`; the pass rule and the key update are
-    the kernels' (csrc/common.cuh slab_pass, csrc/tri_stream.cu)."""
+    """Per-ray state and the kernels' leaf walk, shared by both references
+    (and K1's, tests/test_torch_tri_tree.py). Slab entry/exit of every
+    (node, ray) and (cluster, ray) pair is precomputed with the twin's
+    `slab`; the pass rule and the key update are the kernels'
+    (csrc/common.cuh slab_pass, csrc/tree_walk.cuh). `leaf_box`: each
+    cluster of a leaf is tested by its own box (K5/K6; K1's leaf box is its
+    one cluster's)."""
+
+    leaf_box = True
 
     def __init__(self, origins, dirs, tmax, tb, rank, occlusion):
         self.o, self.d, self.tmax = origins, dirs, tmax.numpy()
@@ -131,7 +136,7 @@ class Walker:
             base = c * cl
             if base >= T or self.done[i]:
                 break
-            if not self.passes(self.clus, c, i):
+            if self.leaf_box and not self.passes(self.clus, c, i):
                 continue
             end = min(base + cl, T)
             t, u, v = (x[:, 0].numpy() for x in woop_block(
@@ -187,7 +192,7 @@ def walk_packets(w, group):
 def _setup(woop_o, woop_d, clo, chi, o, d, tmax):
     tb = port_ts.stream_tables(woop_o, woop_d, clo, chi, 128)
     order = visit_order(tb.sb_lo, tb.sb_hi, o, o.shape[1])
-    return tb, order, port_ts.tree_rank(order)
+    return tb, order, tree_rank(order)
 
 
 def _flat(tb, order, o, d, tmax, occl, tables=None, counts=None):

@@ -94,9 +94,10 @@ def test_chunked_twin_matches_pallas(K, mode):
         mat_table=None if mat is None else jnp.asarray(mat),
         occlusion=mode == "occlusion")
     got = tk.torus_closest_hit_chunked(
-        _t(o), _t(d), _t(tmax), _t(w2o), _t(major), _t(minor),
-        mat_table=None if mat is None else _t(mat),
-        occlusion=mode == "occlusion")
+        _t(o), _t(d), _t(tmax), tk.torus_tables(
+            _t(w2o), _t(major), _t(minor),
+            mat_table=None if mat is None else _t(mat)),
+        want_attrs=mat is not None, occlusion=mode == "occlusion")
     _compare([x.numpy() for x in got], [np.asarray(x) for x in ref], mode,
              tmax)
 
@@ -137,9 +138,10 @@ def test_small_twin_matches_pallas(setup, mode):
         mat_table=None if mat is None else jnp.asarray(mat),
         occlusion=mode == "occlusion")
     got = tk.torus_closest_hit_small(
-        _t(o), _t(d), _t(tmax), _t(w2o), _t(major), _t(minor),
-        mat_table=None if mat is None else _t(mat),
-        occlusion=mode == "occlusion")
+        _t(o), _t(d), _t(tmax), tk.torus_tables(
+            _t(w2o), _t(major), _t(minor),
+            mat_table=None if mat is None else _t(mat)),
+        want_attrs=mat is not None, occlusion=mode == "occlusion")
     got = [x.numpy() for x in got]
     assert not (got[0] < 1e30)[np.isnan(d[0])].any(), "NaN rays must miss"
     _compare(got, [np.asarray(x) for x in ref], mode, tmax)

@@ -23,7 +23,8 @@ from toroidal_ray_tracing_tpu.scene.types import SceneDef
 from toroidal_ray_tracing_tpu.trace import intersect as jax_isect
 from toroidal_ray_tracing_tpu.utils import math3d
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
-from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import tri_closest_hit
+from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (tri_closest_hit,
+                                                           tri_tables)
 
 torch.set_num_threads(2)
 
@@ -68,8 +69,9 @@ def _port(scene, o, d, tmax, tables, occlusion):
     t = lambda a: torch.from_numpy(np.array(a))  # noqa: E731
     tri = scene.triangles
     out = tri_closest_hit(
-        t(o), t(d), t(tmax), t(tri.woop_o), t(tri.woop_d), t(scene.cluster_lo),
-        t(scene.cluster_hi), scene.cluster_size,
+        t(o), t(d), t(tmax), tri_tables(
+            t(tri.woop_o), t(tri.woop_d), t(scene.cluster_lo),
+            t(scene.cluster_hi), scene.cluster_size),
         attr_tables=None if tables is None else tuple(t(a) for a in tables),
         occlusion=occlusion)
     return [x.numpy() for x in out]

@@ -6,29 +6,46 @@
 // (_torus_small_kernel, launched by torus_closest_hit_small). Plain twins:
 // toroidal_ray_tracing_tpu_torch/ops/torus_kernel.py.
 //
-// K2 walks the wrapper's front-to-back chunk order (8 tori per chunk, 16
-// above 64 tori). The chunk box is slab-tested first (exact shortcut: every
-// live torus box lies inside its chunk box), then each torus box against
-// the bound taken at the chunk's start, then the quartic: world->object
-// transform, monic coefficients in the closest-approach frame, Ferrari with
-// the Newton resolvent solver (exp/log cube root, polynomial acos) and 3
-// Newton polish steps, smallest root in [TMIN, tmax]. The chunk minimum
-// (lowest index on ties) replaces the ray's best only if strictly smaller.
+// The quartic, per (ray, torus): world->object transform, monic
+// coefficients in the closest-approach frame, Ferrari with the Newton
+// resolvent solver (exp/log cube root, polynomial acos) and 3 Newton polish
+// steps, smallest root in [TMIN, tmax]: a long dependent float chain of
+// about 600 operations as written (transform and coefficients ~85, the
+// resolvent cubic with an exp, a log, a cos and 3 polish steps ~110, four
+// root candidates with 3 polish steps and a residual check ~100 each).
+//
+// K2's contract (the TPU kernel's): tori in chunks of 8 (16 above 64),
+// chunks walked front to back, each torus culled by its world box; the
+// winner is the minimum of (t, chunk rank, torus index). The twin tests
+// every chunk box per ray (64 at config 4's 1,024 tori, 26 operations each:
+// most of its operations), then the quartic of every torus of a chunk that
+// any ray of a warp enters ran on the whole warp. Now K2 walks a binary tree
+// over the live tori's world boxes (ops/kernel_common.py build_tree, one
+// torus per leaf; padded and dead rows are no leaves) as warp packets
+// (csrc/tree_walk.cuh), each torus box tested at the ray's running bound
+// (exact: a culled torus holds no hit below it; the pass rule stays
+// non-strict) and the full key compared with the torus's chunk rank. The
+// quartics are spread over the lanes: a leaf's passing (torus, lane) pairs
+// go into a per-warp ring in shared memory (slots by ballot and popc), and
+// whenever kFlushPairs are queued, and at the end, each lane takes one pair,
+// runs its quartic for the owner's ray and folds the key into the owner's
+// entry with a 64-bit atomicMin (the t bits mapped to an order-preserving
+// unsigned integer above (rank * chunk + torus % chunk)); the pair that
+// holds the minimum then writes its torus and root. A ray walks on at the
+// bound of the last round, so a pair queued at a stale bound costs an extra
+// quartic, never a wrong result. The winner's normal is recomputed once
+// after the walk from its root. What bounds K2 then: the quartics of the
+// pairs and the slab tests of the nodes the packets enter (operations), or
+// the rays' 7 floats in and 17 rows out (bytes); the tables are 32 floats
+// per torus (128 KB at 1,024 tori), read as warp-wide broadcasts that stay
+// in L1/L2.
+//
 // K3 takes K <= 8 tori's 32-float parameter blocks into shared memory;
 // every ray gates on the union box, then walks all K tori with the per-torus
 // slab against its running best. With attrs, the winner's world normal and
-// 12 material values are written once after the walk.
-//
-// What bounds it: the per-ray quartic — a long dependent float chain per
-// candidate torus, about 600 operations as written (transform and
-// coefficients ~85, the resolvent cubic with an exp, a log, a cos and 3
-// polish steps ~110, four root candidates with 3 polish steps and a residual
-// check ~100 each) — and the slab tests (26 operations each, common.cuh),
-// not memory: the tables are 32 floats per
-// torus (128 KB at 1,024 tori), read as warp-wide broadcasts that stay in
-// L1/L2. Culling (chunk box, torus box, running best) is what cuts the
-// work; block-major ray order keeps a warp's rays on the same candidates.
-#include "common.cuh"
+// 12 material values are written once after the walk. It runs at about half
+// its bytes bound.
+#include "tree_walk.cuh"
 
 namespace {
 
@@ -241,67 +258,141 @@ __device__ __forceinline__ void write_attrs(float* attr_out, int n, int i,
     attr_out[(size_t)(3 + c) * n + i] = hit ? mat[c] : 0.0f;
 }
 
-__global__ void torus_closest_hit(
+constexpr int kQueue = 64;       // (torus, lane) pairs a warp's ring holds
+constexpr int kFlushPairs = 32;  // a round of quartics starts at this many
+static_assert(kFlushPairs >= 1 && kFlushPairs <= 32 &&
+                  kFlushPairs + 31 <= kQueue && (kQueue & (kQueue - 1)) == 0,
+              "a leaf adds at most 32 pairs to fewer than kFlushPairs");
+
+struct PairQueue {
+  int pair[kQueue];             // (torus << 5) | owner lane
+  unsigned long long key[32];   // per lane: its best (t, rank, torus) key
+  int idx[32];                  // per lane: the torus and root of that key
+  float root[32];
+};
+
+// t's float bits as an unsigned integer in the order of the floats.
+__device__ __forceinline__ unsigned ordered_bits(float t) {
+  const unsigned u = __float_as_uint(t);
+  return (u & 0x80000000u) ? ~u : (u | 0x80000000u);
+}
+
+__device__ __forceinline__ float key_t(unsigned long long key) {
+  const unsigned u = (unsigned)(key >> 32);
+  return __uint_as_float((u & 0x80000000u) ? (u & 0x7fffffffu) : ~u);
+}
+
+// One round of the warp's queue: lane j < cnt runs the quartic of pair
+// head + j for its owner's ray and folds the key into the owner's entry.
+// Every lane of the warp calls it.
+__device__ __forceinline__ void quartic_round(
+    PairQueue& q, int head, int cnt, const trt::Ray& r,
+    const float* __restrict__ w2o, const float* __restrict__ rad,
+    const int* __restrict__ rank, int chunk, trt::Work& w) {
+  constexpr unsigned kAll = trt::kAllLanes;
+  const int lane = threadIdx.x & 31;
+  __syncwarp();  // the pairs and the initial keys are in shared memory
+  const bool has = lane < cnt;
+  const int p = has ? q.pair[(head + lane) & (kQueue - 1)] : lane;
+  const int owner = p & 31, k = p >> 5;
+  float o[3], d[3];
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    o[a] = __shfl_sync(kAll, r.o[a], owner);
+    d[a] = __shfl_sync(kAll, r.d[a], owner);
+  }
+  const float tm = __shfl_sync(kAll, r.tm, owner);
+  float t = TRT_BIG, troot = 0.0f;
+  if (has) {
+    ++w.prim;
+    const float Rmaj = rad[2 * k];
+    const TorusRay s = torus_ray(w2o + 12 * k, Rmaj, rad[2 * k + 1], o, d);
+    t = torus_t(s, tm, &troot);
+  }
+  const bool hit = t < TRT_BIG;
+  const unsigned long long key =
+      (unsigned long long)ordered_bits(t) << 32 |
+      (unsigned)(rank[k / chunk] * chunk + k % chunk);
+  if (hit) atomicMin(&q.key[owner], key);
+  __syncwarp();
+  if (hit && q.key[owner] == key) {  // one pair per (ray, torus): unique
+    q.idx[owner] = k;
+    q.root[owner] = troot;
+  }
+  __syncwarp();
+}
+
+__global__ void __launch_bounds__(128) torus_closest_hit(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ tmax, int n, const float* __restrict__ w2o,
-    const float* __restrict__ rad, const float* __restrict__ tor_lo,
-    const float* __restrict__ tor_hi, const float* __restrict__ clo,
-    const float* __restrict__ chi, const int* __restrict__ order,
-    int n_chunks, int chunk, const float* __restrict__ mat, int occlusion,
-    float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ attr_out) {
+    const float* __restrict__ rad, const float* __restrict__ tree_lo,
+    const float* __restrict__ tree_hi, const int* __restrict__ tree_link,
+    int n_nodes, const int* __restrict__ rank, int chunk,
+    const float* __restrict__ mat, int occlusion, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ attr_out,
+    long long* __restrict__ counters) {
+  constexpr unsigned kAll = trt::kAllLanes;
+  __shared__ PairQueue queues[4];
+  const int lane = threadIdx.x & 31;
+  PairQueue& q = queues[threadIdx.x >> 5];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float o[3], d[3], inv[3];
-  load_ray(origins, dirs, n, i, o, d, inv);
-  const float tm = tmax[i];
+  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
+  trt::Work w;
+  bool done = !(r.tm > TRT_TMIN);  // pad and dead rays take part in no test
+  float best = TRT_BIG;            // the ray's t as of the last round
+  q.key[lane] = (unsigned long long)ordered_bits(TRT_BIG) << 32 | 0xffffffffu;
 
-  float best = TRT_BIG, broot = 0.0f;
-  int bidx = 0;
-  for (int vi = 0; vi < n_chunks; ++vi) {
-    const int c = order[vi];
-    const float bound = occlusion ? (best < TRT_BIG ? -1.0f : tm)
-                                  : jmin(tm, best);
-    if (!trt::slab_pass(clo + 3 * c, chi + 3 * c, o, inv, bound, tm))
-      continue;
-    float cbest = TRT_BIG, croot = 0.0f;
-    int carg = 0;
-    for (int j = 0; j < chunk; ++j) {
-      const int k = c * chunk + j;
-      const float rmin = rad[2 * k + 1];
-      if (!(rmin > 0.0f) ||
-          !trt::slab_pass(tor_lo + 3 * k, tor_hi + 3 * k, o, inv, bound, tm))
+  const int neg = trt::majority_negative(r, !done);
+  int stack[trt::kStack];
+  int sp = 0;
+  int head = 0, tail = 0;  // the ring's pairs [head, tail), warp-uniform
+  auto run_round = [&]() {
+    const int cnt = min(tail - head, 32);
+    quartic_round(q, head, cnt, r, w2o, rad, rank, chunk, w);
+    head += cnt;
+    best = key_t(q.key[lane]);
+    done = done || (occlusion && best < TRT_BIG);
+  };
+  int m = (n_nodes > 0 && __any_sync(kAll, !done)) ? 0 : -1;
+  while (m >= 0) {
+    const bool pass =
+        !done && trt::node_pass(tree_lo, tree_hi, m, r, best, occlusion, w);
+    const unsigned passed = __ballot_sync(kAll, pass);
+    if (passed) {
+      const int left = tree_link[3 * m], right = tree_link[3 * m + 1];
+      if (left >= 0) {
+        const bool flip = (neg >> tree_link[3 * m + 2]) & 1;
+        stack[sp++] = flip ? left : right;
+        m = flip ? right : left;
         continue;
-      const float Rmaj = rad[2 * k];
-      const TorusRay s = torus_ray(w2o + 12 * k, Rmaj, rmin, o, d);
-      float troot;
-      const float t = torus_t(s, tm, &troot);
-      if (t < cbest) {
-        cbest = t;
-        carg = j;
-        croot = troot;
       }
+      if (pass)
+        q.pair[(tail + __popc(passed & ((1u << lane) - 1u))) & (kQueue - 1)] =
+            (-1 - left) << 5 | lane;
+      tail += __popc(passed);
+      if (tail - head >= kFlushPairs) run_round();
     }
-    if (cbest < best) {
-      best = cbest;
-      bidx = c * chunk + carg;
-      broot = croot;
-      if (occlusion) break;
-    }
+    m = sp > 0 ? stack[--sp] : -1;
   }
-  t_out[i] = best;
-  idx_out[i] = bidx;
-  if (attr_out != nullptr) {
+  while (tail != head) run_round();
+
+  if (i < n) {
     const bool hit = best < TRT_BIG;
-    float nrm[3] = {0.0f, 0.0f, 0.0f};
-    if (hit) {
-      const float* w = w2o + 12 * bidx;
-      const float Rmaj = rad[2 * bidx];
-      const TorusRay s = torus_ray(w, Rmaj, rad[2 * bidx + 1], o, d);
-      torus_world_normal(w, s, broot, Rmaj, nrm);
+    const int bidx = hit ? q.idx[lane] : 0;
+    t_out[i] = best;
+    idx_out[i] = bidx;
+    if (attr_out != nullptr) {
+      float nrm[3] = {0.0f, 0.0f, 0.0f};
+      if (hit) {
+        const float* wk = w2o + 12 * bidx;
+        const float Rmaj = rad[2 * bidx];
+        const TorusRay s = torus_ray(wk, Rmaj, rad[2 * bidx + 1], r.o, r.d);
+        torus_world_normal(wk, s, q.root[lane], Rmaj, nrm);
+      }
+      write_attrs(attr_out, n, i, hit, nrm, mat + 12 * bidx);
     }
-    write_attrs(attr_out, n, i, hit, nrm, mat + 12 * bidx);
   }
+  trt::add_work(counters, w);
 }
 
 constexpr int kSmallMaxK = 8;
@@ -374,15 +465,16 @@ __global__ void torus_closest_hit_small(
 
 extern "C" int trt_torus_closest_hit(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* w2o, const float* rad, const float* tor_lo,
-    const float* tor_hi, const float* clo, const float* chi, const int* order,
-    int n_chunks, int chunk, const float* mat, int occlusion, float* t_out,
-    int* idx_out, float* attr_out, void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  torus_closest_hit<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, w2o, rad, tor_lo, tor_hi, clo, chi, order,
-      n_chunks, chunk, mat, occlusion, t_out, idx_out, attr_out);
+    const float* w2o, const float* rad, const float* tree_lo,
+    const float* tree_hi, const int* tree_link, int n_nodes, int depth,
+    const int* rank, int chunk, const float* mat, int occlusion,
+    float* t_out, int* idx_out, float* attr_out, long long* counters,
+    void* stream) {
+  if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + 127) / 128;
+  torus_closest_hit<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+      origins, dirs, tmax, n, w2o, rad, tree_lo, tree_hi, tree_link, n_nodes,
+      rank, chunk, mat, occlusion, t_out, idx_out, attr_out, counters);
   return (int)cudaGetLastError();
 }
 

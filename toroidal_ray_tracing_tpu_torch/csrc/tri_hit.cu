@@ -4,95 +4,77 @@
 // (_tri_kernel, launched by tri_closest_hit_pallas). Plain twin:
 // toroidal_ray_tracing_tpu_torch/ops/tri_kernel.py::tri_closest_hit_plain.
 //
-// Per ray, clusters are walked in the wrapper's front-to-back order. Each
-// cluster's AABB is slab-tested against bound = min(t_best, tmax) (any-hit:
-// a ray stops at its first hit); a passing cluster runs the Woop
-// unit-triangle test on its `cluster` rows, keeping the minimum with a
-// strict `<` so the lowest index wins inside a cluster and the earlier
-// visited cluster wins ties across clusters — the TPU kernel's order.
-// With attrs, the winner's 21 interpolated shading rows are written once
-// after the walk (A0 + u*A1 + v*A2 for rows 0-7, A0 for rows 8-20).
+// Contract (the TPU kernel's): clusters in the wrapper's front-to-back
+// order, each skipped when its box misses the ray before min(t_best, tmax)
+// (any-hit: the ray stops at its first hit); the Woop unit-triangle test
+// keeps the minimum t in [TMIN, tmax], the lowest row winning inside a
+// cluster and the earlier-visited cluster winning ties across clusters.
+// That winner is the minimum of (t, rank, row), where a cluster's rank is
+// its position in the visit order. With attrs, the winner's 21
+// interpolated shading rows are written once after the walk (A0 + u*A1 +
+// v*A2 for rows 0-7, A0 for rows 8-20).
 //
-// What bounds it: the per-ray dependent ALU/latency chain (about 50
-// operations per (ray, triangle) Woop test and 26 per (ray, box) slab test,
-// as common.cuh writes them), not bytes: the Woop table is 96 B per
-// triangle (2.2 MB for the 23k-tri mesh) and every lane of a warp reads the
-// same row, so the loads are broadcasts that stay L1/L2-resident. Rays arrive block-major (compact
-// screen patches), so a warp's rays visit nearly the same clusters and
-// divergence stays low. No tensor cores, TMA or shared-memory staging in
-// this first version.
-#include "common.cuh"
+// The walk: K5's (csrc/tree_walk.cuh) with one cluster per leaf. The twin
+// tests every one of the mesh's cluster boxes per ray (181 at config 6, 26
+// operations each: most of the flat walk's operations); the kernel walks a
+// binary tree over the live clusters' boxes (ops/kernel_common.py
+// build_tree; the hoisted loose tail's far-boxed clusters are no leaves) as
+// warp packets and compares the full (t, rank, row) key, so it returns the
+// flat walk's bits. A leaf's box is its cluster's, so the cluster is not
+// tested twice. A single uncullable block (one cluster, or a slice not cut
+// on cluster boundaries) is a one-leaf tree walked with no box test.
+//
+// What bounds it: the slab tests of the nodes a warp enters and the Woop
+// tests (~50 operations each) of the clusters its rays enter, not bytes:
+// the Woop table is 96 B per triangle (2.2 MB for config 6's mesh, inside
+// the 50 MB L2) and every lane of a warp reads the same row. The spread of
+// a warp's rays over clusters is what costs: the tree's packets share
+// their nodes' loads, and the cooperative test spreads a cluster that few
+// rays enter over all 32 lanes.
+#include "tree_walk.cuh"
 
 namespace {
 
-__global__ void tri_closest_hit(
+__global__ void __launch_bounds__(128) tri_closest_hit(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ tmax, int n, const float* __restrict__ wrows,
-    const float* __restrict__ clo, const float* __restrict__ chi,
-    const int* __restrict__ order, int n_clusters, int cluster, int box_test,
+    int n_tris, const float* __restrict__ tree_lo,
+    const float* __restrict__ tree_hi, const int* __restrict__ tree_link,
+    int n_nodes, const int* __restrict__ rank, int cluster, int box_test,
     const float* __restrict__ a0, const float* __restrict__ a1,
-    const float* __restrict__ a2, int n_tris, int occlusion,
-    float* __restrict__ t_out, int* __restrict__ idx_out,
-    float* __restrict__ u_out, float* __restrict__ v_out,
-    float* __restrict__ attr_out) {
+    const float* __restrict__ a2, int occlusion, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ u_out,
+    float* __restrict__ v_out, float* __restrict__ attr_out,
+    long long* __restrict__ counters) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float o[3] = {origins[i], origins[n + i], origins[2 * n + i]};
-  const float d[3] = {dirs[i], dirs[n + i], dirs[2 * n + i]};
-  const float tm = tmax[i];
-  const float inv[3] = {trt::inv_dir(d[0]), trt::inv_dir(d[1]),
-                        trt::inv_dir(d[2])};
-
-  float best = TRT_BIG, bu = 0.0f, bv = 0.0f;
-  int bidx = 0;
-  bool done = false;
-  for (int vi = 0; vi < n_clusters && !done; ++vi) {
-    const int c = order[vi];
-    const float bound = occlusion ? (best < TRT_BIG ? -1.0f : tm)
-                                  : trt::jmin(best, tm);
-    if (box_test &&
-        !trt::slab_pass(clo + 3 * c, chi + 3 * c, o, inv, bound, tm))
-      continue;
-    const int base = c * cluster;
-    for (int j = 0; j < cluster; ++j) {
-      float t, u, v;
-      const bool hit = trt::woop_test(wrows + (size_t)(base + j) * 24, o, d,
-                                      tm, &t, &u, &v);
-      if (hit && t < best) {
-        best = t;
-        bidx = base + j;
-        bu = u;
-        bv = v;
-        if (occlusion) {
-          done = true;
-          break;
-        }
-      }
-    }
-  }
-  t_out[i] = best;
-  idx_out[i] = bidx;
-  u_out[i] = bu;
-  v_out[i] = bv;
-  if (attr_out != nullptr)
-    trt::write_tri_attrs(a0, a1, a2, n_tris, attr_out, n, i, best, bidx, bu,
-                         bv);
+  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
+  trt::Best b;
+  trt::Work w;
+  b.done = !(r.tm > TRT_TMIN);  // pad and dead rays take part in no test
+  trt::walk_warp_packet(r, b, w, tree_lo, tree_hi, tree_link, n_nodes,
+                        box_test, rank, nullptr, nullptr, 1, cluster, n_tris,
+                        wrows, occlusion);
+  if (i < n)
+    trt::write_out(b, n, i, a0, a1, a2, n_tris, t_out, idx_out, u_out, v_out,
+                   attr_out);
+  trt::add_work(counters, w);
 }
 
 }  // namespace
 
 extern "C" int trt_tri_closest_hit(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* wrows, const float* clo, const float* chi, const int* order,
-    int n_clusters, int cluster, int box_test, const float* a0,
-    const float* a1, const float* a2, int n_tris, int occlusion,
-    float* t_out, int* idx_out, float* u_out, float* v_out, float* attr_out,
-    void* stream) {
-  const int threads = 128;
-  const int blocks = (n + threads - 1) / threads;
-  tri_closest_hit<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, wrows, clo, chi, order, n_clusters, cluster,
-      box_test, a0, a1, a2, n_tris, occlusion, t_out, idx_out, u_out, v_out,
-      attr_out);
+    const float* wrows, int n_tris, const float* tree_lo,
+    const float* tree_hi, const int* tree_link, int n_nodes, int depth,
+    const int* rank, int cluster, int box_test, const float* a0,
+    const float* a1, const float* a2, int occlusion, float* t_out,
+    int* idx_out, float* u_out, float* v_out, float* attr_out,
+    long long* counters, void* stream) {
+  if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
+  const int blocks = (n + 127) / 128;
+  tri_closest_hit<<<blocks, 128, 0, (cudaStream_t)stream>>>(
+      origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
+      n_nodes, rank, cluster, box_test, a0, a1, a2, occlusion, t_out, idx_out,
+      u_out, v_out, attr_out, counters);
   return (int)cudaGetLastError();
 }

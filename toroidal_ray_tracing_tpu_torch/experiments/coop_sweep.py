@@ -1,12 +1,13 @@
 """K5's cooperative-cluster threshold on the card: `kCoopLanes` swept.
 
-K5 (`csrc/tri_stream.cu`) tests a cluster that at most `kCoopLanes` rays of
-a warp enter with all 32 lanes, one ray at a time; a cluster that more
-rays enter, each lane with its own ray. This script builds K5 once per
-value of that constant (a copy of the sources under `build/coop<N>/`, all
-nvcc processes started together), then times each build on config 8's
-1080p primary rays (closest with attrs) and on their shadow rays (any-hit),
-with CUDA events, median of 5 after a warm-up. Every build's outputs are
+K5 (`csrc/tri_stream.cu`, with K1's walk in `csrc/tree_walk.cuh`) tests a
+cluster that at most `kCoopLanes` rays of a warp enter with all 32 lanes,
+one ray at a time; a cluster that more rays enter, each lane with its own
+ray. This script builds K5 once per value of that constant (a copy of the
+sources under `build/coop<N>/`, all nvcc processes started together), then
+times each build on config 8's 1080p primary rays (closest with attrs) and
+on their shadow rays (any-hit), with CUDA events, median of 5 after a
+warm-up. Every build's outputs are
 held against the shipped kernel's: bit-equal for closest+attrs, equal
 masks for any-hit.
 
@@ -39,31 +40,44 @@ ENTRY = "trt_tri_closest_hit_stream"
 COOP = re.compile(r"constexpr int kCoopLanes = \d+;")
 
 
-def build(values):
-    """{value: path of a library holding K5 built with kCoopLanes = value}."""
-    with open(os.path.join(kc.CSRC, "tri_stream.cu")) as f:
+def build_variants(source, edited, pattern, line, values, tag):
+    """{value: path of a library holding `source` (a file of csrc/) built
+    with the one match of `pattern` in `edited` (csrc/source itself or a
+    header it includes) replaced by line.format(value)}: a copy of the
+    sources per value under build/<tag><value>/, all nvcc processes started
+    together."""
+    with open(os.path.join(kc.CSRC, edited)) as f:
         text = f.read()
-    if len(COOP.findall(text)) != 1:
-        raise RuntimeError("kCoopLanes is not defined once in tri_stream.cu")
+    if len(pattern.findall(text)) != 1:
+        raise RuntimeError(f"{pattern.pattern} does not match once in "
+                           f"{edited}")
     procs, libs = [], {}
     for n in values:
-        out = os.path.join(kc.BUILD_DIR, f"coop{n}")
+        out = os.path.join(kc.BUILD_DIR, f"{tag}{n}")
         os.makedirs(out, exist_ok=True)
-        shutil.copy(os.path.join(kc.CSRC, "common.cuh"), out)
-        src = os.path.join(out, "tri_stream.cu")
-        with open(src, "w") as f:
-            f.write(COOP.sub(f"constexpr int kCoopLanes = {n};", text))
-        libs[n] = os.path.join(out, "libk5.so")
-        procs.append((f"kCoopLanes = {n}", subprocess.Popen(
-            [kc._nvcc(), *kc.NVCC_FLAGS, "-shared", src, "-o", libs[n]],
+        for name in os.listdir(kc.CSRC):
+            if name.endswith(".cuh") or name == source:
+                shutil.copy(os.path.join(kc.CSRC, name), out)
+        with open(os.path.join(out, edited), "w") as f:
+            f.write(pattern.sub(line.format(n), text))
+        libs[n] = os.path.join(out, f"lib{tag}.so")
+        procs.append((f"{tag} = {n}", subprocess.Popen(
+            [kc._nvcc(), *kc.NVCC_FLAGS, "-shared",
+             os.path.join(out, source), "-o", libs[n]],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
     kc._run(procs)
     return libs
 
 
-def entry(path):
-    fn = getattr(ctypes.CDLL(path), ENTRY)
-    fn.argtypes = kc._SIGNATURES[ENTRY]
+def build(values):
+    """{value: path of a library holding K5 built with kCoopLanes = value}."""
+    return build_variants("tri_stream.cu", "tree_walk.cuh", COOP,
+                          "constexpr int kCoopLanes = {};", values, "coop")
+
+
+def entry(path, name=ENTRY):
+    fn = getattr(ctypes.CDLL(path), name)
+    fn.argtypes = kc._SIGNATURES[name]
     fn.restype = ctypes.c_int
     return fn
 

@@ -27,10 +27,12 @@ import subprocess
 import threading
 import time
 
+import numpy as np
 import torch
 
 BIG = 3.0e38          # "no hit" t (float32 value)
 TMIN = 1.0e-3         # raytrace.rgen:61
+SAH_BINS = 16         # build_tree's centroid bins per split
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -107,6 +109,101 @@ def visit_order(lo, hi, origins, n_batch: int):
     return torch.argsort(cdist, stable=True).to(torch.int32)
 
 
+def tree_rank(order):
+    """rank[s]: the position of box s in the visit order."""
+    rank = torch.empty_like(order)
+    rank[order.long()] = torch.arange(order.shape[0], dtype=order.dtype,
+                                      device=order.device)
+    return rank
+
+
+def build_tree(box_lo, box_hi, leaves):
+    """Binary tree over the boxes `leaves` (ids into box_lo/hi: K1's
+    clusters, K2's tori, K5/K6's superblocks), top-down binned SAH on the
+    box centroids along the widest centroid axis (object median where
+    binning cannot split). Nodes in depth-first preorder, root 0, left
+    child m + 1. Returns numpy (lo (M, 3) f32, hi (M, 3) f32, link (M, 3)
+    i32, depth): link is (left, right, split axis) for an inner node (left
+    holds the lower centroids) and (-1 - s, -1 - s, -1) for the leaf of box
+    s, whose box is box s; depth counts the inner nodes on the longest
+    root-to-leaf path. Two-wide: config 8's 3,339 superblocks make a tree
+    16 deep, which the kernels' 64-entry stack (`kStack`,
+    csrc/tree_walk.cuh) holds (their entry points refuse a deeper one); a
+    binary node needs no ordering of its children beyond one direction
+    sign, and a packet pushes at most one far child per level."""
+    slo, shi = (np.asarray(a, np.float32) for a in (box_lo, box_hi))
+    cent = (slo.astype(np.float64) + shi) * 0.5
+    lo, hi, link = [], [], []
+
+    def area(l, h):
+        e = np.maximum(h - l, 0.0)
+        return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] \
+            + e[..., 2] * e[..., 0]
+
+    def split(ids):
+        c = cent[ids]
+        cmin, cmax = c.min(axis=0), c.max(axis=0)
+        axis = int(np.argmax(cmax - cmin))
+        ext = cmax[axis] - cmin[axis]
+        if ext > 0:
+            b = np.minimum(((c[:, axis] - cmin[axis]) / ext
+                            * SAH_BINS).astype(np.int64), SAH_BINS - 1)
+            blo = np.full((SAH_BINS, 3), np.inf)
+            bhi = np.full((SAH_BINS, 3), -np.inf)
+            np.minimum.at(blo, b, slo[ids])
+            np.maximum.at(bhi, b, shi[ids])
+            cnt = np.bincount(b, minlength=SAH_BINS)
+            llo = np.minimum.accumulate(blo)
+            lhi = np.maximum.accumulate(bhi)
+            rlo = np.minimum.accumulate(blo[::-1])[::-1]
+            rhi = np.maximum.accumulate(bhi[::-1])[::-1]
+            nl = np.cumsum(cnt)
+            cost = area(llo[:-1], lhi[:-1]) * nl[:-1] \
+                + area(rlo[1:], rhi[1:]) * (len(ids) - nl[:-1])
+            cost[(nl[:-1] == 0) | (nl[:-1] == len(ids))] = np.inf
+            k = int(np.argmin(cost))
+            if np.isfinite(cost[k]):
+                return axis, ids[b <= k], ids[b > k]
+        ids = ids[np.argsort(c[:, axis], kind="stable")]
+        return axis, ids[:len(ids) // 2], ids[len(ids) // 2:]
+
+    def node(ids):
+        m = len(lo)
+        lo.append(None)
+        hi.append(None)
+        link.append(None)
+        if len(ids) == 1:
+            s = int(ids[0])
+            lo[m], hi[m], link[m] = slo[s], shi[s], (-1 - s, -1 - s, -1)
+            return 0
+        axis, left, right = split(ids)
+        dl = node(left)
+        r = len(lo)
+        dr = node(right)
+        lo[m] = np.minimum(lo[m + 1], lo[r])
+        hi[m] = np.maximum(hi[m + 1], hi[r])
+        link[m] = (m + 1, r, axis)
+        return 1 + max(dl, dr)
+
+    leaves = np.asarray(leaves, np.int64)
+    depth = node(leaves) if len(leaves) else 0
+    return (np.array(lo, np.float32).reshape(-1, 3),
+            np.array(hi, np.float32).reshape(-1, 3),
+            np.array(link, np.int32).reshape(-1, 3), depth)
+
+
+def tree_tensors(box_lo, box_hi, live):
+    """`build_tree` over the boxes where the (S,) bool tensor `live` holds,
+    as tensors on the boxes' device: (tree_lo (M, 3), tree_hi (M, 3),
+    tree_link (M, 3) int32, depth). A host build: one sync."""
+    lo, hi, link, depth = build_tree(box_lo.cpu().numpy(),
+                                     box_hi.cpu().numpy(),
+                                     np.nonzero(live.cpu().numpy())[0])
+    dev = box_lo.device
+    return (torch.from_numpy(lo).to(dev), torch.from_numpy(hi).to(dev),
+            torch.from_numpy(link).to(dev), depth)
+
+
 def round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
 
@@ -149,14 +246,16 @@ BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _SIGNATURES = {
-    # origins, dirs, tmax, n, wrows, clo, chi, order, n_clusters, cluster,
-    # box_test, a0, a1, a2, n_tris, occlusion, t, idx, u, v, attrs, stream
-    "trt_tri_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _I, _I, _I,
-                            _P, _P, _P, _I, _I, _P, _P, _P, _P, _P, _P],
-    # origins, dirs, tmax, n, w2o, rad, tor_lo, tor_hi, clo, chi, order,
-    # n_chunks, chunk, mat, occlusion, t, idx, attrs, stream
-    "trt_torus_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P,
-                              _I, _I, _P, _I, _P, _P, _P, _P],
+    # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
+    # n_nodes, depth, rank, cluster, box_test, a0, a1, a2, occlusion, t,
+    # idx, u, v, attrs, counters, stream
+    "trt_tri_closest_hit": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P,
+                            _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
+                            _P],
+    # origins, dirs, tmax, n, w2o, rad, tree_lo, tree_hi, tree_link, n_nodes,
+    # depth, rank, chunk, mat, occlusion, t, idx, attrs, counters, stream
+    "trt_torus_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
+                              _P, _I, _P, _I, _P, _P, _P, _P, _P],
     # origins, dirs, tmax, n, par, K, emit_attrs, occlusion, t, idx, attrs,
     # stream
     "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P,

@@ -2,8 +2,14 @@
 
 * K2 `torus_closest_hit_chunked` (CUDA `csrc/torus_hit.cu::torus_closest_hit`)
   replaces the JAX package's TPU kernel `ops/torus_kernel.py:136`
-  (`_torus_kernel`): tori in chunks of 8 (16 above 64 tori), chunks walked
-  front to back, per-torus slab against the bound at the chunk's start.
+  (`_torus_kernel`). Contract: tori in chunks of 8 (16 above 64 tori),
+  chunks ranked front to back, each torus culled by its world box; the
+  winner is the minimum of (t, chunk rank, torus index). The twin walks
+  the chunks in rank order with the per-torus slab against the bound at
+  the chunk's start; the kernel walks a binary tree over the live tori's
+  boxes (`kernel_common.build_tree`, one torus per leaf) as warp packets,
+  each box at the ray's running bound, and spreads the quartics of the
+  passing (ray, torus) pairs over the warp's lanes.
 * K3 `torus_closest_hit_small` (CUDA `torus_closest_hit_small`) replaces
   `torus_kernel.py:530` (`_torus_small_kernel`): K <= 8 tori, a union-box
   gate, then every torus with the per-torus slab against the running best.
@@ -11,21 +17,27 @@
 `torus_closest_hit` routes between them with the TPU launcher's rule
 (`torus_kernel.py:392-394`) on the batch size the caller pads to. Each
 wrapper launches its CUDA kernel on CUDA tensors and runs its plain PyTorch
-twin (same inputs, same outputs) on CPU tensors.
+twin (same inputs, same outputs) on CPU tensors. Both take the scene's
+tables prebuilt (`torus_tables`: padded transforms and radii, torus and
+chunk boxes, the tree, the material rows and K3's parameter blocks) and
+never build them; the orchestrator keeps them per scene and device. Only
+K2's chunk rank is per call.
 
-Outputs: t (N,) f32 (BIG on a miss), idx (N,) i32, and with a material
-table (K, 12) the (15, N) attrs: the winner's unnormalized world normal
-(rows 0-2) and its 12 material values, zero on a miss.
+Outputs: t (N,) f32 (BIG on a miss), idx (N,) i32, and with want_attrs the
+(15, N) attrs: the winner's unnormalized world normal (rows 0-2) and its
+12 material values, zero on a miss.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.torus import quartic_min_positive
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_rays, count,
-    launch, round_up, slab, visit_order)
+    launch, round_up, slab, tree_rank, tree_tensors, visit_order)
 
 TORUS_CHUNK = 8           # tori per chunk, K <= 64
 GATED_TORUS_CHUNK = 16    # tori per chunk, K > 64
@@ -269,24 +281,6 @@ def _tables(w2o, major, minor, chunk: int):
     return w2o_rows.contiguous(), rad.contiguous()
 
 
-def chunked_inputs(origins, w2o, major, minor, mat_table=None,
-                   n_batch: int | None = None):
-    """K2's table inputs, as the wrapper passes them to the kernel or its
-    twin: (w2o_rows, rad, tor_lo, tor_hi, chunk_lo, chunk_hi, order, chunk,
-    mat), the tables padded to whole chunks."""
-    K = major.shape[0]
-    chunk = GATED_TORUS_CHUNK if K > 64 else TORUS_CHUNK
-    w2o_rows, rad = _tables(w2o, major, minor, chunk)
-    tor_lo, tor_hi, clo, chi = (a.contiguous() for a in
-                                _torus_boxes(w2o_rows, rad, chunk))
-    order = visit_order(clo, chi, origins, n_batch or origins.shape[1])
-    mat = None
-    if mat_table is not None:
-        mat = torch.cat([mat_table, mat_table.new_zeros(
-            (w2o_rows.shape[0] - K, 12))]).contiguous()
-    return w2o_rows, rad, tor_lo, tor_hi, clo, chi, order, chunk, mat
-
-
 def small_params(w2o, major, minor, mat_table=None):
     """K3's (K, 32) per-torus parameter blocks [w2o (12), Rmaj, rmin, box lo
     (3), box hi (3), mat (12)]."""
@@ -297,61 +291,129 @@ def small_params(w2o, major, minor, mat_table=None):
     return torch.cat([w2o_rows, rad, tor_lo, tor_hi, mat], dim=1).contiguous()
 
 
-def torus_closest_hit_chunked(origins, dirs, tmax, w2o, major, minor,
-                              mat_table=None, occlusion: bool = False,
-                              n_batch: int | None = None):
-    """K2 wrapper. origins/dirs (3, N); w2o (K, 3, 4); major/minor (K,);
-    mat_table optional (K, 12). n_batch: batch size the chunk visit order
-    averages origins over (default N)."""
+@dataclasses.dataclass
+class TorusTables:
+    """The scene-constant inputs of K2, K3 and their twins."""
+
+    K: int                   # tori
+    chunk: int               # tori per chunk: 8, 16 above 64 tori
+    w2o_rows: torch.Tensor   # (Kp, 12) world-to-object rows, padded
+    rad: torch.Tensor        # (Kp, 2) [major, minor], pad rows minor -1
+    tor_lo: torch.Tensor     # (Kp, 3) torus boxes (far points when dead)
+    tor_hi: torch.Tensor
+    clo: torch.Tensor        # (Kp / chunk, 3) chunk boxes
+    chi: torch.Tensor
+    tree_lo: torch.Tensor    # (M, 3) node boxes
+    tree_hi: torch.Tensor
+    tree_link: torch.Tensor  # (M, 3) int32, see kernel_common.build_tree
+    depth: int
+    mat: torch.Tensor | None    # (Kp, 12) material rows
+    par: torch.Tensor | None    # (K, 32) K3's blocks, K <= 8
+
+
+def torus_tables(w2o, major, minor, mat_table=None) -> TorusTables:
+    """Build the scene-constant tables of K tori: w2o (K, 3, 4);
+    major/minor (K,); mat_table optional (K, 12). K2's tables are padded to
+    whole chunks; its tree's leaves are the live tori (minor radius > 0).
+    K3's blocks are built too when K <= TORUS_SMALL_MAX_K. One host sync:
+    the tree is built on the host."""
+    K = major.shape[0]
+    chunk = GATED_TORUS_CHUNK if K > 64 else TORUS_CHUNK
+    w2o_rows, rad = _tables(w2o, major, minor, chunk)
+    tor_lo, tor_hi, clo, chi = (a.contiguous() for a in
+                                _torus_boxes(w2o_rows, rad, chunk))
+    tree_lo, tree_hi, tree_link, depth = tree_tensors(tor_lo, tor_hi,
+                                                      rad[:, 1] > 0.0)
+    mat = None
+    if mat_table is not None:
+        mat = torch.cat([mat_table, mat_table.new_zeros(
+            (w2o_rows.shape[0] - K, 12))]).contiguous()
+    par = (small_params(w2o, major, minor, mat_table)
+           if 1 <= K <= TORUS_SMALL_MAX_K else None)
+    return TorusTables(K=K, chunk=chunk, w2o_rows=w2o_rows, rad=rad,
+                       tor_lo=tor_lo, tor_hi=tor_hi, clo=clo, chi=chi,
+                       tree_lo=tree_lo, tree_hi=tree_hi,
+                       tree_link=tree_link, depth=depth, mat=mat, par=par)
+
+
+def _check_tables(name: str, tables, want_attrs: bool) -> None:
+    if not isinstance(tables, TorusTables):
+        raise TypeError(f"{name} takes the scene's prebuilt TorusTables "
+                        "(torus_tables)")
+    if want_attrs and tables.mat is None:
+        raise ValueError(f"{name}: want_attrs needs tables with a material "
+                         "table")
+
+
+def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
+                              want_attrs: bool = False,
+                              occlusion: bool = False,
+                              n_batch: int | None = None, counters=None):
+    """K2 wrapper. origins/dirs (3, N); tmax (N,); tables: the scene's
+    `torus_tables`. n_batch: batch size the chunk visit order averages
+    origins over (default N). counters: optional (2,) int64 CUDA tensor the
+    kernel adds its (ray, box) slab tests and (ray, torus) quartics to."""
+    _check_tables("torus_closest_hit_chunked", tables, want_attrs)
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
-    args = chunked_inputs(origins, w2o, major, minor, mat_table, n_batch)
-    w2o_rows, rad, tor_lo, tor_hi, clo, chi, order, chunk, mat = args
-    Kp, C = w2o_rows.shape[0], clo.shape[0]
-    check_args(origins.device, w2o=(w2o_rows, (Kp, 12), F32),
-               rad=(rad, (Kp, 2), F32), tor_lo=(tor_lo, (Kp, 3), F32),
-               tor_hi=(tor_hi, (Kp, 3), F32), clo=(clo, (C, 3), F32),
-               chi=(chi, (C, 3), F32), order=(order, (C,), I32),
-               mat=(mat, (Kp, 12), F32))
+    tb = tables
+    Kp, C, M = tb.w2o_rows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
+    order = visit_order(tb.clo, tb.chi, origins, n_batch or n)
+    mat = tb.mat if want_attrs else None
+    check_args(origins.device, w2o=(tb.w2o_rows, (Kp, 12), F32),
+               rad=(tb.rad, (Kp, 2), F32), tor_lo=(tb.tor_lo, (Kp, 3), F32),
+               tor_hi=(tb.tor_hi, (Kp, 3), F32), clo=(tb.clo, (C, 3), F32),
+               chi=(tb.chi, (C, 3), F32), tree_lo=(tb.tree_lo, (M, 3), F32),
+               tree_hi=(tb.tree_hi, (M, 3), F32),
+               tree_link=(tb.tree_link, (M, 3), I32),
+               mat=(mat, (Kp, 12), F32),
+               counters=(counters, (2,), torch.int64))
 
     if not origins.is_cuda:
-        return torus_chunked_plain(origins, dirs, tmax, *args,
-                                   occlusion=occlusion)
+        if counters is not None:
+            raise ValueError("counters count the CUDA kernel's work")
+        return torus_chunked_plain(origins, dirs, tmax, tb.w2o_rows, tb.rad,
+                                   tb.tor_lo, tb.tor_hi, tb.clo, tb.chi,
+                                   order, tb.chunk, mat, occlusion)
 
+    # the entry point refuses a tree deeper than the kernel's stack, with an
+    # error that `launch` raises
     t = torch.empty((n,), dtype=torch.float32, device=origins.device)
     idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
     attrs = (torch.empty((N_ATTR, n), dtype=torch.float32,
-                         device=origins.device) if mat is not None else None)
+                         device=origins.device) if want_attrs else None)
     if n:
-        launch("trt_torus_closest_hit", origins, dirs, tmax, n, w2o_rows, rad,
-               tor_lo, tor_hi, clo, chi, order, C, chunk, mat,
-               int(occlusion), t, idx, attrs)
+        launch("trt_torus_closest_hit", origins, dirs, tmax, n, tb.w2o_rows,
+               tb.rad, tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth,
+               tree_rank(order), tb.chunk, mat, int(occlusion), t, idx,
+               attrs, counters)
     return (t, idx) + ((attrs,) if attrs is not None else ())
 
 
-def torus_closest_hit_small(origins, dirs, tmax, w2o, major, minor,
-                            mat_table=None, occlusion: bool = False):
+def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
+                            want_attrs: bool = False,
+                            occlusion: bool = False):
     """K3 wrapper (K <= TORUS_SMALL_MAX_K tori); same contract as K2."""
+    _check_tables("torus_closest_hit_small", tables, want_attrs)
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
-    K = major.shape[0]
-    if not 1 <= K <= TORUS_SMALL_MAX_K:
+    K = tables.K
+    if tables.par is None:
         raise ValueError(f"K3 takes 1..{TORUS_SMALL_MAX_K} tori, got {K}")
-    par = small_params(w2o, major, minor, mat_table)
+    par = tables.par
     check_args(origins.device, par=(par, (K, 32), F32))
-    emit_attrs = mat_table is not None
 
     if not origins.is_cuda:
-        return torus_small_plain(origins, dirs, tmax, par, emit_attrs,
+        return torus_small_plain(origins, dirs, tmax, par, want_attrs,
                                  occlusion)
 
     t = torch.empty((n,), dtype=torch.float32, device=origins.device)
     idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
     attrs = (torch.empty((N_ATTR, n), dtype=torch.float32,
-                         device=origins.device) if emit_attrs else None)
+                         device=origins.device) if want_attrs else None)
     if n:
         launch("trt_torus_closest_hit_small", origins, dirs, tmax, n, par, K,
-               int(emit_attrs), int(occlusion), t, idx, attrs)
+               int(want_attrs), int(occlusion), t, idx, attrs)
     return (t, idx) + ((attrs,) if attrs is not None else ())
 
 
@@ -363,14 +425,15 @@ def use_small_kernel(n_batch: int, K: int) -> bool:
             and n_batch % TORUS_SMALL_TILE == 0)
 
 
-def torus_closest_hit(origins, dirs, tmax, w2o, major, minor, mat_table=None,
-                      occlusion: bool = False, n_batch: int | None = None):
+def torus_closest_hit(origins, dirs, tmax, tables: TorusTables,
+                      want_attrs: bool = False, occlusion: bool = False,
+                      n_batch: int | None = None):
     """Route to K3 or K2 as the TPU launcher does, then run it."""
     n_batch = n_batch or origins.shape[1]
-    if use_small_kernel(n_batch, major.shape[0]):
-        return torus_closest_hit_small(origins, dirs, tmax, w2o, major, minor,
-                                       mat_table=mat_table,
+    if use_small_kernel(n_batch, tables.K):
+        return torus_closest_hit_small(origins, dirs, tmax, tables,
+                                       want_attrs=want_attrs,
                                        occlusion=occlusion)
-    return torus_closest_hit_chunked(origins, dirs, tmax, w2o, major, minor,
-                                     mat_table=mat_table, occlusion=occlusion,
-                                     n_batch=n_batch)
+    return torus_closest_hit_chunked(origins, dirs, tmax, tables,
+                                     want_attrs=want_attrs,
+                                     occlusion=occlusion, n_batch=n_batch)

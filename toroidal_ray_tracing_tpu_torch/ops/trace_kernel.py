@@ -16,6 +16,11 @@ Per query:
   4. with want_attrs, the kernels' 21-row (triangle) and 15-row (torus)
      attribute outputs assemble into `ShadeAttrs`.
 
+The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
+`StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
+built at a scene's first query on a device and kept in
+`Scene.kernel_tables`; only the visit ranks are per query.
+
 The TPU path pads each batch to a 2048-ray tile; no kernel here needs the
 padding, but the route between K2 and K3 and the front-to-back visit
 orders are computed on that padded size so every batch meets the contract
@@ -27,8 +32,10 @@ from __future__ import annotations
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, TMIN, round_up
-from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import torus_closest_hit
-from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import tri_closest_hit
+from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import (
+    torus_closest_hit, torus_tables)
+from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (tri_closest_hit,
+                                                           tri_tables)
 from toroidal_ray_tracing_tpu_torch.ops.tri_stream import (
     TRI_STREAM_MIN, stream_tables, tri_closest_hit_stream)
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
@@ -77,6 +84,20 @@ def _kept(scene: Scene, key: str, make):
     if k not in scene.kernel_tables:
         scene.kernel_tables[k] = make()
     return scene.kernel_tables[k]
+
+
+def _walked_boxes(geom, aligned: bool, n_tail: int):
+    """The cluster boxes the triangle kernels walk: the hoisted loose tail's
+    n_tail clusters get far point boxes (no ray enters them); a slice not
+    cut on cluster boundaries is one block with an all-space box."""
+    dev = geom.cluster_lo.device
+    if not aligned:
+        return (torch.full((1, 3), -3e38, device=dev),
+                torch.full((1, 3), 3e38, device=dev))
+    n_cl = geom.cluster_lo.shape[0]
+    far = torch.full((n_tail, 3), 2.0e38, device=dev)
+    return (torch.cat([geom.cluster_lo[:n_cl - n_tail], far]).contiguous(),
+            torch.cat([geom.cluster_hi[:n_cl - n_tail], far]).contiguous())
 
 
 def _loose_tri_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int):
@@ -147,13 +168,9 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
         cs = scene.cluster_size
         n_cl = geom.cluster_lo.shape[0]
         aligned = n_cl * cs == T
-        if aligned:
-            clo, chi = geom.cluster_lo, geom.cluster_hi
-        else:
+        if not aligned:
             # a slice not cut on cluster boundaries: one uncullable block
             cs, n_cl = T, 1
-            clo = torch.full((1, 3), -3e38, device=dev)
-            chi = torch.full((1, 3), 3e38, device=dev)
         tables = (_kept(scene, "tri_attrs", lambda: _tri_attr_tables(scene))
                   if want_attrs else None)
 
@@ -174,9 +191,6 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             v = torch.where(lhit, lv, v)
             if want_attrs:
                 loose_attr = _loose_attr(tables, base, L, lidx, lu, lv, lhit)
-            far = torch.full((n_tail, 3), 2.0e38, device=dev)
-            clo = torch.cat([clo[:n_cl - n_tail], far])
-            chi = torch.cat([chi[:n_cl - n_tail], far])
             tri_tmax = (torch.where(lhit, 0.0, tmax) if occlusion
                         else torch.minimum(tmax, lt))
 
@@ -186,16 +200,14 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
         else:
             kw = dict(attr_tables=tables, occlusion=occlusion,
                       n_batch=n_batch)
-            if T > TRI_STREAM_MIN and cs % 128 == 0 and aligned:
-                # the scene-constant K5/K6 tables; only the rank is per call
-                st = _kept(scene, "stream",
-                           lambda: stream_tables(geom.woop_o, geom.woop_d,
-                                                 clo, chi, cs))
-                out = tri_closest_hit_stream(origins, dirs, tri_tmax, st,
-                                             **kw)
-            else:
-                out = tri_closest_hit(origins, dirs, tri_tmax, geom.woop_o,
-                                      geom.woop_d, clo, chi, cs, **kw)
+            stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
+            make = stream_tables if stream else tri_tables
+            mesh = _kept(scene, "stream" if stream else "tri",
+                         lambda: make(geom.woop_o, geom.woop_d,
+                                      *_walked_boxes(geom, aligned, n_tail),
+                                      cs))
+            hit_fn = tri_closest_hit_stream if stream else tri_closest_hit
+            out = hit_fn(origins, dirs, tri_tmax, mesh, **kw)
             tt, ti, tu, tv = out[:4]
             better = tt < t_best
             if want_attrs:
@@ -210,8 +222,9 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             v = torch.where(better, tv, v)
 
     if has_tori:
-        mat_table = (_material_rows(scene, scene.tori.mat_id).contiguous()
-                     if want_attrs else None)
+        tor = _kept(scene, "torus", lambda: torus_tables(
+            geom.tor_w2o, geom.tor_major, geom.tor_minor,
+            _material_rows(scene, scene.tori.mat_id).contiguous()))
         # fold triangle hits into the torus query's tmax
         if has_tris and occlusion:
             tor_tmax = torch.where(t_best < BIG, 0.0, tmax)
@@ -219,9 +232,8 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             tor_tmax = torch.minimum(tmax, t_best)
         else:
             tor_tmax = tmax
-        out = torus_closest_hit(origins, dirs, tor_tmax.contiguous(),
-                                geom.tor_w2o, geom.tor_major, geom.tor_minor,
-                                mat_table=mat_table, occlusion=occlusion,
+        out = torus_closest_hit(origins, dirs, tor_tmax.contiguous(), tor,
+                                want_attrs=want_attrs, occlusion=occlusion,
                                 n_batch=n_batch)
         kt, ki = out[:2]
         if want_attrs:

@@ -2,29 +2,43 @@
 
 `tri_closest_hit` is the wrapper: on CUDA tensors it launches the
 hand-written kernel `csrc/tri_hit.cu::tri_closest_hit` (one thread per
-ray); on CPU tensors it runs `tri_closest_hit_plain`, the plain PyTorch
-twin with the same inputs and outputs. It replaces the JAX package's
-TPU kernel `ops/tri_kernel.py:77` (`_tri_kernel`).
+ray, the 32 rays of a warp walking a tree over the clusters as a packet);
+on CPU tensors it runs `tri_closest_hit_plain`, the plain PyTorch twin
+with the same inputs and outputs. It replaces the JAX package's TPU kernel
+`ops/tri_kernel.py:77` (`_tri_kernel`).
 
 Contract (per ray, as the TPU kernel): clusters are walked front to back
 (by distance of each cluster box from the batch's mean origin); a cluster
 whose AABB misses the ray before min(t_best, tmax) is skipped; the Woop
 unit-triangle test keeps the minimum t in [TMIN, tmax] with a strict `<`,
 so the lowest index wins inside a cluster and the earlier-visited cluster
-wins ties across clusters. Occlusion mode only answers "any hit" (t < BIG).
-With attr tables, the winner's 21 shading rows come out too:
-A0[:, p] + u*A1[:, p] + v*A2[:, p] for rows 0-7, A0 rows 8-20, zero on a
-miss. Unlike the TPU kernel, u/v are the true barycentrics in every mode.
+wins ties across clusters: the winner is the minimum of (t, rank, row),
+a cluster's rank being its position in the visit order. Occlusion mode
+only answers "any hit" (t < BIG). With attr tables, the winner's 21
+shading rows come out too: A0[:, p] + u*A1[:, p] + v*A2[:, p] for rows
+0-7, A0 rows 8-20, zero on a miss. Unlike the TPU kernel, u/v are the true
+barycentrics in every mode.
+
+The twin walks every cluster in rank order. The kernel walks a binary tree
+over the live clusters' boxes (`kernel_common.build_tree`, one cluster per
+leaf; far-boxed clusters, such as the hoisted loose tail, are no leaves)
+and compares the full key, so it returns the twin's bits wherever the two
+walks meet a box at the same bound. The scene-constant tables (`TriTables`:
+the Woop rows, the cluster boxes as walked and the tree) are built once by
+`tri_tables`; the wrapper takes them and never builds them, and the
+orchestrator keeps them per scene and device. Only the rank is per call.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.triangle import woop_dots, woop_hit
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_rays, count,
-    launch, visit_order, walk_bound)
+    launch, tree_rank, tree_tensors, visit_order, walk_bound)
 
 N_ATTR = 21
 
@@ -116,39 +130,80 @@ def tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi, order,
     return state + (winner_attrs(attr_tables, *state),)
 
 
-def tri_closest_hit(origins, dirs, tmax, woop_o, woop_d, cluster_lo,
-                    cluster_hi, cluster: int, attr_tables=None,
-                    occlusion: bool = False, n_batch: int | None = None):
-    """K1 wrapper. origins/dirs: (3, N) rows; tmax: (N,); woop_o (3, 4, T);
-    woop_d (3, 3, T); cluster_lo/hi (C, 3) with C * cluster == T.
-    attr_tables: optional ((21, T), (8, T), (8, T)) interpolation tables.
-    n_batch: the batch size the visit order averages origins over (the
-    caller's padded batch; default N). Returns (t, idx, u, v[, attrs
-    (21, N)]) — t is BIG on a miss, idx int32."""
-    check_rays(origins, dirs, tmax)
-    n = origins.shape[1]
-    T = woop_o.shape[2]
-    C = cluster_lo.shape[0]
+@dataclasses.dataclass
+class TriTables:
+    """The scene-constant inputs of K1 and its twin."""
+
+    cluster: int
+    box_test: bool           # False: one uncullable block, no box test
+    wrows: torch.Tensor      # (T, 24) Woop rows
+    clo: torch.Tensor        # (C, 3) cluster boxes as walked
+    chi: torch.Tensor
+    tree_lo: torch.Tensor    # (M, 3) node boxes
+    tree_hi: torch.Tensor
+    tree_link: torch.Tensor  # (M, 3) int32, see kernel_common.build_tree
+    depth: int
+
+
+def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi,
+               cluster: int) -> TriTables:
+    """Build K1's scene-constant tables: woop_o (3, 4, T); woop_d (3, 3,
+    T); cluster_lo/hi (C, 3) with C * cluster == T, far point boxes (lo >
+    1e29) marking clusters no ray enters. A single cluster is one block
+    tested without its box (nothing to skip ahead to): a one-leaf tree.
+    One host sync: the tree is built on the host."""
+    T, C = woop_o.shape[2], cluster_lo.shape[0]
     if C * cluster != T:
         raise ValueError(f"{C} clusters x {cluster} != {T} triangles")
-    a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
-    wrows = woop_rows(woop_o, woop_d)
-    clo = cluster_lo.contiguous()
-    chi = cluster_hi.contiguous()
-    # a single cluster is tested without its box (nothing to skip ahead to)
+    clo, chi = cluster_lo.contiguous(), cluster_hi.contiguous()
     box_test = C > 1
-    order = (visit_order(clo, chi, origins, n_batch or n) if box_test
-             else torch.zeros((1,), dtype=torch.int32, device=origins.device))
-    check_args(origins.device, wrows=(wrows, (T, 24), F32),
-               clo=(clo, (C, 3), F32), chi=(chi, (C, 3), F32),
-               order=(order, (C,), I32), a0=(a0, (N_ATTR, T), F32),
-               a1=(a1, (8, T), F32), a2=(a2, (8, T), F32))
+    live = (~(clo[:, 0] > 1e29) if box_test
+            else torch.ones((1,), dtype=torch.bool, device=clo.device))
+    tree_lo, tree_hi, tree_link, depth = tree_tensors(clo, chi, live)
+    return TriTables(cluster=cluster, box_test=box_test,
+                     wrows=woop_rows(woop_o, woop_d), clo=clo, chi=chi,
+                     tree_lo=tree_lo, tree_hi=tree_hi, tree_link=tree_link,
+                     depth=depth)
+
+
+def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
+                    attr_tables=None, occlusion: bool = False,
+                    n_batch: int | None = None, counters=None):
+    """K1 wrapper. origins/dirs: (3, N) rows; tmax: (N,); tables: the
+    mesh's `tri_tables`. attr_tables: optional ((21, T), (8, T), (8, T))
+    interpolation tables. n_batch: the batch size the visit order averages
+    origins over (the caller's padded batch; default N). counters: optional
+    (2,) int64 CUDA tensor the kernel adds its (ray, box) slab tests and
+    (ray, triangle) Woop tests to. Returns (t, idx, u, v[, attrs (21,
+    N)]) — t is BIG on a miss, idx int32."""
+    if not isinstance(tables, TriTables):
+        raise TypeError("tri_closest_hit takes the mesh's prebuilt "
+                        "TriTables (tri_tables)")
+    check_rays(origins, dirs, tmax)
+    n = origins.shape[1]
+    tb = tables
+    T, C, M = tb.wrows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
+    order = (visit_order(tb.clo, tb.chi, origins, n_batch or n)
+             if tb.box_test else
+             torch.zeros((1,), dtype=torch.int32, device=origins.device))
+    a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
+    check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
+               clo=(tb.clo, (C, 3), F32), chi=(tb.chi, (C, 3), F32),
+               tree_lo=(tb.tree_lo, (M, 3), F32),
+               tree_hi=(tb.tree_hi, (M, 3), F32),
+               tree_link=(tb.tree_link, (M, 3), I32),
+               a0=(a0, (N_ATTR, T), F32), a1=(a1, (8, T), F32),
+               a2=(a2, (8, T), F32), counters=(counters, (2,), torch.int64))
 
     if not origins.is_cuda:
-        return tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi,
-                                     order, cluster, box_test, attr_tables,
-                                     occlusion)
+        if counters is not None:
+            raise ValueError("counters count the CUDA kernel's work")
+        return tri_closest_hit_plain(origins, dirs, tmax, tb.wrows, tb.clo,
+                                     tb.chi, order, tb.cluster, tb.box_test,
+                                     attr_tables, occlusion)
 
+    # the entry point refuses a tree deeper than the kernel's stack, with an
+    # error that `launch` raises
     f32 = dict(dtype=torch.float32, device=origins.device)
     t = torch.empty((n,), **f32)
     idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
@@ -157,8 +212,9 @@ def tri_closest_hit(origins, dirs, tmax, woop_o, woop_d, cluster_lo,
     attrs = (torch.empty((N_ATTR, n), **f32) if attr_tables is not None
              else None)
     if n:
-        launch("trt_tri_closest_hit", origins, dirs, tmax, n, wrows, clo, chi,
-               order, C, cluster, int(box_test), a0, a1, a2, T,
-               int(occlusion), t, idx, u, v, attrs)
+        launch("trt_tri_closest_hit", origins, dirs, tmax, n, tb.wrows, T,
+               tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth,
+               tree_rank(order), tb.cluster, int(tb.box_test), a0, a1, a2,
+               int(occlusion), t, idx, u, v, attrs, counters)
     out = (t, idx, u, v)
     return out + ((attrs,) if attrs is not None else ())

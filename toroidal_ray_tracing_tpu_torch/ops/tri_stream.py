@@ -23,9 +23,10 @@ index order: a skipped cluster holds no hit below the running bound, so the
 key's minimum is unchanged. u/v are the true barycentrics in every mode.
 
 The twin walks every superblock in rank order. The kernels walk a binary
-tree over the superblock boxes instead (`build_tree`): its leaves are the
-non-empty superblocks, one each, with the superblock's own box; each inner
-node's box is the exact min/max of its children's. A packet enters a node
+tree over the superblock boxes instead (`kernel_common.build_tree`; K5
+walks it as K1 walks its clusters' tree): its leaves are the non-empty
+superblocks, one each, with the superblock's own box; each inner node's
+box is the exact min/max of its children's. A packet enters a node
 when any of its rays passes the node at its own bound. Visiting order no
 longer follows the rank, so the kernels compare the full (t, rank, row)
 key and take the rank as `rank[s]`. Where a hit lies within rounding of
@@ -49,12 +50,11 @@ from __future__ import annotations
 import dataclasses
 import os
 
-import numpy as np
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     BIG, F32, I32, box_pass, check_args, check_rays, count, launch,
-    visit_order, walk_bound)
+    tree_rank, tree_tensors, visit_order, walk_bound)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (
     N_ATTR, fold_block, walk_start, winner_attrs, woop_block, woop_rows)
 
@@ -65,7 +65,6 @@ STREAM_GROUP = int(os.environ.get("TRT_STREAM_GROUP", "0"))
 # > 1 selects K6, as the same switch selects the grouped TPU kernel
 # (tri_stream.py:446); 0, the default, runs K5. On the GPU a group is one
 # CTA of 128 rays whatever the value.
-SAH_BINS = 16
 
 
 def superblocks(cluster_lo, cluster_hi, cluster: int):
@@ -94,80 +93,6 @@ def superblocks(cluster_lo, cluster_hi, cluster: int):
             sb_hi.contiguous())
 
 
-def build_tree(sb_lo, sb_hi, leaves):
-    """Binary tree over the superblocks `leaves` (ids), top-down binned SAH
-    on the box centroids along the widest centroid axis (object median
-    where binning cannot split). Nodes in depth-first preorder, root 0,
-    left child m + 1. Returns numpy (lo (M, 3) f32, hi (M, 3) f32, link
-    (M, 3) i32, depth): link is (left, right, split axis) for an inner node
-    (left holds the lower centroids) and (-1 - s, -1 - s, -1) for the leaf
-    of superblock s, whose box is the superblock's; depth counts the inner
-    nodes on the longest root-to-leaf path. Two-wide: config 8's 3,339
-    leaves make a tree 16 deep, which the kernels' 64-entry stack holds
-    (their entry points refuse a deeper one); a binary node needs no
-    ordering of its children beyond one direction sign, and a packet
-    pushes at most one far child per level."""
-    slo, shi = np.asarray(sb_lo, np.float32), np.asarray(sb_hi, np.float32)
-    cent = (slo.astype(np.float64) + shi) * 0.5
-    lo, hi, link = [], [], []
-
-    def area(l, h):
-        e = np.maximum(h - l, 0.0)
-        return e[..., 0] * e[..., 1] + e[..., 1] * e[..., 2] \
-            + e[..., 2] * e[..., 0]
-
-    def split(ids):
-        c = cent[ids]
-        cmin, cmax = c.min(axis=0), c.max(axis=0)
-        axis = int(np.argmax(cmax - cmin))
-        ext = cmax[axis] - cmin[axis]
-        if ext > 0:
-            b = np.minimum(((c[:, axis] - cmin[axis]) / ext
-                            * SAH_BINS).astype(np.int64), SAH_BINS - 1)
-            blo = np.full((SAH_BINS, 3), np.inf)
-            bhi = np.full((SAH_BINS, 3), -np.inf)
-            np.minimum.at(blo, b, slo[ids])
-            np.maximum.at(bhi, b, shi[ids])
-            cnt = np.bincount(b, minlength=SAH_BINS)
-            llo = np.minimum.accumulate(blo)
-            lhi = np.maximum.accumulate(bhi)
-            rlo = np.minimum.accumulate(blo[::-1])[::-1]
-            rhi = np.maximum.accumulate(bhi[::-1])[::-1]
-            nl = np.cumsum(cnt)
-            cost = area(llo[:-1], lhi[:-1]) * nl[:-1] \
-                + area(rlo[1:], rhi[1:]) * (len(ids) - nl[:-1])
-            cost[(nl[:-1] == 0) | (nl[:-1] == len(ids))] = np.inf
-            k = int(np.argmin(cost))
-            if np.isfinite(cost[k]):
-                return axis, ids[b <= k], ids[b > k]
-        ids = ids[np.argsort(c[:, axis], kind="stable")]
-        return axis, ids[:len(ids) // 2], ids[len(ids) // 2:]
-
-    def node(ids):
-        m = len(lo)
-        lo.append(None)
-        hi.append(None)
-        link.append(None)
-        if len(ids) == 1:
-            s = int(ids[0])
-            lo[m], hi[m], link[m] = slo[s], shi[s], (-1 - s, -1 - s, -1)
-            return 0
-        axis, left, right = split(ids)
-        dl = node(left)
-        r = len(lo)
-        dr = node(right)
-        lo[m] = np.minimum(lo[m + 1], lo[r])
-        hi[m] = np.maximum(hi[m + 1], hi[r])
-        link[m] = (m + 1, r, axis)
-        return 1 + max(dl, dr)
-
-    leaves = np.asarray(leaves, np.int64)
-    depth = node(leaves) if len(leaves) else 0
-    return (np.array(lo, np.float32).reshape(-1, 3),
-            np.array(hi, np.float32).reshape(-1, 3),
-            np.array(link, np.int32).reshape(-1, 3), depth)
-
-
 @dataclasses.dataclass
 class StreamTables:
     """The scene-constant inputs of K5/K6 and their twin."""
@@ -181,7 +106,7 @@ class StreamTables:
     sb_hi: torch.Tensor
     tree_lo: torch.Tensor    # (M, 3) node boxes
     tree_hi: torch.Tensor
-    tree_link: torch.Tensor  # (M, 3) int32, see build_tree
+    tree_link: torch.Tensor  # (M, 3) int32, see kernel_common.build_tree
     depth: int
 
 
@@ -198,24 +123,11 @@ def stream_tables(woop_o, woop_d, cluster_lo, cluster_hi,
     g, S, clo, chi, sb_lo, sb_hi = superblocks(cluster_lo, cluster_hi,
                                                cluster)
     live = ~(clo[:, 0] > 1e29).reshape(S, g).all(dim=1)
-    tlo, thi, tlink, depth = build_tree(sb_lo.cpu().numpy(),
-                                        sb_hi.cpu().numpy(),
-                                        np.nonzero(live.cpu().numpy())[0])
-    dev = cluster_lo.device
+    tree_lo, tree_hi, tree_link, depth = tree_tensors(sb_lo, sb_hi, live)
     return StreamTables(
         g=g, cluster=cluster, wrows=woop_rows(woop_o, woop_d), clo=clo,
-        chi=chi, sb_lo=sb_lo, sb_hi=sb_hi,
-        tree_lo=torch.from_numpy(tlo).to(dev),
-        tree_hi=torch.from_numpy(thi).to(dev),
-        tree_link=torch.from_numpy(tlink).to(dev), depth=depth)
-
-
-def tree_rank(order):
-    """rank[s]: the position of superblock s in the visit order."""
-    rank = torch.empty_like(order)
-    rank[order.long()] = torch.arange(order.shape[0], dtype=order.dtype,
-                                      device=order.device)
-    return rank
+        chi=chi, sb_lo=sb_lo, sb_hi=sb_hi, tree_lo=tree_lo, tree_hi=tree_hi,
+        tree_link=tree_link, depth=depth)
 
 
 def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,

@@ -16,17 +16,22 @@ Phases, each printed on its own lines with its wall seconds:
      K1 on config 6's 1080p rays (a 262,144-ray subset and the full
      frame; any-hit on the subset's shadow rays), K2 on config 3 and
      config 4 (subset and full frame), K3 on
-     config 3 at 512x512, K4 on config 7's 1080p primary-hit texel indices
-     (bit-equal; beside it the one-call PyTorch gather, library_ms), K5 on
+     config 3 at 512x512 (closest with attrs, and any-hit on its shadow
+     rays) and on config 7's first 1080p closest+attrs and any-hit calls
+     (K = 1) as render makes them, each with its work counters and its
+     bare launch beside the wrapper, K4 on config 7's 1080p primary-hit and
+     first-bounce texel indices (bit-equal; the bare launch, and beside it
+     the one-call PyTorch gather, library_ms; the bound counts the atlas
+     rows the call touches), K5 on
      a contiguous block-major patch of 32,768 of config 8's 1080p primary
      rays (closest with attrs, and any-hit on their shadow rays; the flat
      twin's slab / Woop tests per ray beside the tree walks' own counters),
      and K5 against K6 on the full 1080p frame (bit-equal, closest with
      attrs and any-hit; both also against the flat twin on every 63rd ray
      of the frame and as many rays near the mesh), each bound from the
-     kernel's counters; K5's wrapper against its bare launch beside the
-     per-scene table preparation it no longer repeats, and a render of
-     config 8 from its host scene;
+     kernel's counters; K5's and K6's wrappers against their bare
+     launches, beside the per-scene table preparation they no longer
+     repeat, and a render of config 8 from its host scene;
   4. the main path, each path run with the launch counts set to 0 just
      before it and read just after: `render(..., backend="kernel",
      device="cuda")` at 1920x1080 for config 3, config 6, config 4, the
@@ -40,7 +45,7 @@ Phases, each printed on its own lines with its wall seconds:
      128x72, where the torch backend's dense 1.18M-triangle query is
      affordable);
   5. the goldens of tests/golden on the card, on both backends;
-  6. one profiled 1080p frame per cell (torch.profiler): device busy time,
+  6. one profiled frame per cell (torch.profiler): device busy time,
      CUDA kernel launches, the port's kernels' share, idle share.
 
 Any failed check exits 1 without the result lines. On success the line
@@ -286,6 +291,7 @@ def phase_kernels(torch, results):
     from toroidal_ray_tracing_tpu_torch import render
     from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera
     from toroidal_ray_tracing_tpu_torch.cameras.pinhole import pick_block
+    from toroidal_ray_tracing_tpu_torch.experiments.k3_turns import graph_ms
     from toroidal_ray_tracing_tpu_torch.ops import tex_kernel as txk
     from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tk
     from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
@@ -572,83 +578,163 @@ def phase_kernels(torch, results):
         config4_occlusion_plain_ms=occ4_plain,
         config4_occlusion_bound_ms=bo4, config4_occlusion_work=w4o)
 
-    # --- K3: config 3 tori at 512x512 -------------------------------------
-    print("K3 torus_closest_hit_small (config 3 at 512x512)", flush=True)
+    # --- K3: config 3 at 512x512, config 7's 1080p calls (K = 1) ----------
+    def k3_bare(tt, o_, d_, tm, attrs, occl):
+        """K3's launch alone, on outputs made once."""
+        n_ = o_.shape[1]
+        t_ = torch.empty((n_,), device=dev)
+        i_ = torch.empty((n_,), dtype=torch.int32, device=dev)
+        a_ = torch.empty((15, n_), device=dev) if attrs else None
+        return lambda: launch("trt_torus_closest_hit_small", o_, d_, tm, n_,
+                              tt.par, tt.K, int(occl), t_, i_, a_, None)
+
+    def k3_cell(label, tt, o_, d_, tm, attrs, occl):
+        """K3 on one ray set against its twin (any-hit: masks, and idx 0 on
+        every ray), its counters against the twin's counts (within K tests
+        for each 1e-4 of the rays, as many as the hit masks may differ by),
+        the bound from the kernel's counters, wrapper / bare / plain
+        times."""
+        n_ = o_.shape[1]
+        work, counts = counters(), {}
+        got = tk.torus_closest_hit_small(o_, d_, tm, tt, want_attrs=attrs,
+                                         occlusion=occl, counters=work)
+        ref = tk.torus_small_plain(o_, d_, tm, tt.par, attrs, occl,
+                                   counts=counts)
+        err = compare_hits(label, got, ref, n_,
+                           attr_rows=2 if attrs else None, occlusion=occl)
+        if occl:
+            check(not bool(got[1].any()), f"K3 {label}: idx 0 on every ray")
+        work = tuple(int(x) for x in work.tolist())
+        twin = (int(counts["box"]), int(counts["prim"]))
+        print(f"  {label}: counters (slab tests, quartics) {work}, the "
+              f"twin's {twin}", flush=True)
+        check(all(abs(a - b) <= tt.K * (1 + n_ // 10_000)
+                  for a, b in zip(work, twin)),
+              f"K3 {label}: counters agree with the twin's counts")
+        b, by = work_bound(torch, n_, work, QUARTIC_OPS, nbytes(tt.par), 0,
+                           got[0], got[1], 2 + (15 if attrs else 0),
+                           "quartics")
+        del got, ref
+        wrapped = cuda_ms(lambda: tk.torus_closest_hit_small(
+            o_, d_, tm, tt, want_attrs=attrs, occlusion=occl))
+        bare = cuda_ms(k3_bare(tt, o_, d_, tm, attrs, occl))
+        device = graph_ms(k3_bare(tt, o_, d_, tm, attrs, occl))
+        plain = cuda_ms(lambda: tk.torus_small_plain(o_, d_, tm, tt.par,
+                                                     attrs, occl))
+        print(f"  {label}: wrapper {wrapped:.4f} ms, bare launch {bare:.4f} "
+              f"ms ({device:.4f} ms on the device, in a graph) vs plain "
+              f"{plain:.3f} ms at {n_} rays; bound {b:.4f} ms ({by}) from "
+              "the kernel's work", flush=True)
+        return dict(ms=wrapped, bare_ms=bare, device_ms=device,
+                    plain_ms=plain, bound_ms=b, bound_by=by, max_abs_err=err,
+                    rays=n_, work=work)
+
+    print(f"K3 torus_closest_hit_small (config 3 at {K3_RES}x{K3_RES}: "
+          f"{tt3.K} tori)", flush=True)
     o5, d5 = rays(cam36, K3_RES, K3_RES)
     n5 = o5.shape[1]
     tm5 = torch.full((n5,), 1e4, device=dev)
-    K3 = tor.major_radius.shape[0]
-    check(tk.use_small_kernel(round_up(n5, 2048), K3),
+    check(tk.use_small_kernel(round_up(n5, 2048), tt3.K),
           f"{K3_RES}x{K3_RES} config 3 routes to K3")
-    par = tt3.par
-    counts = {}
-    err5 = compare_hits(
-        "closest+attrs",
-        tk.torus_closest_hit_small(o5, d5, tm5, tt3, want_attrs=True),
-        tk.torus_small_plain(o5, d5, tm5, par, True, counts=counts), n5,
-        attr_rows=2)
-    ms5 = cuda_ms(lambda: tk.torus_closest_hit_small(o5, d5, tm5, tt3,
-                                                     want_attrs=True))
-    t5 = torch.empty((n5,), device=dev)
-    i5 = torch.empty((n5,), dtype=torch.int32, device=dev)
-    a5 = torch.empty((15, n5), device=dev)
-    bare5 = cuda_ms(lambda: launch("trt_torus_closest_hit_small", o5, d5,
-                                   tm5, n5, par, K3, 1, 0, t5, i5, a5))
-    plain5 = cuda_ms(lambda: tk.torus_small_plain(o5, d5, tm5, par, True))
+    k3c = k3_cell("config 3 closest+attrs", tt3, o5, d5, tm5, True, False)
+    so5, sd5, stm5 = shadow_rays(torch, o5, d5, tk.torus_closest_hit_small(
+        o5, d5, tm5, tt3)[0], light)
+    k3o = k3_cell("config 3 any-hit (shadow rays)", tt3, so5, sd5, stm5,
+                  False, True)
     params_ms = cuda_ms(lambda: tk.small_params(
-        tor.world_to_obj, tor.major_radius, tor.minor_radius, tt3.mat[:K3]))
-    b5, b5_by = hit_bound(n5, counts, QUARTIC_OPS, nbytes(par), 2 + 15)
-    print(f"  wrapper {ms5:.3f} ms, bare launch {bare5:.4f} ms vs plain "
-          f"{plain5:.3f} ms at {n5} rays (bound {b5:.4f} ms, {b5_by}); "
-          f"per-call parameter blocks the kept tables save: {params_ms:.3f} "
-          f"ms", flush=True)
+        tor.world_to_obj, tor.major_radius, tor.minor_radius,
+        tt3.mat[:tt3.K]))
+    print(f"  per-call parameter blocks the kept tables save: "
+          f"{params_ms:.3f} ms", flush=True)
+
+    # config 7 at 1080p through render: its K3 calls (the mirror torus,
+    # K = 1) and its K4 calls (primary hits, then a bounce), as the main
+    # path makes them
+    sc7, s7 = config(7)
+    k3_calls, k4_calls = [], []
+    real_k3, real_k4 = tk.torus_closest_hit_small, shade.quad_gather
+
+    def record_k3(o_, d_, tm, tables, want_attrs=False, occlusion=False):
+        k3_calls.append((tables, o_.clone(), d_.clone(), tm.clone(),
+                         want_attrs, occlusion))
+        return real_k3(o_, d_, tm, tables, want_attrs=want_attrs,
+                       occlusion=occlusion)
+
+    def record_k4(*args):
+        k4_calls.append(tuple(a.clone() for a in args))
+        return real_k4(*args)
+
+    tk.torus_closest_hit_small, shade.quad_gather = record_k3, record_k4
+    try:
+        render(s7, sc7.camera, *FULL, sc7.settings(), backend="kernel",
+               device=DEVICE)
+    finally:
+        tk.torus_closest_hit_small, shade.quad_gather = real_k3, real_k4
+    print(f"K3 on config 7's 1080p calls ({len(k3_calls)} per frame, K = "
+          f"{k3_calls[0][0].K})", flush=True)
+    k7 = {}
+    for occl in (False, True):
+        call = next(c for c in k3_calls if c[5] == occl)
+        k7[occl] = k3_cell(f"config 7 {'any-hit' if occl else 'closest'}"
+                           f"{'' if occl else '+attrs'} (first call)",
+                           *call[:4], call[4], occl)
     results["torus_closest_hit_small"] = dict(
         source=f"{KERNEL_DIR}/torus_hit.cu",
-        replaces=f"{JAX_OPS}/torus_kernel.py:530", max_abs_err=err5,
-        ms=ms5, bare_ms=bare5, plain_ms=plain5, bound_ms=b5, bound_by=b5_by,
-        library_ms=None, rays=n5, small_params_ms=params_ms)
+        replaces=f"{JAX_OPS}/torus_kernel.py:530", library_ms=None, **k3c,
+        config3_occlusion=k3o, config7=k7[False], config7_occlusion=k7[True],
+        small_params_ms=params_ms)
 
-    # --- K4: config 7's 1080p primary-hit texel indices --------------------
-    print("K4 quad_gather (config 7, primary hits at 1080p)", flush=True)
-    sc7, s7 = config(7)
-    taken = []
-    real = shade.quad_gather
+    # --- K4: config 7's 1080p texel indices ---------------------------------
+    def k4_cell(label, data4q, f0, f1, valid):
+        """K4 against its twin and the library gather; wrapper, bare, plain
+        and library times; the bound from the bytes the call moves: the
+        indices and flags in, the words out, and the atlas rows its valid
+        indices touch."""
+        n_, T = f0.shape[0], data4q.shape[0]
+        ref = txk.quad_gather_plain(data4q, f0, f1, valid)
+        eq = bit_equal(txk.quad_gather(data4q, f0, f1, valid), ref)
+        rows = int(torch.cat([f[valid & (f >= 0) & (f < T)]
+                              for f in (f0, f1)]).unique().numel())
+        print(f"  {label}: {n_} rays, {int(valid.sum())} valid, atlas {T} "
+              f"texels ({rows} touched): words bit-equal {eq}", flush=True)
+        check(eq, f"K4 {label} bit-equal to its plain twin")
 
-    def record(*args):
-        taken.append(tuple(a.clone() for a in args))
-        return real(*args)
+        def library():
+            return tuple(torch.where(valid[None, :], data4q[f.long()].T, 0)
+                         for f in (f0, f1))
 
-    shade.quad_gather = record
-    try:
-        render(s7, sc7.camera, *FULL, RenderSettings.default(max_depth=1),
-               backend="kernel", device=DEVICE)
-    finally:
-        shade.quad_gather = real
-    data4q, f0, f1, valid = taken[0]
-    n7 = f0.shape[0]
-    got = txk.quad_gather(data4q, f0, f1, valid)
-    ref = txk.quad_gather_plain(data4q, f0, f1, valid)
-    eq = bit_equal(got, ref)
-    print(f"  {n7} rays, {int(valid.sum())} valid, atlas {data4q.shape[0]} "
-          f"texels: words bit-equal {eq}", flush=True)
-    check(eq, "K4 bit-equal to its plain twin")
+        check(bit_equal(library(), ref),
+              f"K4 {label}: library gather computes the same")
+        q0, q1 = (torch.empty((3, n_), dtype=torch.int32, device=dev)
+                  for _ in range(2))
 
-    def library():
-        return tuple(torch.where(valid[None, :], data4q[f.long()].T, 0)
-                     for f in (f0, f1))
+        def run():
+            launch("trt_quad_gather", data4q, T, f0, f1, valid, n_, q0, q1)
 
-    check(bit_equal(library(), ref), "K4 library gather computes the same")
-    ms7 = cuda_ms(lambda: txk.quad_gather(data4q, f0, f1, valid))
-    plain7 = cuda_ms(lambda: txk.quad_gather_plain(data4q, f0, f1, valid))
-    lib7 = cuda_ms(library)
-    b7, b7_by = bound(nbytes(f0, f1, valid, data4q) + 2 * 3 * 4 * n7, 0)
-    print(f"  kernel {ms7:.4f} ms vs plain {plain7:.4f} ms vs library "
-          f"{lib7:.4f} ms (bound {b7:.4f} ms, {b7_by})", flush=True)
+        wrapped = cuda_ms(lambda: txk.quad_gather(data4q, f0, f1, valid))
+        bare = cuda_ms(run)
+        device = graph_ms(run)
+        plain = cuda_ms(lambda: txk.quad_gather_plain(data4q, f0, f1, valid))
+        lib = cuda_ms(library)
+        moved = nbytes(f0, f1, valid) + rows * 12 + 2 * 3 * 4 * n_
+        b, by = bound(moved, 0)
+        print(f"  {label}: wrapper {wrapped:.4f} ms, bare launch {bare:.4f} "
+              f"ms ({device:.4f} ms on the device, in a graph) vs plain "
+              f"{plain:.4f} ms vs library {lib:.4f} ms; bound {b:.4f} ms "
+              f"({by}: {moved / 1e6:.2f} MB); device / bound "
+              f"{device / b:.2f}", flush=True)
+        return dict(ms=wrapped, bare_ms=bare, device_ms=device,
+                    plain_ms=plain, library_ms=lib, bound_ms=b, bound_by=by,
+                    bound_bytes=moved, atlas_rows_touched=rows, rays=n_)
+
+    print(f"K4 quad_gather (config 7 at 1080p, {len(k4_calls)} calls per "
+          "frame)", flush=True)
+    k4p = k4_cell("primary hits", *k4_calls[0])
+    k4b = k4_cell("first bounce", *k4_calls[1])
     results["quad_gather"] = dict(
         source=f"{KERNEL_DIR}/tex_gather.cu",
-        replaces=f"{JAX_OPS}/tex_kernel.py:57", max_abs_err=0.0, ms=ms7,
-        plain_ms=plain7, bound_ms=b7, bound_by=b7_by, library_ms=lib7,
-        rays=n7)
+        replaces=f"{JAX_OPS}/tex_kernel.py:57", max_abs_err=0.0, **k4p,
+        bounce=k4b)
 
     # --- K5 / K6: config 8, 1.18M triangles ---------------------------------
     phase_stream(torch, results, rays, light)
@@ -840,11 +926,13 @@ def phase_stream(torch, results, rays, light):
             refused += 1
     check(refused == 2, "K5 and K6 refuse a tree deeper than their stack")
     bare_ms = cuda_ms(bare)
+    bare6_ms = cuda_ms(lambda: bare("_grouped"))
     wrows_ms = cuda_ms(lambda: woop_rows(tri8.woop_o, tri8.woop_d))
     sb_ms = cuda_ms(lambda: tsk.superblocks(clo8, chi8, cs8))
     cat_ms = cuda_ms(lambda: hoisted_tables(torch, s8)[:2])
-    print(f"  K5 full frame: wrapper {f5:.3f} ms, bare launch {bare_ms:.3f} "
-          f"ms; per-call preparation kept per scene: Woop rows "
+    print(f"  full frame: K5 wrapper {f5:.3f} ms, bare launch {bare_ms:.3f} "
+          f"ms; K6 wrapper {f6:.3f} ms, bare launch {bare6_ms:.3f} ms; "
+          f"per-call preparation kept per scene: Woop rows "
           f"{wrows_ms:.3f} ms, superblocks {sb_ms:.3f} ms, tree "
           f"{build_ms:.1f} ms (stream_tables, host), hoisted cluster boxes "
           f"and attribute tables {cat_ms:.3f} ms", flush=True)
@@ -872,8 +960,8 @@ def phase_stream(torch, results, rays, light):
                   patch_flat_work=(counts["box"], counts["prim"]),
                   tree_depth=st.depth, tree_nodes=M, table_build_ms=build_ms,
                   woop_rows_ms=wrows_ms, superblocks_ms=sb_ms,
-                  boxes_tables_ms=cat_ms, bare_launch_ms=bare_ms,
-                  frame_twin_rays=(m8, m8o), frame_twin_ms=twin_frame,
+                  boxes_tables_ms=cat_ms, frame_twin_rays=(m8, m8o),
+                  frame_twin_ms=twin_frame,
                   frame_twin_occlusion_ms=twin_occ,
                   render_host_scene_ms=(host_first, host_again),
                   render_card_scene_ms=card_ms)
@@ -884,7 +972,8 @@ def phase_stream(torch, results, rays, light):
         bound_ms=bounds["K5 closest+attrs"][0],
         bound_by=bounds["K5 closest+attrs"][1], occlusion_ms=fo5,
         occlusion_bound_ms=bounds["K5 any-hit"][0], work=w5,
-        occlusion_work=wo5, patch_ms=ms8, patch_work=w5p, **common)
+        occlusion_work=wo5, patch_ms=ms8, patch_work=w5p,
+        bare_launch_ms=bare_ms, **common)
     results["tri_closest_hit_stream_grouped"] = dict(
         source=f"{KERNEL_DIR}/tri_stream.cu",
         replaces=f"{JAX_OPS}/tri_stream.py:303",
@@ -893,7 +982,7 @@ def phase_stream(torch, results, rays, light):
         bound_by=bounds["K6 closest+attrs"][1], occlusion_ms=fo6,
         occlusion_bound_ms=bounds["K6 any-hit"][0], work=w6,
         occlusion_work=wo6, patch_ms=ms6, patch_work=w6p,
-        **common)
+        bare_launch_ms=bare6_ms, **common)
 
 
 def write_ppm(path, image):
@@ -1111,7 +1200,7 @@ def phase_goldens(torch):
 
 
 def phase_profile(torch, cells, stats):
-    """One profiled frame per 1080p cell: device busy = the sum of the CUDA
+    """One profiled frame per cell: device busy = the sum of the CUDA
     events' device times; the idle share is taken against the same run's
     unprofiled frame time (the profiler's overhead inflates its own)."""
     from torch.profiler import ProfilerActivity, profile
@@ -1125,8 +1214,6 @@ def phase_profile(torch, cells, stats):
     ours = re.compile(r"(\w+)(?:<[^>]*>)?\(")   # name, template args
     rows = []
     for name, key, _, cam, st, w, h, _, group in cells:
-        if (w, h) != FULL:
-            continue
         tri_stream.STREAM_GROUP = group
         scene = _SCENES[key]
         with profile(activities=[ProfilerActivity.CPU,
@@ -1221,9 +1308,9 @@ def main() -> int:
     phase_goldens(torch)
     done("5. goldens on the card")
 
-    phase("6. profile: one 1080p frame per cell")
+    phase("6. profile: one frame per cell")
     profile_rows = phase_profile(torch, cells, stats)
-    done("6. profile: one 1080p frame per cell")
+    done("6. profile: one frame per cell")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

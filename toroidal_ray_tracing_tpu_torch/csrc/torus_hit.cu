@@ -43,8 +43,16 @@
 // K3 takes K <= 8 tori's 32-float parameter blocks into shared memory;
 // every ray gates on the union box, then walks all K tori with the per-torus
 // slab against its running best. With attrs, the winner's world normal and
-// 12 material values are written once after the walk. It runs at about half
-// its bytes bound.
+// 12 material values are written once after the walk; any-hit writes idx 0,
+// as the reference kernel does. What bounds it on this card is bytes (7
+// floats in; t, idx and 15 attr rows out per ray), not its serial
+// quartics: they are few (0.16 per ray at config 3's 512x512 frame, K = 4;
+// 0.02 at config 7's 1080p frame, K = 1, by its counters). Its device time
+// is 0.015 ms at config 3's frame, 2.0x its 0.0075 ms bytes bound, and
+// 0.075 ms at config 7's, 1.3x its 0.059 ms (NVIDIA H100 80GB HBM3, 700 W;
+// experiments/k3_turns.py). Spreading the quartics over the warp's lanes
+// (K2's ring and rounds), or over one thread per (ray, torus) pair, was
+// slower at both shapes on the same card, by 4% up to 2.4x.
 #include "tree_walk.cuh"
 
 namespace {
@@ -398,11 +406,16 @@ __global__ void __launch_bounds__(128) torus_closest_hit(
 constexpr int kSmallMaxK = 8;
 constexpr int kParams = 32;  // [w2o (12), Rmaj, rmin, lo (3), hi (3), mat (12)]
 
+// kCount: the build that adds its work to counters. The main path launches
+// the other one, which carries no counting code: in the one build, the
+// counting cost config 7's bytes-bound 1080p calls 5-15% of device time.
+template <bool kCount>
 __global__ void torus_closest_hit_small(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ tmax, int n, const float* __restrict__ par,
-    int K, int emit_attrs, int occlusion, float* __restrict__ t_out,
-    int* __restrict__ idx_out, float* __restrict__ attr_out) {
+    int K, int occlusion, float* __restrict__ t_out,
+    int* __restrict__ idx_out, float* __restrict__ attr_out,
+    long long* __restrict__ counters) {
   __shared__ float sp[kSmallMaxK * kParams];
   for (int j = threadIdx.x; j < K * kParams; j += blockDim.x) sp[j] = par[j];
   __syncthreads();
@@ -411,6 +424,8 @@ __global__ void torus_closest_hit_small(
   float o[3], d[3], inv[3];
   load_ray(origins, dirs, n, i, o, d, inv);
   const float tm = tmax[i];
+  unsigned box = 1, prim = 0;  // the twin's counts: the union box, then
+                               // the walk's slab tests and quartics
 
   // union-box gate over the K boxes
   float ulo[3], uhi[3];
@@ -433,9 +448,11 @@ __global__ void torus_closest_hit_small(
       const float* p = sp + kParams * k;
       const float bound = occlusion ? (best < TRT_BIG ? -1.0f : tm)
                                     : jmin(tm, best);
+      ++box;
       if (!trt::slab_pass(p + 14, p + 17, o, inv, bound, tm) ||
           !(p[13] > 0.0f))
         continue;
+      ++prim;
       const TorusRay s = torus_ray(p, p[12], p[13], o, d);
       float troot;
       const float t = torus_t(s, tm, &troot);
@@ -448,8 +465,8 @@ __global__ void torus_closest_hit_small(
     }
   }
   t_out[i] = best;
-  idx_out[i] = barg;
-  if (emit_attrs) {
+  idx_out[i] = occlusion ? 0 : barg;
+  if (attr_out != nullptr) {
     const bool hit = best < TRT_BIG;
     const float* p = sp + kParams * barg;
     float nrm[3] = {0.0f, 0.0f, 0.0f};
@@ -458,6 +475,15 @@ __global__ void torus_closest_hit_small(
       torus_world_normal(p, s, broot, p[12], nrm);
     }
     write_attrs(attr_out, n, i, hit, nrm, p + 20);
+  }
+  if constexpr (kCount) {  // each group of lanes here adds with one atomic
+    const unsigned live = __activemask();
+    box = __reduce_add_sync(live, box);
+    prim = __reduce_add_sync(live, prim);
+    if ((threadIdx.x & 31) == __ffs(live) - 1) {
+      atomicAdd(reinterpret_cast<unsigned long long*>(counters), box);
+      atomicAdd(reinterpret_cast<unsigned long long*>(counters) + 1, prim);
+    }
   }
 }
 
@@ -480,13 +506,15 @@ extern "C" int trt_torus_closest_hit(
 
 extern "C" int trt_torus_closest_hit_small(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* par, int K, int emit_attrs, int occlusion, float* t_out,
-    int* idx_out, float* attr_out, void* stream) {
+    const float* par, int K, int occlusion, float* t_out, int* idx_out,
+    float* attr_out, long long* counters, void* stream) {
   if (K < 1 || K > kSmallMaxK) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  torus_closest_hit_small<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, par, K, emit_attrs, occlusion, t_out, idx_out,
-      attr_out);
+  const auto kernel = counters != nullptr ? torus_closest_hit_small<true>
+                                          : torus_closest_hit_small<false>;
+  kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      origins, dirs, tmax, n, par, K, occlusion, t_out, idx_out, attr_out,
+      counters);
   return (int)cudaGetLastError();
 }

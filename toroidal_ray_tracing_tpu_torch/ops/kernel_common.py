@@ -256,9 +256,9 @@ _SIGNATURES = {
     # depth, rank, chunk, mat, occlusion, t, idx, attrs, counters, stream
     "trt_torus_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
                               _P, _I, _P, _I, _P, _P, _P, _P, _P],
-    # origins, dirs, tmax, n, par, K, emit_attrs, occlusion, t, idx, attrs,
+    # origins, dirs, tmax, n, par, K, occlusion, t, idx, attrs, counters,
     # stream
-    "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _I, _P, _P,
+    "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
                                     _P, _P],
     # data4q, n_texels, f0, f1, valid, n, q0, q1, stream
     "trt_quad_gather": [_P, _I, _P, _P, _P, _I, _P, _P, _P],

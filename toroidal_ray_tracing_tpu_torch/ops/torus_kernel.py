@@ -12,7 +12,9 @@
   passing (ray, torus) pairs over the warp's lanes.
 * K3 `torus_closest_hit_small` (CUDA `torus_closest_hit_small`) replaces
   `torus_kernel.py:530` (`_torus_small_kernel`): K <= 8 tori, a union-box
-  gate, then every torus with the per-torus slab against the running best.
+  gate, then every torus with the per-torus slab against the running best,
+  one thread per ray in the kernel; any-hit writes idx 0, as the TPU
+  kernel does.
 
 `torus_closest_hit` routes between them with the TPU launcher's rule
 (`torus_kernel.py:392-394`) on the batch size the caller pads to. Each
@@ -247,6 +249,9 @@ def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
         tn, tf = slab(par[k, 14:17], par[k, 17:20], o, inv)
         cand = any_cand & (tn <= torch.minimum(tf, bound)) & (tf >= TMIN) \
             & (tmax > TMIN) & (par[k, 13] > 0.0)
+        if occlusion:   # no quartic after a ray's first hit, as in the CUDA
+            cand &= best >= BIG   # kernel (a bound of -1 still passes a
+                                  # box that holds the ray's origin)
         count(counts, "box", (any_cand & (best >= BIG)).sum() if occlusion
               else any_cand.sum())
         count(counts, "prim", cand.sum())
@@ -392,8 +397,11 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
 
 def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
                             want_attrs: bool = False,
-                            occlusion: bool = False):
-    """K3 wrapper (K <= TORUS_SMALL_MAX_K tori); same contract as K2."""
+                            occlusion: bool = False, counters=None):
+    """K3 wrapper (K <= TORUS_SMALL_MAX_K tori); same contract as K2.
+    counters: optional (2,) int64 CUDA tensor the kernel adds its (ray,
+    box) slab tests and (ray, torus) quartics to, as the twin's `counts`
+    counts them."""
     _check_tables("torus_closest_hit_small", tables, want_attrs)
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
@@ -401,9 +409,12 @@ def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
     if tables.par is None:
         raise ValueError(f"K3 takes 1..{TORUS_SMALL_MAX_K} tori, got {K}")
     par = tables.par
-    check_args(origins.device, par=(par, (K, 32), F32))
+    check_args(origins.device, par=(par, (K, 32), F32),
+               counters=(counters, (2,), torch.int64))
 
     if not origins.is_cuda:
+        if counters is not None:
+            raise ValueError("counters count the CUDA kernel's work")
         return torus_small_plain(origins, dirs, tmax, par, want_attrs,
                                  occlusion)
 
@@ -413,7 +424,7 @@ def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
                          device=origins.device) if want_attrs else None)
     if n:
         launch("trt_torus_closest_hit_small", origins, dirs, tmax, n, par, K,
-               int(want_attrs), int(occlusion), t, idx, attrs)
+               int(occlusion), t, idx, attrs, counters)
     return (t, idx) + ((attrs,) if attrs is not None else ())
 
 

@@ -46,7 +46,21 @@ Phases, each printed on its own lines with its wall seconds:
      affordable);
   5. the goldens of tests/golden on the card, on both backends;
   6. one profiled frame per cell (torch.profiler): device busy time,
-     CUDA kernel launches, the port's kernels' share, idle share.
+     CUDA kernel launches, the port's kernels' share, idle share;
+  7. the capture experiment through `experiments/`, each run with the
+     launch counts set to 0 just before it and read just after: config
+     6's scene written as OBJ + MTL files and loaded (native and Python
+     parsers equal), config 8's 1.18M-triangle mesh loaded from OBJ and
+     rendered at 1080p through K5 (kernel against torch backend at
+     128x72); the 13-step rho sweep at 1920x1080, depth 10, on the OBJ
+     scene (2 x 13 + 2 dump files), gTruth, and the reprojection of every
+     step (finite RMSE, coverage in (0, 1]; one step splatted on the card
+     and on the CPU alike); the capture's rho-4 step on both backends at
+     480x270 (mirror paths may flip up to 0.1% of pixels); one step of 60
+     frames; a 13-step sweep with the subject refit to a moving eye,
+     whose last scene renders as a fresh build (RMSE < 1e-5). Text dumps
+     are deleted at the end;
+     smoke_out/experiment/experiment.json keeps the numbers.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -193,6 +207,27 @@ def compare_hits(name, got, ref, n, attr_rows=None, occlusion=False):
     print(line, flush=True)
     check(ok, f"{name} agrees with its plain twin")
     return err
+
+
+def agree(torch, name, a, b, flips=False):
+    """The kernel-vs-torch backend bound (phases 4 and 7): at most 0.1% of
+    pixels off by > 1e-3 and RMSE < 1e-4, over every pixel or, with
+    flips, over the pixels not off. flips is for mirror paths: the
+    backends' shading arithmetic differs in the last ulp, a path that
+    bounces between curved mirrors grows that until it crosses a mesh
+    edge on the other side or takes another surface, and the pixel flips
+    (the JAX package's two backends flip such pixels too)."""
+    diff = (a - b).abs()
+    off = diff.amax(dim=-1) > 1e-3
+    bad = int(off.sum())
+    rmse = float(diff.pow(2).mean().sqrt())
+    n = a.shape[0] * a.shape[1]
+    line = f"  {name}: rmse {rmse:.3e}, {bad} of {n} pixels off by > 1e-3"
+    if flips:
+        rmse = float(diff[~off].pow(2).mean().sqrt())
+        line += f", rmse over the rest {rmse:.3e}"
+    print(line, flush=True)
+    return check(rmse < 1e-4 and bad <= 1e-3 * n, f"{name} agree")
 
 
 def bit_equal(a, b) -> bool:
@@ -936,10 +971,11 @@ def phase_stream(torch, results, rays, light):
           f"{wrows_ms:.3f} ms, superblocks {sb_ms:.3f} ms, tree "
           f"{build_ms:.1f} ms (stream_tables, host), hoisted cluster boxes "
           f"and attribute tables {cat_ms:.3f} ms", flush=True)
-    # render() from the scene on the host moves it to the card at every
-    # call; the copies share the scene's tables, so only the first call
-    # builds them
+    # render() of a host scene copies it to the card once per scene object
+    # (_as_device_scene); the copy shares the scene's tables
     from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.render.renderer import (
+        _as_device_scene, check_device)
 
     def render8(scene):
         return render(scene, sc8.camera, *FULL, sc8.settings(),
@@ -951,10 +987,14 @@ def phase_stream(torch, results, rays, light):
     again, card_ms = once_ms(torch, lambda: render8(s8))
     check(torch.equal(first["image"], again["image"]),
           "config 8 renders the same from the host scene")
+    dev8 = check_device(DEVICE)
+    check(_as_device_scene(host8, dev8) is _as_device_scene(host8, dev8),
+          "a host scene's copy on the card is made once (one object on "
+          "two calls)")
     print(f"  render of config 8 from the host scene: {host_first:.1f} ms "
-          f"(first call: builds the tables), {host_again:.1f} ms (second); "
-          f"from the scene on the card {card_ms:.1f} ms (one call each)",
-          flush=True)
+          f"(first call: copies the scene, builds the tables), "
+          f"{host_again:.1f} ms (second: the cached copy); from the scene "
+          f"on the card {card_ms:.1f} ms (one call each)", flush=True)
     common = dict(plain_ms=plain8, plain_rays=PATCH, library_ms=None,
                   rays=n8, patch_bound_ms=b8, patch_bound_tree_ms=bt8,
                   patch_flat_work=(counts["box"], counts["prim"]),
@@ -1146,15 +1186,11 @@ def phase_main_path(torch, totals):
         b = render(_SCENES[key], cam, cw, ch, st, backend="torch",
                    device=DEVICE)
         torch_s = time.perf_counter() - t0
-        diff = (a["image"] - b["image"]).abs()
-        rmse = float(diff.pow(2).mean().sqrt())
-        bad = int((diff.amax(dim=-1) > 1e-3).sum())
-        print(f"{name} {cw}x{ch} kernel vs torch: rmse {rmse:.3e}, "
-              f"{bad} pixels off by > 1e-3, rays {a['rays_traced']} vs "
-              f"{b['rays_traced']} (torch backend {torch_s:.1f} s)",
+        print(f"{name} {cw}x{ch} kernel vs torch: rays {a['rays_traced']} "
+              f"vs {b['rays_traced']} (torch backend {torch_s:.1f} s)",
               flush=True)
-        check(rmse < 1e-4 and bad <= 1e-3 * cw * ch,
-              f"{name}: kernel backend agrees with torch backend")
+        agree(torch, f"{name} {cw}x{ch} kernel vs torch", a["image"],
+              b["image"])
         write_ppm(os.path.join(OUT_DIR, f"chip_smoke_{name}.ppm"),
                   tonemap(a["image"]).cpu().numpy())
     return stats, cells
@@ -1250,6 +1286,384 @@ def phase_profile(torch, cells, stats):
     return rows
 
 
+def write_obj(base, mesh, xform):
+    """Write one instance of a TriangleMesh as `base`.obj + `base`.mtl with
+    its transform baked into the vertices (so it loads with the identity):
+    positions and normals as %.9g (float32 round-trips exactly), uvs, one
+    `usemtl` per material (mirrors keep `illum 3`). Returns the OBJ path."""
+    import numpy as np
+
+    from toroidal_ray_tracing_tpu_torch.utils import math3d
+
+    name = os.path.basename(base)
+    pos = math3d.transform_points(xform, mesh.positions)
+    nrm = math3d.transform_normals(xform, mesh.normals)
+    with open(base + ".mtl", "w") as f:
+        for k, m in enumerate(mesh.materials):
+            f.write(f"newmtl m{k}\n")
+            for key, tag in (("ambient", "Ka"), ("diffuse", "Kd"),
+                             ("specular", "Ks")):
+                if key in m:
+                    f.write(f"{tag} %.9g %.9g %.9g\n" % tuple(m[key]))
+            f.write(f"Ns {m.get('shininess', 0.0):.9g}\n"
+                    f"illum {int(m.get('illum', 0))}\n")
+    lines = [f"mtllib {name}.mtl\n"]
+    lines += ["v %.9g %.9g %.9g\n" % tuple(r) for r in pos.tolist()]
+    lines += ["vn %.9g %.9g %.9g\n" % tuple(r) for r in nrm.tolist()]
+    lines += ["vt %.9g %.9g\n" % tuple(r) for r in mesh.uvs.tolist()]
+    idx = mesh.indices + 1
+    for k in np.unique(mesh.mat_index):
+        lines.append(f"usemtl m{k}\n")
+        lines += ["f %d/%d/%d %d/%d/%d %d/%d/%d\n"
+                  % (a, a, a, b, b, b, c, c, c)
+                  for a, b, c in idx[mesh.mat_index == k].tolist()]
+    with open(base + ".obj", "w") as f:
+        f.writelines(lines)
+    return base + ".obj"
+
+
+def write_scene_objs(out_dir, scene_def):
+    """One OBJ + MTL per instance of a triangle-mesh SceneDef (instance
+    order kept, so the first file is instance 0); returns the paths."""
+    os.makedirs(out_dir, exist_ok=True)
+    return [write_obj(os.path.join(out_dir, f"model{i}"),
+                      scene_def.models[inst.obj_index], inst.transform)
+            for i, inst in enumerate(scene_def.instances)]
+
+
+def same_mesh(a, b) -> bool:
+    """Every array and material of two loaded meshes equal."""
+    import numpy as np
+
+    return (all(np.array_equal(getattr(a, f), getattr(b, f))
+                for f in ("positions", "normals", "colors", "uvs",
+                          "indices", "mat_index"))
+            and a.materials == b.materials)
+
+
+def subject_scene(procedural, SceneDef, eye):
+    """tests/test_refit.py's scene: the subject cube at `eye` (instance
+    0), a floor and an analytic torus."""
+    import numpy as np
+
+    from toroidal_ray_tracing_tpu_torch.utils import math3d
+
+    sd = SceneDef()
+    sd.add_model(procedural.cube(1.0, per_face_mats=True),
+                 transform=math3d.translation(eye))
+    sd.add_model(procedural.plane(8.0, y=-1.0))
+    sd.models.append(procedural.Torus(1.5, 0.4,
+                                      [procedural.matte((0.2, 0.4, 0.8))]))
+    sd.add_instance(2, np.eye(4, dtype=np.float32))
+    return sd
+
+
+def phase_experiment(torch, totals, card):
+    """The capture experiment through its entry points (the port's
+    `experiments/`): OBJ scenes, the 13-step 1080p rho sweep, gTruth,
+    reprojection of every step, one 60-frame step, and subject follow with
+    a refit on the card."""
+    import argparse
+    import dataclasses
+    import math
+    import shutil
+
+    import numpy as np
+
+    from toroidal_ray_tracing_tpu_torch import render, tonemap
+    from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
+                                                        ToroidalCamera)
+    from toroidal_ray_tracing_tpu_torch.experiments import (gtruth,
+                                                            reproject,
+                                                            rho_sweep,
+                                                            scene_args)
+    from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
+    from toroidal_ray_tracing_tpu_torch.io import dumps, native, png
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.pointcloud import splat_points
+    from toroidal_ray_tracing_tpu_torch.render.renderer import check_device
+    from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
+                                                      SceneDef, build_scene,
+                                                      procedural)
+    from toroidal_ray_tracing_tpu_torch.scene.obj_loader import load_obj
+
+    W, H = FULL
+    root = os.path.join(OUT_DIR, "experiment")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    summary: dict = {"card": card, "width": W, "height": H}
+    print(f"  on {card}", flush=True)
+
+    def run(fn):
+        """(fn(), its seconds, the launches it made): counts set to 0
+        just before, read just after, added to the main path's totals."""
+        def timed():
+            sync(torch)
+            t0 = time.perf_counter()
+            out = fn()
+            sync(torch)
+            return out, time.perf_counter() - t0
+        (out, s), launched = counted(LAUNCHES, reset_launches, timed)
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, s, {k: v for k, v in launched.items() if v}
+
+    def obj_scene(paths):
+        return scene_args.scene_def_from_args(argparse.Namespace(obj=paths))
+
+    # 1. OBJ load at real size: config 6's scene, then config 8's mesh
+    check(native.available(), "native host library (OBJ parser, dump "
+          "writer) available")
+    t0 = time.perf_counter()
+    objs6 = write_scene_objs(os.path.join(root, "config6"),
+                             SCENARIOS[6].scene())
+    write6 = time.perf_counter() - t0
+    check(all(same_mesh(load_obj(p), load_obj(p, use_native=False))
+              for p in objs6),
+          f"config 6's {len(objs6)} OBJ files load equal through the native "
+          "and the Python parser")
+    t0 = time.perf_counter()
+    sd6 = obj_scene(objs6)
+    parse6 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    host6 = build_scene(sd6)
+    build6 = time.perf_counter() - t0
+    print(f"  config 6 as OBJ: {host6.num_triangles} triangle rows, written "
+          f"in {write6:.2f} s, parsed (native) in {parse6:.3f} s, "
+          f"build_scene {build6:.3f} s", flush=True)
+
+    sc8 = SCENARIOS[8]
+    t0 = time.perf_counter()
+    objs8 = write_scene_objs(os.path.join(root, "config8"), sc8.scene())
+    write8 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sd8 = obj_scene(objs8)
+    parse8 = time.perf_counter() - t0
+    n8 = sum(m.num_triangles for m in sd8.models)
+    t0 = time.perf_counter()
+    host8 = build_scene(sd8)
+    build8 = time.perf_counter() - t0
+    print(f"  config 8 as OBJ: {n8} triangles, written in {write8:.1f} s, "
+          f"parsed (native) in {parse8:.2f} s, build_scene {build8:.2f} s",
+          flush=True)
+    cam8, st8 = sc8.camera, sc8.settings()
+    out8, s8, launched = run(lambda: render(host8, cam8, W, H, st8,
+                                            backend="kernel", device=DEVICE))
+    print(f"  config 8 from OBJ, one {W}x{H} frame: {1e3 * s8:.1f} ms (its "
+          f"first: copies the scene, builds the tables), launches "
+          f"{launched}", flush=True)
+    check(launched.get("tri_closest_hit_stream", 0) > 0,
+          "config 8 from OBJ: tri_closest_hit_stream launched")
+    check(bool(torch.isfinite(out8["image"]).all()),
+          "config 8 from OBJ: image finite")
+    cw, ch = CHECK_RES_C8
+    agree(torch, f"config 8 from OBJ {cw}x{ch} kernel vs torch",
+          render(host8, cam8, cw, ch, st8, backend="kernel",
+                 device=DEVICE)["image"],
+          render(host8, cam8, cw, ch, st8, backend="torch",
+                 device=DEVICE)["image"])
+    del host8, out8, sd8
+    shutil.rmtree(os.path.join(root, "config8"))
+    summary["obj"] = dict(
+        config6=dict(triangles=sum(m.num_triangles for m in sd6.models),
+                     files=len(objs6), write_s=write6, parse_s=parse6,
+                     build_s=build6),
+        config8=dict(triangles=n8, write_s=write8, parse_s=parse8,
+                     build_s=build8, first_frame_ms=1e3 * s8))
+
+    # 2. the capture at 1080p on the OBJ config-6 scene: sweep, gTruth,
+    # reprojection of every rho
+    cap = os.path.join(root, "capture")
+    cam_t = ToroidalCamera(eye=(0.0, 1.5, 0.0), center=(8.0, 0.0, 0.0))
+    cam_p = PinholeCamera(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0))
+    st = RenderSettings.default(max_depth=10)
+    rhos = rho_sweep.rho_values()
+    files, cap_s, launched = run(lambda: rho_sweep.run_sweep(
+        obj_scene(objs6), cap, cam_t, W, H, st, backend="kernel",
+        save_rays=True, device=DEVICE))
+    print(f"  capture: {len(rhos)} rhos at {W}x{H}, depth 10: {cap_s:.1f} s "
+          f"({1e3 * cap_s / len(rhos):.0f} ms per step with its dumps), "
+          f"{len(files)} files, launches {launched}", flush=True)
+    check(len(files) == 2 * len(rhos) + 2
+          and all(os.path.exists(f) for f in files),
+          f"capture wrote 2 x {len(rhos)} + 2 files")
+    check(launched.get("tri_closest_hit", 0) > 0,
+          "capture: tri_closest_hit launched")
+    gt_files, gt_s, launched = run(lambda: gtruth.run_gtruth(
+        obj_scene(objs6), cap, "toroidal", cam_p, W, H, st,
+        backend="kernel", device=DEVICE))
+    print(f"  gTruth: {gt_s:.1f} s (OBJ load and build included), "
+          f"launches {launched}", flush=True)
+    rows, rep_s, _ = run(lambda: reproject.run_reproject_all(
+        cap, "toroidal", cam_p, W, H, W, H, device=DEVICE))
+    print(f"  reproject all: {rep_s:.1f} s", flush=True)
+    print(f"  {'rho':>5} {'rmse':>9} {'covered':>9} {'holes':>9} "
+          f"{'coverage':>8} {'points':>8}", flush=True)
+    for r in rows:
+        print(f"  {r['rho']:5.1f} {r['rmse']:9.6f} "
+              f"{r.get('rmse_covered', math.nan):9.6f} "
+              f"{r.get('rmse_holes', math.nan):9.6f} {r['coverage']:8.4f} "
+              f"{r['n_points']:8d}", flush=True)
+    check(len(rows) == len(rhos)
+          and all(r["rmse"] is not None and math.isfinite(r["rmse"])
+                  and 0.0 < r["coverage"] <= 1.0 for r in rows),
+          "every rho's rmse finite and coverage in (0, 1]")
+    # one step of the reprojection taken apart (rho 7.0), and its splat
+    # on the CPU against the card's
+    parts = {}
+
+    def part(name, fn):
+        sync(torch)
+        t0 = time.perf_counter()
+        out = fn()
+        sync(torch)
+        parts[name] = time.perf_counter() - t0
+        return out
+
+    pos, col = part("read the position and color dumps",
+                    lambda: dumps.read_position_color(cap, 7.0, W, H))
+    on_card, cov_card, _ = part("splat on the card", lambda: splat_points(
+        pos, col, cam_p, W, H, return_cover=True, device=DEVICE))
+    part("write the point-cloud dump", lambda: dumps.write_ptcloud_image(
+        os.path.join(root, "part"), "part", on_card.cpu().numpy()))
+    part("write its PNG", lambda: png.save_png(
+        os.path.join(root, "part", "part.png"),
+        tonemap(on_card).cpu().numpy()))
+    part("read the gTruth dump", lambda: dumps.read_points(
+        os.path.join(cap, "data", "toroidalgTruth.txt")))
+    on_cpu, cov_cpu, _ = part("splat on the CPU", lambda: splat_points(
+        pos, col, cam_p, W, H, return_cover=True, device="cpu"))
+    print("  one reprojection step (rho 7.0): " + ", ".join(
+        f"{k} {v:.2f} s" for k, v in parts.items()), flush=True)
+    off = int((on_card.cpu() != on_cpu).any(dim=-1).sum())
+    off_cover = int((cov_card.cpu() != cov_cpu).sum())
+    print(f"  rho 7.0 splat, card vs CPU: {off} pixels differ, cover "
+          f"masks differ at {off_cover}", flush=True)
+    check(off <= 1e-3 * W * H and off_cover <= 1e-3 * W * H,
+          "rho 7.0 splats alike on the card and the CPU")
+
+    # the capture's frame alone (rho 4.0) and one profiled frame
+    _SCENES["config6_obj"] = host6.to(DEVICE)
+    st4 = dataclasses.replace(st, rho=rhos[0])
+    times = []
+    for k in range(4):
+        sync(torch)
+        t0 = time.perf_counter()
+        render(_SCENES["config6_obj"], cam_t, W, H, st4, backend="kernel",
+               device=DEVICE)
+        sync(torch)
+        times.append((time.perf_counter() - t0) * 1e3)
+    frame_ms = statistics.median(times[1:])
+    print(f"  capture frame, rho {rhos[0]}: {frame_ms:.2f} ms (median of 3 "
+          f"after a warm-up)", flush=True)
+    # the same step at CHECK_RES on both backends; its mirror paths flip
+    # a few pixels (see agree)
+    cw, ch = CHECK_RES
+    kern, plain = (render(_SCENES["config6_obj"], cam_t, cw, ch, st4,
+                          backend=b, device=DEVICE)["image"]
+                   for b in ("kernel", "torch"))
+    agree(torch, f"capture step rho {rhos[0]}, depth 10, {cw}x{ch} kernel "
+          "vs torch", kern, plain, flips=True)
+    prof = phase_profile(
+        torch, [("capture_config6_obj", "config6_obj", None, cam_t, st4, W,
+                 H, None, 0)],
+        [dict(cell="capture_config6_obj", ms_per_frame=frame_ms)])
+    summary["capture"] = dict(
+        capture_s=cap_s, gtruth_s=gt_s, reproject_s=rep_s,
+        reproject_step_parts_s=parts, frame_ms=frame_ms, profile=prof,
+        splat_card_vs_cpu_pixels=off,
+        by_rho={str(r["rho"]): {k: v for k, v in r.items()
+                                if k not in ("rho", "files")}
+                for r in rows})
+
+    # 3. one rho step at the reference's cadence: 60 frames, the last
+    # dumped (run_sweep with the sweep cut to its first rho)
+    step = os.path.join(root, "step60")
+    rho_end = rho_sweep.RHO_END
+    rho_sweep.RHO_END = rho_sweep.RHO_START
+    try:
+        files60, s60, launched = run(lambda: rho_sweep.run_sweep(
+            obj_scene(objs6), step, cam_t, W, H, st, backend="kernel",
+            save_rays=False, frames_per_step=60, device=DEVICE))
+    finally:
+        rho_sweep.RHO_END = rho_end
+    name = f"renderedPosition{dumps.rho_tag(rho_sweep.RHO_START)}.txt"
+    a = dumps.read_points(os.path.join(step, "data", name))
+    b = dumps.read_points(os.path.join(cap, "data", name))
+    print(f"  one rho step of 60 frames at {W}x{H}: {s60:.2f} s, "
+          f"{1e3 * s60 / 60:.2f} ms per frame (dumps of the last "
+          f"included), launches {launched}", flush=True)
+    check(len(files60) == 2 and a.shape == b.shape
+          and bool(np.array_equal(a, b, equal_nan=True)),
+          "the 60-frame step's dump equals the capture's first step")
+    summary["step60"] = dict(seconds=s60, ms_per_frame=1e3 * s60 / 60)
+    shutil.rmtree(cap)
+    shutil.rmtree(step)
+
+    # 4. subject follow: instance 0 refit to each eye on the card; the last
+    # refit scene's frame against a fresh build of the moved scene
+    def path(i):
+        return ToroidalCamera(eye=(0.25 * i, 0.5, 0.1 * i),
+                              center=(10.0, 0.0, 0.0))
+
+    seen = {}
+    real_render = rho_sweep.render
+
+    def keep_last(scene, camera, *a, **k):
+        out = real_render(scene, camera, *a, **k)
+        seen.update(scene=scene, camera=camera, args=a, kw=k, out=out)
+        return out
+
+    rho_sweep.render = keep_last
+    try:
+        sd_f = subject_scene(procedural, SceneDef, (0.0, 0.0, 0.0))
+        files_f, sf, launched = run(lambda: rho_sweep.run_sweep(
+            sd_f, os.path.join(root, "follow"), path(0), W, H, st,
+            backend="kernel", save_rays=False, subject_follow=True,
+            camera_path=path, device=DEVICE))
+    finally:
+        rho_sweep.render = real_render
+    shutil.rmtree(os.path.join(root, "follow"))
+    last = path(len(rhos) - 1)
+    fresh = build_scene(subject_scene(procedural, SceneDef, last.eye))
+    first = build_scene(subject_scene(procedural, SceneDef, path(0).eye))
+    check(seen["camera"] == last
+          and seen["scene"].device == check_device(DEVICE),
+          "subject follow rendered the last eye from a scene on the card")
+    # the sweep's last frame, and a pinhole view of the subject
+    pin = PinholeCamera(eye=(8.0, 5.0, 8.0), center=last.eye)
+    pairs = {
+        "last toroidal frame": (
+            seen["out"]["image"],
+            render(fresh, seen["camera"], *seen["args"],
+                   **seen["kw"])["image"]),
+        "pinhole view": tuple(
+            render(sc, pin, W, H, st, backend="kernel",
+                   device=DEVICE)["image"] for sc in (seen["scene"], fresh)),
+    }
+    moved = float((pairs["pinhole view"][0] - render(
+        first, pin, W, H, st, backend="kernel",
+        device=DEVICE)["image"]).abs().max())
+    rmses = {k: float((a - b).pow(2).mean().sqrt())
+             for k, (a, b) in pairs.items()}
+    print(f"  subject follow: {len(rhos)} steps at {W}x{H} in {sf:.1f} s, "
+          f"launches {launched}; the last refit scene against a fresh "
+          f"build: rmse " + ", ".join(f"{v:.3e} ({k})"
+                                      for k, v in rmses.items())
+          + f"; max diff {moved:.3f} from the unmoved subject", flush=True)
+    check(all(v < 1e-5 for v in rmses.values()) and moved > 0.01,
+          "refit scene renders as a fresh build (rmse < 1e-5) on "
+          "backend='kernel', and the subject moved")
+    summary["subject_follow"] = dict(seconds=sf, rmse_vs_fresh=rmses)
+
+    for d in ("config6", "part"):
+        shutil.rmtree(os.path.join(root, d))
+    with open(os.path.join(root, "experiment.json"), "w") as f:
+        json.dump(summary, f, indent=1)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1312,6 +1726,10 @@ def main() -> int:
     profile_rows = phase_profile(torch, cells, stats)
     done("6. profile: one frame per cell")
 
+    phase("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
+    experiment = phase_experiment(torch, launches, smi.stdout.strip())
+    done("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -1320,7 +1738,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi.stdout.strip(), "kernels": results,
                    "cells": stats, "profile": profile_rows,
-                   "phase_seconds": phase_s}, f, indent=1)
+                   "experiment": experiment, "phase_seconds": phase_s},
+                  f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []

@@ -16,6 +16,27 @@ for sd in (procedural.scene_multi_torus(True), SCENARIOS[7].scene()):
     for backend in ("torch", "kernel"):
         out = trt.render(scene, cam, 8, 8, st, backend=backend, device="cpu")
         assert out["image"].shape == (8, 8, 3) and out["rays_traced"] > 0
+import argparse, os, tempfile
+from toroidal_ray_tracing_tpu_torch.experiments import (
+    backend_paths, frame_turns, gtruth, reproject, rho_sweep, scene_args,
+    toroidal_experiment)
+from toroidal_ray_tracing_tpu_torch.geom import bvh
+from toroidal_ray_tracing_tpu_torch.io import dumps, native, png
+from toroidal_ray_tracing_tpu_torch.pointcloud import splat
+from toroidal_ray_tracing_tpu_torch.scene import obj_loader
+with tempfile.TemporaryDirectory() as tmp:
+    obj = os.path.join(tmp, "tri.obj")
+    with open(obj, "w") as f:
+        f.write("v 0 0 0\\nv 1 0 0\\nv 0 1 0\\nf 1 2 3\\n")
+    for use_native in (True, False):
+        assert obj_loader.load_obj(obj, use_native).num_triangles == 1
+    sd = scene_args.scene_def_from_args(argparse.Namespace(
+        obj=[obj + "@0,0,-3"]))
+    sd.add_model(procedural.plane(8.0, y=-1.0))
+    files = rho_sweep.run_sweep(sd, tmp, width=8, height=8,
+                                settings=trt.RenderSettings.default(
+                                    max_depth=1), device="cpu")
+    assert len(files) == 2 * 13 + 2, len(files)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "flax"
        or m == "toroidal_ray_tracing_tpu"

@@ -7,6 +7,7 @@ bound); rays_traced exactly equal; hit_position / ray_origin / ray_dir
 within atol 1e-5; goldens max |diff| < 5e-4 at 32x32 (tests/test_golden.py's
 bound)."""
 
+import gc
 import os
 
 import numpy as np
@@ -21,11 +22,12 @@ from toroidal_ray_tracing_tpu.scene import procedural as jax_proc
 from toroidal_ray_tracing_tpu_torch import (render, render_frames,
                                             render_sequence)
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as port_tk
+from toroidal_ray_tracing_tpu_torch.render import renderer
 from toroidal_ray_tracing_tpu_torch.ops import tri_stream as port_ts
 from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
                                                     ToroidalCamera)
-from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, build_scene,
-                                                  procedural,
+from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, Scene,
+                                                  build_scene, procedural,
                                                   scene_from_numpy,
                                                   settings_from_numpy)
 
@@ -186,3 +188,40 @@ def test_cuda_device_without_gpu_raises():
     scene = build_scene(procedural.scene_torus_plane(True))
     with pytest.raises(RuntimeError, match="CUDA"):
         render(scene, PinholeCamera(), 8, 8, device="cuda")
+
+
+def _count_copies(monkeypatch):
+    """Patch Scene.to to count its calls; returns the list it appends to."""
+    calls = []
+    to = Scene.to
+    monkeypatch.setattr(Scene, "to",
+                        lambda self, device: calls.append(device)
+                        or to(self, device))
+    return calls
+
+
+def test_device_copy_cached_per_scene(monkeypatch):
+    """A host scene is copied to a device once (the JAX package's
+    `_as_device_scene`), and the entry is evicted with the scene."""
+    copies = _count_copies(monkeypatch)
+    scene = build_scene(procedural.scene_torus_plane(True))
+    meta = torch.device("meta")
+    a = renderer._as_device_scene(scene, meta)
+    b = renderer._as_device_scene(scene, meta)
+    assert a is b and len(copies) == 1
+    assert a.device == meta and a.kernel_tables is scene.kernel_tables
+    key = (id(scene), meta)
+    assert key in renderer._device_scenes
+    del scene, a, b
+    gc.collect()
+    assert key not in renderer._device_scenes
+
+
+def test_render_of_cpu_scene_copies_nothing(monkeypatch):
+    copies = _count_copies(monkeypatch)
+    scene = build_scene(procedural.scene_torus_plane(True))
+    cam = PinholeCamera(eye=(7.0, 4.0, 7.0), center=(0.0, 0.5, 0.0))
+    for _ in range(2):
+        render(scene, cam, 8, 8, backend="kernel", device="cpu")
+    render_sequence(scene, [cam, cam], 8, 8, device="cpu")
+    assert copies == []

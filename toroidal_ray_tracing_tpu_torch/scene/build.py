@@ -15,6 +15,8 @@ tensors. `Scene.to(device)` moves them.
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from toroidal_ray_tracing_tpu_torch.io import native
@@ -430,3 +432,115 @@ def build_scene(
         cluster_size=cluster_size,
         loose_tris=n_loose,
     )
+
+
+def refit_instance(scene: Scene, instance_id: int, old_transform,
+                   new_transform) -> Scene:
+    """Per-frame TLAS refit analog: re-bake ONE instance's world-space rows
+    (the JAX package's `scene.build.refit_instance`, the same NumPy
+    arithmetic, so every refit array is bit-equal to its refit).
+
+    The reference's `updateSubjectPosition` re-translates instance 0 (the
+    `cube_multi` subject) to the camera eye every frame and refits the TLAS
+    (VKT/ray_tracing__before/hello_vulkan.cpp:963-986, update=true). Only
+    rows whose `instance_id` matches are transformed (Woop matrices and the
+    AABBs of the clusters they live in are recomputed); the cluster order,
+    materials and textures are untouched.
+
+    old/new_transform: the instance's previous and next 4x4 world transforms
+    (the caller, e.g. experiments.rho_sweep's subject_follow, tracks them).
+    `scene` may live on any device and is not modified; the returned Scene
+    lives on the same device, shares the untouched tensors, and starts with
+    an empty `kernel_tables` (its trees, Woop rows and boxes are stale).
+    """
+    device = scene.device
+
+    def host(t):
+        """A writable host copy (never a view of the input's memory)."""
+        return t.detach().cpu().numpy().copy()
+
+    def dev(a):
+        return _tensor(a).to(device)
+
+    delta = (np.asarray(new_transform, np.float64)
+             @ np.linalg.inv(np.asarray(old_transform, np.float64)))
+    R = delta[:3, :3].astype(F32)
+    t = delta[:3, 3].astype(F32)
+    Ninv = np.linalg.inv(delta[:3, :3]).T.astype(F32)  # normal transform
+
+    tris = scene.triangles
+    mask = host(tris.instance_id) == instance_id
+    new_tris = tris
+    cluster_lo = host(scene.cluster_lo)
+    cluster_hi = host(scene.cluster_hi)
+    if mask.any():
+        arrs = {f: host(getattr(tris, f))
+                for f in ("v0", "e1", "e2", "n0", "n1", "n2")}
+        arrs["v0"][mask] = arrs["v0"][mask] @ R.T + t
+        for f in ("e1", "e2"):
+            arrs[f][mask] = arrs[f][mask] @ R.T
+        for f in ("n0", "n1", "n2"):
+            n = arrs[f][mask] @ Ninv.T
+            ln = np.linalg.norm(n, axis=-1, keepdims=True)
+            arrs[f][mask] = (n / np.maximum(ln, F32(1e-30))).astype(F32)
+
+        W, c, degenerate = _woop_matrices(arrs["v0"][mask], arrs["e1"][mask],
+                                          arrs["e2"][mask])
+        A = np.concatenate([W, c[:, :, None]], axis=2)   # (n, 3, 4)
+        woop_o = host(tris.woop_o)
+        woop_d = host(tris.woop_d)
+        woop_o[:, :, mask] = A.transpose(1, 2, 0)
+        woop_d[:, :, mask] = W.transpose(1, 2, 0)
+        valid = host(tris.valid)
+        valid[mask] &= ~degenerate
+
+        # recompute AABBs only for clusters containing touched rows
+        cs = scene.cluster_size
+        touched = np.unique(np.nonzero(mask)[0] // cs)
+        v0, e1, e2 = arrs["v0"], arrs["e1"], arrs["e2"]
+        FAR = F32(1e30)
+        for ci in touched:
+            rows = slice(ci * cs, (ci + 1) * cs)
+            lo = np.minimum(np.minimum(v0[rows], v0[rows] + e1[rows]),
+                            v0[rows] + e2[rows])
+            hi = np.maximum(np.maximum(v0[rows], v0[rows] + e1[rows]),
+                            v0[rows] + e2[rows])
+            lo[~valid[rows]] = FAR
+            hi[~valid[rows]] = -FAR
+            cluster_lo[ci] = lo.min(axis=0)
+            cluster_hi[ci] = hi.max(axis=0)
+            if not valid[rows].any():
+                # all-invalid cluster: far POINT box (an inverted lo>hi box
+                # conservatively PASSES the per-axis-swapped slab test)
+                cluster_hi[ci] = cluster_lo[ci]
+        new_tris = dataclasses.replace(
+            tris, valid=dev(valid), woop_o=dev(woop_o), woop_d=dev(woop_d),
+            **{f: dev(a) for f, a in arrs.items()})
+
+    tor = scene.tori
+    mask_t = host(tor.instance_id) == instance_id
+    new_tor = tor
+    if mask_t.any():
+        o2w = host(tor.obj_to_world)
+        w2o = host(tor.world_to_obj)
+        center = host(tor.center)
+        bound = host(tor.bound_radius)
+        major = host(tor.major_radius)
+        minor = host(tor.minor_radius)
+        for i in np.nonzero(mask_t)[0]:
+            full = np.concatenate([o2w[i], [[0, 0, 0, 1]]], axis=0)
+            new_full = delta @ full
+            o2w[i] = new_full[:3].astype(F32)
+            w2o[i] = np.linalg.inv(new_full)[:3].astype(F32)
+            center[i] = new_full[:3, 3].astype(F32)
+            smax = float(np.linalg.norm(new_full[:3, :3], ord=2))
+            R_t = float(major[i] + minor[i])
+            bound[i] = F32(R_t * smax)
+        new_tor = dataclasses.replace(
+            tor, obj_to_world=dev(o2w), world_to_obj=dev(w2o),
+            center=dev(center), bound_radius=dev(bound))
+
+    # a new Scene: `kernel_tables` (init=False) starts empty
+    return dataclasses.replace(scene, triangles=new_tris, tori=new_tor,
+                               cluster_lo=dev(cluster_lo.astype(F32)),
+                               cluster_hi=dev(cluster_hi.astype(F32)))

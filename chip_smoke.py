@@ -60,7 +60,17 @@ Phases, each printed on its own lines with its wall seconds:
      frames; a 13-step sweep with the subject refit to a moving eye,
      whose last scene renders as a fresh build (RMSE < 1e-5). Text dumps
      are deleted at the end;
-     smoke_out/experiment/experiment.json keeps the numbers.
+     smoke_out/experiment/experiment.json keeps the numbers;
+  8. the measurement front doors, each path run with the launch counts set
+     to 0 just before it and read just after: the bench headline (config
+     3's 16-frame sequence, with mfu and cull_speedup), `run_scenario` of
+     every ladder config in front-door mode (2 frames; config 5 its 8; the
+     ray counts of the cells phase 4 renders equal phase 4's),
+     `raster_render` of configs 6 and 7 at 1920x1080 (timed) and at
+     240x135 against the CPU, a 4-value light-intensity sweep of config 3
+     at 1080p (each frame bit-equal to its own `render`), the microbench
+     rows of configs 3 and 6 at 2M rays, and the roofline's post-cull
+     count of config 6 on the card equal to the CPU's.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -89,10 +99,6 @@ CHECK_RES = (480, 270)    # kernel-vs-torch backend agreement renders
 CHECK_RES_C8 = (128, 72)  # the same for config 8 (1.18M triangles)
 FAILURES: list[str] = []
 
-# The least time the card could take (H100 SXM datasheet peaks at its
-# 700 W limit): f32 outside the tensor cores, HBM3.
-PEAK_F32 = 67e12          # operations / s
-PEAK_BYTES = 3.35e12      # bytes / s
 # Operations per test, as the kernels' source notes count them.
 SLAB_OPS = 26             # (ray, box) slab test, csrc/common.cuh
 WOOP_OPS = 50             # (ray, triangle) Woop test, csrc/common.cuh
@@ -143,7 +149,11 @@ def once_ms(torch, fn):
 
 def bound(nbytes: float, ops: float):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and operations
-    / f32 rate."""
+    / f32 rate, the H100 SXM data-sheet peaks at its 700 W limit that
+    `utils/roofline.py` keeps."""
+    from toroidal_ray_tracing_tpu_torch.utils.roofline import (PEAK_BYTES,
+                                                               PEAK_F32)
+
     tb = nbytes / PEAK_BYTES * 1e3
     to = ops / PEAK_F32 * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
@@ -1664,6 +1674,144 @@ def phase_experiment(torch, totals, card):
     return summary
 
 
+RASTER_CHECK_RES = (240, 135)   # raster card-vs-CPU agreement size
+
+
+def phase_front_doors(torch, totals, stats):
+    """Phase 8: the measurement front doors (bench, run_scenario, raster,
+    settings sweep, microbench, roofline) on the card."""
+    import numpy as np
+
+    from toroidal_ray_tracing_tpu_torch import bench, render
+    from toroidal_ray_tracing_tpu_torch.cameras import generate_rays
+    from toroidal_ray_tracing_tpu_torch.experiments import (configs,
+                                                            microbench)
+    from toroidal_ray_tracing_tpu_torch.experiments.settings_sweep import (
+        _apply, sweep)
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.render.raster import raster_render
+    from toroidal_ray_tracing_tpu_torch.utils import roofline
+
+    W, H = FULL
+    summary: dict = {}
+
+    def run(fn):
+        """fn() with the launch counts set to 0 just before it and read
+        just after (added to the main path's totals)."""
+        out, launched = counted(LAUNCHES, reset_launches, fn)
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+        return out, {k: v for k, v in launched.items() if v}
+
+    # the bench headline line
+    head, launched = run(lambda: bench.headline(device=DEVICE))
+    print("bench headline: " + json.dumps(head), flush=True)
+    check(head["value"] > 0 and 0.0 <= head["mfu"] <= 1.0
+          and head["cull_speedup"] >= 1.0,
+          f"bench headline {head['value']:.1f} Mrays/s, mfu "
+          f"{head['mfu']:.5f}, cull_speedup {head['cull_speedup']:.2f}")
+    check(launched.get("torus_closest_hit", 0) > 0,
+          f"bench headline launched K2 ({launched})")
+    summary["headline"] = dict(head, launches=launched)
+
+    # run_scenario's front door for every ladder config
+    phase4 = {s["cell"]: s["rays_per_frame"] for s in stats
+              if "ms_per_frame" in s and (s["width"], s["height"]) == FULL}
+    rows = []
+    for num, sc in sorted(configs.SCENARIOS.items()):
+        frames = None if sc.animate_frames else 2
+        (out, st), launched = run(lambda: configs.run_scenario(
+            num, backend="kernel", frames=frames, device=DEVICE))
+        lo, med, hi = st["window_ms"]
+        print(f"run_scenario({num}) {sc.name} {sc.width}x{sc.height} "
+              f"x{st['frames']}: {st['mrays_per_s']:.1f} Mrays/s, windows "
+              f"{lo:.1f} / {med:.1f} / {hi:.1f} ms, "
+              f"{st['rays_per_frame']:.0f} rays/frame, launches {launched}",
+              flush=True)
+        imgs = out["images"]
+        check(tuple(imgs.shape) == (st["frames"], 3, sc.height, sc.width)
+              and bool(torch.isfinite(imgs).all()) and launched,
+              f"run_scenario({num}): frames finite, kernels launched")
+        if sc.name in phase4:
+            check(st["rays_per_frame"] == phase4[sc.name],
+                  f"run_scenario({num}): {st['rays_per_frame']:.0f} rays a "
+                  f"frame, phase 4 {phase4[sc.name]}")
+        rows.append(dict(st, launches=launched))
+        del out, imgs
+    summary["run_scenario"] = rows
+
+    # the raster debug view: configs 6 and 7 at 1080p, and card vs CPU
+    cw, ch = RASTER_CHECK_RES
+    for num in (6, 7):
+        sc, scene = config(num)
+        st = sc.settings()
+        raster_render(scene, sc.camera, W, H, st, device=DEVICE)  # warm-up
+        out, ms = once_ms(torch, lambda: raster_render(
+            scene, sc.camera, W, H, st, device=DEVICE))
+        img = out["image"]
+        clear = st.clear_color[:3].to(img.device)
+        drawn = float((img != clear).any(dim=-1).float().mean())
+        print(f"raster_render {sc.name} {W}x{H}: {ms:.1f} ms, {drawn:.3f} "
+              "of pixels drawn", flush=True)
+        check(bool(torch.isfinite(img).all()) and drawn > 0.1,
+              f"raster {sc.name}: finite, drawn")
+        a = raster_render(scene, sc.camera, cw, ch, st,
+                          device=DEVICE)["image"].cpu().numpy()
+        b = raster_render(_HOST_SCENES[sc.name], sc.camera, cw, ch, st,
+                          device="cpu")["image"].numpy()
+        c = st.clear_color[:3].numpy()
+        ha, hb = (a != c).any(axis=-1), (b != c).any(axis=-1)
+        off = float((ha != hb).mean())
+        both = ha & hb
+        err = float(np.abs(a - b).max(axis=-1)[both].max())
+        check(off <= 0.002 and err < 1e-4,
+              f"raster {sc.name} {cw}x{ch} card vs CPU: masks differ on "
+              f"{off:.5f} of pixels, max diff {err:.2e} where both drew")
+        summary[f"raster_{sc.name}_ms"] = ms
+
+    # a settings sweep of config 3 at 1080p through the kernels
+    sc, scene = config(3)
+    values = [20.0, 60.0, 100.0, 180.0]
+    out, launched = run(lambda: sweep(scene, sc.camera, W, H, sc.settings(),
+                                      "light_intensity", values,
+                                      backend="kernel", device=DEVICE))
+    same = 0
+    for i, v in enumerate(values):
+        one = render(scene, sc.camera, W, H,
+                     _apply(sc.settings(), "light_intensity", v),
+                     backend="kernel", device=DEVICE)
+        same += (torch.equal(out["images"][i], one["image"])
+                 and int(out["rays_traced"][i]) == one["rays_traced"])
+    print(f"sweep {sc.name} light_intensity {values}: launches {launched}",
+          flush=True)
+    check(same == len(values) and launched.get("torus_closest_hit", 0) > 0,
+          f"sweep: {same} of {len(values)} frames bit-equal to render")
+
+    # the microbench rows
+    summary["microbench"] = {}
+    for num in (3, 6):
+        (rows, n), launched = run(lambda: microbench.run(
+            num, 2 * 1024 * 1024, 8, DEVICE))
+        print(f"microbench config {num}, {n} rays (ms a call): "
+              + ", ".join(f"{name} {ms:.3f}" for name, ms in rows),
+              flush=True)
+        check(all(ms > 0 for _, ms in rows),
+              f"microbench config {num}: every row timed")
+        summary["microbench"][num] = dict(rows)
+
+    # the roofline's post-cull count: card == CPU on config 6's rays
+    sc, _ = config(6)
+    host = _HOST_SCENES[sc.name]
+    o, d = generate_rays(sc.camera_at(0), W, H, sc.settings(), device=DEVICE)
+    on_card = roofline.measured_flops_per_ray(host, o, d)
+    on_cpu = roofline.measured_flops_per_ray(host, o.cpu(), d.cpu())
+    check(on_card == on_cpu, f"roofline {sc.name}: post-cull ops a ray "
+          f"{on_card} on the card, {on_cpu} on the CPU")
+    summary["roofline_config6_flops_per_ray"] = on_card
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1730,6 +1878,14 @@ def main() -> int:
     experiment = phase_experiment(torch, launches, smi.stdout.strip())
     done("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
 
+    phase("8. measurement front doors")
+    before = dict(launches)
+    front_doors = phase_front_doors(torch, launches, stats)
+    print("launches, phases 4 and 7: " + json.dumps(before)
+          + "; phase 8: " + json.dumps({k: launches[k] - before.get(k, 0)
+                                        for k in launches}), flush=True)
+    done("8. measurement front doors")
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -1738,7 +1894,8 @@ def main() -> int:
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi.stdout.strip(), "kernels": results,
                    "cells": stats, "profile": profile_rows,
-                   "experiment": experiment, "phase_seconds": phase_s},
+                   "experiment": experiment, "front_doors": front_doors,
+                   "phase_seconds": phase_s},
                   f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -37,6 +37,11 @@ with tempfile.TemporaryDirectory() as tmp:
                                 settings=trt.RenderSettings.default(
                                     max_depth=1), device="cpu")
     assert len(files) == 2 * 13 + 2, len(files)
+from toroidal_ray_tracing_tpu_torch import bench
+from toroidal_ray_tracing_tpu_torch.experiments import (
+    front_door_turns, microbench, settings_sweep)
+from toroidal_ray_tracing_tpu_torch.render import raster
+from toroidal_ray_tracing_tpu_torch.utils import profiling, roofline
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "flax"
        or m == "toroidal_ray_tracing_tpu"

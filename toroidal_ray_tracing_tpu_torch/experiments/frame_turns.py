@@ -14,14 +14,16 @@ the card), over 2,000 calls. Only names that every checkout of the port
 shares are used. Needs an NVIDIA GPU and nvcc. Prints the card's name and
 power limit, then one JSON line.
 
-    python <path of this file> [frames] ab
+    python <path of this file> [frames] ab [pairs]
 
-times both ways of `_setup` in one process instead, in blocks of `frames`
-frames in the order A B B A, 4 times: A as the package has it (a scene
-already on the card is used as it is), B with the scene copied at every
-call (`Scene.to`, what `_setup` did before `_as_device_scene`). Needs a
-checkout that has `_as_device_scene`. One JSON line, the block medians of
-each way.
+times both ways of `_setup` in one process instead, in `pairs` pairs (12
+by default) of windows in turns (A B, B A, A B, ...): A as the package has
+it (a scene already on the card is used as it is), B with the scene copied
+at every call (`Scene.to`, what `_setup` did before `_as_device_scene`).
+A window is `frames` renders ended by one `torch.cuda.synchronize()`, the
+protocol of `experiments.configs.run_scenario`. Needs a checkout that has
+`_as_device_scene`. One JSON line: each way's ms a frame per pair, their
+medians and quartiles, and the pairs each way won.
 """
 
 from __future__ import annotations
@@ -72,20 +74,35 @@ def main(argv) -> int:
 
     for _ in range(3):
         out = frame()
-    if argv[1:] == ["ab"]:
+    if argv[1:2] == ["ab"]:
+        pairs = int(argv[2]) if argv[2:] else 12
         as_is = renderer._as_device_scene
         ways = {"as_is": as_is,
                 "copy_per_call": lambda scene, device: scene.to(device)}
-        blocks = {k: [] for k in ways}
-        for way in ["as_is", "copy_per_call", "copy_per_call", "as_is"] * 4:
-            renderer._as_device_scene = ways[way]
-            blocks[way].append(statistics.median(timed(frames)))
+        per_frame = {k: [] for k in ways}
+        for p in range(pairs):
+            order = list(ways) if p % 2 == 0 else list(ways)[::-1]
+            for way in order:
+                renderer._as_device_scene = ways[way]
+                t0 = time.perf_counter()
+                for _ in range(frames):
+                    render(scene, cam, RES, RES, st, backend="kernel",
+                           device="cuda")
+                torch.cuda.synchronize()
+                per_frame[way].append(
+                    (time.perf_counter() - t0) * 1e3 / frames)
         renderer._as_device_scene = as_is
+        a, b = per_frame["as_is"], per_frame["copy_per_call"]
         print(json.dumps({
-            "cell": f"config3 {RES}x{RES}", "frames_per_block": frames,
-            "block_median_ms": blocks,
+            "cell": f"config3 {RES}x{RES}", "frames_per_window": frames,
+            "pairs": pairs, "ms_per_frame": per_frame,
             "median_ms": {k: statistics.median(v)
-                          for k, v in blocks.items()}}), flush=True)
+                          for k, v in per_frame.items()},
+            "quartiles_ms": {k: statistics.quantiles(v, n=4)
+                             for k, v in per_frame.items()},
+            "as_is_won": sum(x < y for x, y in zip(a, b)),
+            "copy_per_call_won": sum(y < x for x, y in zip(a, b))}),
+            flush=True)
         return 0
     times = timed(frames)
     t0 = time.perf_counter()

@@ -70,7 +70,21 @@ Phases, each printed on its own lines with its wall seconds:
      240x135 against the CPU, a 4-value light-intensity sweep of config 3
      at 1080p (each frame bit-equal to its own `render`), the microbench
      rows of configs 3 and 6 at 2M rays, and the roofline's post-cull
-     count of config 6 on the card equal to the CPU's.
+     count of config 6 on the card equal to the CPU's;
+  9. gradients and multi-device, each path's launches added to the
+     totals: `trace_rays_fixed` with `backend="kernel"` (the kernels for
+     every segment's closest hit, the torch path's recompute backward)
+     against `backend="torch"` (traced in tiles) on config 3 at 1920x1080
+     (K2), config 3 at 512x512 (K3) and config 6 at 480x270 (K1): the
+     image-mean loss within rtol 1e-5 and its gradients with respect to
+     a minor-radius scale, the light's intensity and position and a
+     diffuse scale within rtol 1e-3, with forward and forward+backward
+     ms beside `render`'s and the peak memory; the light fit of
+     tests/test_differentiable.py at 256x256 on the kernel backend (150
+     Adam steps); `render_sharded` on a 1x1 mesh over a one-rank NCCL
+     group (configs 3 and 6 at 1080p), and on two gloo ranks sharing the
+     card (`parallel.dryrun`, meshes 1x2 and 2x1: configs 6, 4 and 8 at
+     480x270), each frame equal to `render` (RMSE < 1e-6).
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -981,11 +995,10 @@ def phase_stream(torch, results, rays, light):
           f"{wrows_ms:.3f} ms, superblocks {sb_ms:.3f} ms, tree "
           f"{build_ms:.1f} ms (stream_tables, host), hoisted cluster boxes "
           f"and attribute tables {cat_ms:.3f} ms", flush=True)
-    # render() of a host scene copies it to the card once per scene object
-    # (_as_device_scene); the copy shares the scene's tables
+    # a host scene has one copy on the card (Scene.to, which render()
+    # calls); the copy shares the scene's tables
     from toroidal_ray_tracing_tpu_torch import render
-    from toroidal_ray_tracing_tpu_torch.render.renderer import (
-        _as_device_scene, check_device)
+    from toroidal_ray_tracing_tpu_torch.render.renderer import check_device
 
     def render8(scene):
         return render(scene, sc8.camera, *FULL, sc8.settings(),
@@ -998,13 +1011,13 @@ def phase_stream(torch, results, rays, light):
     check(torch.equal(first["image"], again["image"]),
           "config 8 renders the same from the host scene")
     dev8 = check_device(DEVICE)
-    check(_as_device_scene(host8, dev8) is _as_device_scene(host8, dev8),
+    check(host8.to(dev8) is host8.to(DEVICE) is s8,
           "a host scene's copy on the card is made once (one object on "
-          "two calls)")
+          "every call)")
     print(f"  render of config 8 from the host scene: {host_first:.1f} ms "
-          f"(first call: copies the scene, builds the tables), "
-          f"{host_again:.1f} ms (second: the cached copy); from the scene "
-          f"on the card {card_ms:.1f} ms (one call each)", flush=True)
+          f"(first call), {host_again:.1f} ms (second); from the scene "
+          f"on the card {card_ms:.1f} ms (one call each; all three render "
+          "the scene's one copy on the card)", flush=True)
     common = dict(plain_ms=plain8, plain_rays=PATCH, library_ms=None,
                   rays=n8, patch_bound_ms=b8, patch_bound_tree_ms=bt8,
                   patch_flat_work=(counts["box"], counts["prim"]),
@@ -1812,6 +1825,291 @@ def phase_front_doors(torch, totals, stats):
     return summary
 
 
+GRAD_CELLS = ((3, FULL), (3, (K3_RES, K3_RES)), (6, CHECK_RES))
+FIT_RES = 256              # the light fit's frame
+SHARD_RES = "480x270"      # the two-rank cells' frame
+def phase_gradients_multidevice(torch, totals):
+    """Phase 9: the differentiable path (kernel against torch backend on
+    the card, and the light fit) and multi-device rendering (a one-rank
+    NCCL mesh in this process, two gloo ranks on the one card)."""
+    import tempfile
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
+                                                        generate_rays)
+    from toroidal_ray_tracing_tpu_torch.experiments.grad_check import (
+        PARAMS, RTOL, grad_loss, radius_check, torch_tile)
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.parallel import (dryrun, make_mesh,
+                                                         multihost,
+                                                         render_sharded)
+    from toroidal_ray_tracing_tpu_torch.render.renderer import (
+        autofill_pixel_spread)
+    from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
+                                                      build_scene, procedural)
+    from toroidal_ray_tracing_tpu_torch.trace.wavefront import (
+        trace_rays_fixed)
+
+    summary: dict = {"gradients": [], "sharded": []}
+
+    def add(launched):
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+        return {k: v for k, v in launched.items() if v}
+
+    # -- gradients: backend="kernel" against backend="torch" -------------
+    for num, (w, h) in GRAD_CELLS:
+        sc, scene = config(num)
+        st = autofill_pixel_spread(sc.settings(), sc.camera, w, h).to(DEVICE)
+        depth = int(st.max_depth)
+        o, d = generate_rays(sc.camera, w, h, st, device=DEVICE)
+        n = o.shape[0]
+        label = f"{sc.name} {w}x{h} depth {depth}"
+
+        def fwd():
+            with torch.no_grad():
+                out = trace_rays_fixed(scene, st, o, d, depth,
+                                       backend="kernel")
+            sync(torch)
+            return out
+
+        fwd()
+        fwd_ms = statistics.median(once_ms(torch, fwd)[1] for _ in range(3))
+        render(scene, sc.camera, w, h, sc.settings(), backend="kernel",
+               device=DEVICE)
+        render_ms = statistics.median(once_ms(torch, lambda: render(
+            scene, sc.camera, w, h, sc.settings(), backend="kernel",
+            device=DEVICE))[1] for _ in range(3))
+        grad_loss(scene, st, o, d, depth, "kernel", n)   # warm-up
+        if DEVICE == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        ((lk, gk), both_ms), launched = counted(
+            LAUNCHES, reset_launches, lambda: once_ms(torch, lambda: (
+                grad_loss(scene, st, o, d, depth, "kernel", n))))
+        peak = (torch.cuda.max_memory_allocated() / 2**30
+                if DEVICE == "cuda" else float("nan"))
+        launched = add(launched)
+        # the torch backend's dense graph, tile by tile
+        tile = torch_tile(scene)
+        (lt, gt), torch_ms = once_ms(torch, lambda: grad_loss(
+            scene, st, o, d, depth, "torch", tile))
+        # The radius's gradient of a frame of mirror tori is a sum with
+        # heavy cancellation, carried by a few pixels that float32 fixes
+        # only to a few percent: it is held to grad_check's rule (over the
+        # pixels whose paths agree on both backends, the gap within the sum
+        # of RTOL x each pixel's |contribution| and its one-ulp spread), the
+        # others over the whole frame.
+        (rad, rad_ms), launched_rule = counted(
+            LAUNCHES, reset_launches, lambda: once_ms(torch, lambda: (
+                radius_check(scene, st, o, d, depth, tile))))
+        add(launched_rule)
+        print(f"gradients {label}: forward {fwd_ms:.1f} ms, forward + "
+              f"backward {both_ms:.1f} ms (render {render_ms:.1f} ms), peak "
+              f"{peak:.2f} GiB; torch backend {torch_ms:.0f} ms in "
+              f"{-(-n // tile)} tiles; launches {launched}", flush=True)
+        print(f"  loss kernel {lk:.8g} torch {lt:.8g}; paths part on "
+              f"{rad['parted']} of {n} pixels (first at (x, y) "
+              + ", ".join(f"({i % w}, {i // w})"
+                          for i in rad["parted_pixels"][:5])
+              + f"); radius rule {rad_ms / 1e3:.1f} s", flush=True)
+        check(abs(lk - lt) <= 1e-5 * abs(lt)
+              and abs(rad["loss_kernel"] - rad["loss_torch"])
+              <= 1e-5 * abs(rad["loss_torch"]),
+              f"gradients {label}: loss within rtol 1e-5 (whole frame, and "
+              "over the pixels whose paths agree)")
+        rows = {}
+        for k in PARAMS:
+            rel = float(np.max(np.abs(gk[k] - gt[k])
+                               / np.maximum(np.abs(gt[k]), 1e-30)))
+            print(f"  d/d {k}: kernel {np.array2string(gk[k], precision=7)} "
+                  f"torch {np.array2string(gt[k], precision=7)} (max rel "
+                  f"{rel:.2e}, whole frame)", flush=True)
+            finite = bool(np.isfinite(gk[k]).all() and np.isfinite(gt[k]).all())
+            if k == "minor_radius_scale":
+                check(finite, f"gradients {label}: d/d {k} finite")
+                continue
+            check(finite and bool(np.all(np.abs(gk[k] - gt[k])
+                                         <= RTOL * np.abs(gt[k]))),
+                  f"gradients {label}: d/d {k} finite, within rtol {RTOL} "
+                  "(whole frame)")
+            rows[k] = dict(kernel=gk[k].tolist(), torch=gt[k].tolist(),
+                           max_rel=rel)
+        print(f"  d/d minor_radius_scale over the {n - rad['parted']} pixels "
+              f"whose paths agree: kernel {rad['kernel']:.9g} torch "
+              f"{rad['torch']:.9g}, gap {rad['gap']:.3g} against "
+              f"{rad['bound']:.3g} = {RTOL} x the sum of |per-pixel "
+              f"contributions| {rad['bound_rtol']:.3g} (margin "
+              f"{rad['bound_rtol'] / max(rad['gap'], 1e-30):.3g}x alone) + "
+              f"their one-ulp spreads {rad['bound_spread']:.3g} (margin "
+              f"{rad['margin']:.3g}x); the contributions sum to "
+              f"{rad['contributions_sum']:.6g}, their absolute values to "
+              f"{rad['contributions_abs']:.6g}; largest at (x, y) "
+              + ", ".join(f"({i % w}, {i // w}) {c:.3g} (spread {sp:.2g})"
+                          for i, c, sp in zip(rad["worst"],
+                                              rad["worst_contributions"],
+                                              rad["worst_spread"])),
+              flush=True)
+        check(rad["ok"], f"gradients {label}: d/d minor_radius_scale within "
+              f"{RTOL} x the sum of |per-pixel contributions| plus their "
+              "one-ulp spreads where the paths agree, paths parted on "
+              f"{rad['parted']} pixels (at most 0.1%)")
+        rows["minor_radius_scale"] = dict(
+            kernel=gk[PARAMS[0]].tolist(), torch=gt[PARAMS[0]].tolist(),
+            rule=rad, rule_ms=rad_ms)
+        needs = "tri_closest_hit" if num == 6 else (
+            "torus_closest_hit_small" if (w, h) != FULL
+            else "torus_closest_hit")
+        check(launched.get(needs, 0) > 0,
+              f"gradients {label}: {needs} launched")
+        summary["gradients"].append(dict(
+            cell=label, rays=n, forward_ms=fwd_ms, forward_backward_ms=both_ms,
+            render_ms=render_ms, peak_gib=peak, torch_backend_ms=torch_ms,
+            torch_tile=tile, loss_kernel=lk, loss_torch=lt,
+            pixels_parted=rad["parted"], grads=rows, launches=launched))
+
+    # -- the light fit (tests/test_differentiable.py) at 256x256 ----------
+    fit_scene = build_scene(procedural.scene_single_torus(True)).to(DEVICE)
+    fit_cam = PinholeCamera(eye=(6.0, 3.0, 6.0))
+    fit_st = RenderSettings.default(max_depth=1).to(DEVICE)
+    fo, fd = generate_rays(fit_cam, FIT_RES, FIT_RES, fit_st, device=DEVICE)
+
+    def fit_render(params):
+        import dataclasses
+
+        one = torch.ones((), device=DEVICE)
+        pos = torch.tensor([10.0, 1.0, 8.0], device=DEVICE) * torch.stack(
+            [one, params[1], one])
+        stp = dataclasses.replace(fit_st, light=dataclasses.replace(
+            fit_st.light, intensity=params[0], position=pos))
+        return trace_rays_fixed(fit_scene, stp, fo, fd, 1,
+                                backend="kernel")[0]
+
+    def fit():
+        with torch.no_grad():
+            target = fit_render(torch.tensor([120.0, 12.0], device=DEVICE))
+            theta = torch.log(torch.tensor([60.0, 6.0], device=DEVICE))
+        theta.requires_grad_(True)
+        opt = torch.optim.Adam([theta], lr=5e-2)
+
+        def loss():
+            return torch.mean((fit_render(torch.exp(theta)) - target) ** 2)
+
+        with torch.no_grad():
+            l0 = float(loss())
+        for _ in range(150):
+            opt.zero_grad()
+            loss().backward()
+            opt.step()
+        with torch.no_grad():
+            l1 = float(loss())
+        return l0, l1, torch.exp(theta).detach().cpu().numpy()
+
+    ((l0, l1, fitted), fit_ms), launched = counted(
+        LAUNCHES, reset_launches, lambda: once_ms(torch, fit))
+    launched = add(launched)
+    print(f"light fit {FIT_RES}x{FIT_RES} (backend kernel, 150 Adam steps): "
+          f"{fit_ms / 1e3:.2f} s, loss {l0:.4g} -> {l1:.4g}, intensity "
+          f"{fitted[0]:.2f}, height {fitted[1]:.3f}; launches {launched}",
+          flush=True)
+    check(np.isfinite(l1) and l1 < 0.02 * l0 and abs(fitted[0] - 120) < 12,
+          "light fit: loss under 2% of its start, intensity within 12 of "
+          "120")
+    summary["fit"] = dict(seconds=fit_ms / 1e3, l0=l0, l1=l1,
+                          intensity=float(fitted[0]),
+                          height=float(fitted[1]), launches=launched)
+
+    # -- one rank: a 1x1 mesh over an NCCL group on this card -------------
+    with tempfile.TemporaryDirectory(prefix="trt_nccl_") as tmp:
+        multihost.init_distributed(
+            f"file://{tmp}/store", 1, 0,
+            "nccl" if DEVICE == "cuda" else "gloo")
+        try:
+            mesh = make_mesh(1, 1, torch.device(DEVICE).type)
+            for num in (3, 6):
+                sc, scene = config(num)
+                ref = render(scene, sc.camera, *FULL, sc.settings(),
+                             backend="kernel", device=DEVICE)
+                _, first_ms = once_ms(torch, lambda: render_sharded(
+                    scene, sc.camera, *FULL, sc.settings(), mesh=mesh,
+                    backend="kernel", device=DEVICE))
+                (out, ms), launched = counted(
+                    LAUNCHES, reset_launches, lambda: once_ms(
+                        torch, lambda: render_sharded(
+                            scene, sc.camera, *FULL, sc.settings(),
+                            mesh=mesh, backend="kernel", device=DEVICE)))
+                launched = add(launched)
+                diff = out["image"] - ref["image"]
+                rmse = float(torch.sqrt(torch.mean(diff ** 2)))
+                print(f"render_sharded 1x1 NCCL {sc.name} {FULL[0]}x"
+                      f"{FULL[1]}: {ms:.1f} ms (first call {first_ms:.1f} "
+                      f"ms), rmse {rmse:.3g}, max diff "
+                      f"{float(diff.abs().max()):.3g}, rays "
+                      f"{out['rays_traced']} (render {ref['rays_traced']}); "
+                      f"launches {launched}", flush=True)
+                check(rmse < 1e-6 and out["rays_traced"] == ref["rays_traced"]
+                      and bool(torch.isfinite(out["image"]).all()),
+                      f"render_sharded 1x1 NCCL {sc.name}: equals render")
+                summary["sharded"].append(dict(
+                    cell=sc.name, mesh=[1, 1], backend="nccl", ranks=1,
+                    ms=ms, first_ms=first_ms, rmse=rmse,
+                    max_diff=float(diff.abs().max()), launches=launched))
+        finally:
+            dist.destroy_process_group()
+
+    # -- two gloo ranks on the one card -----------------------------------
+    cases = ",".join(f"config{n}@{m}:kernel" for n in (6, 4, 8)
+                     for m in ("1x2", "2x1"))
+    try:
+        ranks, ms = once_ms(torch, lambda: dryrun.launch(
+            2, cases, device=DEVICE, res=SHARD_RES, timeout=600))
+    except (RuntimeError, TimeoutError) as e:
+        print(str(e), flush=True)
+        check(False, "render_sharded on two gloo ranks: every rank ran")
+        return summary
+    print(f"render_sharded on two gloo ranks at {SHARD_RES}: {ms / 1e3:.1f} s "
+          "for the launch (processes, scene builds, the cases and their "
+          "references)", flush=True)
+    for i, row in enumerate(ranks[0]["results"]):
+        rows = [rk["results"][i] for rk in ranks]
+        launched = {}
+        for rw in rows:
+            for k, v in rw["launches"].items():
+                launched[k] = launched.get(k, 0) + v
+        print(f"  {row['case']}: rmse "
+              f"{max(rw['rmse'] for rw in rows):.3g}, max diff "
+              f"{max(rw['max_diff'] for rw in rows):.3g}, rays "
+              f"{row['rays']} (render {row['ref_rays']}), segments "
+              f"{[rw['segments'] for rw in rows]}, ms "
+              f"{[round(rw['ms'], 1) for rw in rows]} (again "
+              f"{[round(rw['again_ms'], 1) for rw in rows]}, of which "
+              f"collectives {[round(rw['merge_ms'], 1) for rw in rows]}), "
+              f"launches {launched}", flush=True)
+        want = {"config6": "tri_closest_hit", "config4": "torus_closest_hit",
+                "config8": "tri_closest_hit_stream"}[row["case"][:7]]
+        check(launched.get(want, 0) > 0, f"{row['case']}: {want} launched")
+        summary["sharded"].append(dict(
+            cell=row["case"], mesh=row["mesh"], backend="gloo", ranks=2,
+            ms=[rw["ms"] for rw in rows],
+            again_ms=[rw["again_ms"] for rw in rows],
+            merge_ms=[rw["merge_ms"] for rw in rows],
+            rmse=max(rw["rmse"] for rw in rows),
+            max_diff=max(rw["max_diff"] for rw in rows), launches=launched))
+    for b in dryrun.failures(ranks):
+        check(False, b)
+    check(not dryrun.failures(ranks), "render_sharded on two gloo ranks: "
+          "every frame equals render (RMSE < 1e-6), equal ray counts and "
+          "segments")
+    for rk in ranks:
+        add(rk["launches"])
+    print("NCCL across more than one card: unverified on GPU (one card "
+          "here)", flush=True)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -1886,6 +2184,13 @@ def main() -> int:
                                         for k in launches}), flush=True)
     done("8. measurement front doors")
 
+    phase("9. gradients and multi-device")
+    before = dict(launches)
+    phase9 = phase_gradients_multidevice(torch, launches)
+    print("launches, phase 9: " + json.dumps(
+        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    done("9. gradients and multi-device")
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -1895,6 +2200,7 @@ def main() -> int:
         json.dump({"device": smi.stdout.strip(), "kernels": results,
                    "cells": stats, "profile": profile_rows,
                    "experiment": experiment, "front_doors": front_doors,
+                   "gradients_multidevice": phase9,
                    "phase_seconds": phase_s},
                   f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

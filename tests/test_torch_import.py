@@ -42,6 +42,16 @@ from toroidal_ray_tracing_tpu_torch.experiments import (
     front_door_turns, microbench, settings_sweep)
 from toroidal_ray_tracing_tpu_torch.render import raster
 from toroidal_ray_tracing_tpu_torch.utils import profiling, roofline
+from toroidal_ray_tracing_tpu_torch.trace.intersect import (
+    ClosestHitDiff, closest_hit_diff, combine_hits_over_axis)
+from toroidal_ray_tracing_tpu_torch.trace.wavefront import trace_rays_fixed
+from toroidal_ray_tracing_tpu_torch.parallel import (
+    make_mesh, multihost, pad_scene_for_mesh, render_sharded)
+from toroidal_ray_tracing_tpu_torch.parallel import dryrun, sharding
+from toroidal_ray_tracing_tpu_torch.parallel.multihost import (
+    host_band, init_distributed, make_hybrid_mesh)
+from toroidal_ray_tracing_tpu_torch.utils import collectives
+from toroidal_ray_tracing_tpu_torch.experiments import grad_check
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "flax"
        or m == "toroidal_ray_tracing_tpu"

@@ -22,7 +22,7 @@ from toroidal_ray_tracing_tpu.scene import procedural as jax_proc
 from toroidal_ray_tracing_tpu_torch import (render, render_frames,
                                             render_sequence)
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as port_tk
-from toroidal_ray_tracing_tpu_torch.render import renderer
+from toroidal_ray_tracing_tpu_torch.scene import types as scene_types
 from toroidal_ray_tracing_tpu_torch.ops import tri_stream as port_ts
 from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
                                                     ToroidalCamera)
@@ -191,30 +191,37 @@ def test_cuda_device_without_gpu_raises():
 
 
 def _count_copies(monkeypatch):
-    """Patch Scene.to to count its calls; returns the list it appends to."""
+    """Patch the copy that `Scene.to` makes to count the copies; returns
+    the list it appends to."""
     calls = []
-    to = Scene.to
-    monkeypatch.setattr(Scene, "to",
-                        lambda self, device: calls.append(device)
-                        or to(self, device))
+    copy = scene_types._copy_scene
+    monkeypatch.setattr(scene_types, "_copy_scene",
+                        lambda scene, device: calls.append(device)
+                        or copy(scene, device))
     return calls
 
 
 def test_device_copy_cached_per_scene(monkeypatch):
     """A host scene is copied to a device once (the JAX package's
-    `_as_device_scene`), and the entry is evicted with the scene."""
+    `_as_device_scene`), copied again after one of its tensors changed in
+    place, and the entry is evicted with the scene."""
     copies = _count_copies(monkeypatch)
     scene = build_scene(procedural.scene_torus_plane(True))
     meta = torch.device("meta")
-    a = renderer._as_device_scene(scene, meta)
-    b = renderer._as_device_scene(scene, meta)
+    a = scene.to(meta)
+    b = scene.to(meta)
     assert a is b and len(copies) == 1
     assert a.device == meta and a.kernel_tables is scene.kernel_tables
+    assert scene.to("cpu") is scene
     key = (id(scene), meta)
-    assert key in renderer._device_scenes
-    del scene, a, b
+    assert key in scene_types._derived
+    with torch.no_grad():
+        scene.tori.minor_radius.mul_(1.0)
+    c = scene.to(meta)
+    assert c is not a and len(copies) == 2 and c is scene.to(meta)
+    del scene, a, b, c
     gc.collect()
-    assert key not in renderer._device_scenes
+    assert key not in scene_types._derived
 
 
 def test_render_of_cpu_scene_copies_nothing(monkeypatch):

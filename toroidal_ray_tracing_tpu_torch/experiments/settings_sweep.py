@@ -31,7 +31,7 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.io import png
 from toroidal_ray_tracing_tpu_torch.render.renderer import (
-    _as_device_scene, autofill_pixel_spread, check_device, render, tonemap)
+    autofill_pixel_spread, check_device, render, tonemap)
 from toroidal_ray_tracing_tpu_torch.scene import RenderSettings, build_scene
 
 F32 = np.float32
@@ -71,7 +71,7 @@ def sweep(scene, camera, width, height, base_settings, param: str, values,
     Returns {"images": (S, H, W, 3) linear, "rays_traced": (S,) int64}."""
     device = check_device(device)
     base = autofill_pixel_spread(base_settings, camera, width, height)
-    scene = _as_device_scene(scene, device)
+    scene = scene.to(device)
     images, rays = [], []
     for v in values:
         out = render(scene, camera, width, height, _apply(base, param, v),

@@ -19,7 +19,14 @@ Per query:
 The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
 `StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
 built at a scene's first query on a device and kept in
-`Scene.kernel_tables`; only the visit ranks are per query.
+`Scene.kernel_tables`, per geometry slice; only the visit ranks are per
+query. An entry is rebuilt when a tensor it was built from changed in
+place (an optimizer step on `tori.minor_radius`) or was replaced.
+
+A query on one rank's slice of the primitives (`GeomSlice` with offsets,
+`parallel.sharding`) returns global indices, skips the loose hoist (the
+loose tail is the whole table's), and reads its own columns of the
+triangle attribute tables and its own rows of the torus materials.
 
 The TPU path pads each batch to a 2048-ray tile; no kernel here needs the
 padding, but the route between K2 and K3 and the front-to-back visit
@@ -76,14 +83,28 @@ def _tri_attr_tables(scene: Scene):
     return a0.contiguous(), a1.contiguous(), a2.contiguous()
 
 
-def _kept(scene: Scene, key: str, make):
-    """scene.kernel_tables[(key, device)]: built by make() at the scene's
-    first query on its device. The tables are the scene's own: the query's
-    geometry is the whole scene (`GeomSlice`)."""
-    k = (key, scene.device)
-    if k not in scene.kernel_tables:
-        scene.kernel_tables[k] = make()
-    return scene.kernel_tables[k]
+def _kept(scene: Scene, name: str, part: tuple, sources, make):
+    """The table make() builds from the tensors `sources`, kept in
+    scene.kernel_tables[(name, device)] for the whole table, [(name,
+    device, offset, size)] for a slice. The entry holds its source tensors
+    (so no other tensor takes their memory while it lives) and is rebuilt
+    when one of them was replaced (other memory, shape or strides) or
+    changed in place since (its `_version` moved: an optimizer step on
+    `tori.minor_radius`)."""
+    key = (name, scene.device, *part)
+    stamp = tuple((s.data_ptr(), s.shape, s.stride(), s._version)
+                  for s in sources)
+    entry = scene.kernel_tables.get(key)
+    if entry is None or entry[0] != stamp:
+        entry = (stamp, tuple(sources), make())
+        scene.kernel_tables[key] = entry
+    return entry[2]
+
+
+def _material_sources(scene: Scene):
+    m = scene.materials
+    return (m.ambient, m.diffuse, m.specular, m.shininess, m.illum,
+            m.texture_id)
 
 
 def _walked_boxes(geom, aligned: bool, n_tail: int):
@@ -171,11 +192,24 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
         if not aligned:
             # a slice not cut on cluster boundaries: one uncullable block
             cs, n_cl = T, 1
-        tables = (_kept(scene, "tri_attrs", lambda: _tri_attr_tables(scene))
-                  if want_attrs else None)
+        off = geom.tri_offset
+        whole = T == scene.triangles.count
+        part = () if whole else (off, T)
+        tables = None
+        if want_attrs:
+            tris = scene.triangles
+            tables = _kept(
+                scene, "tri_attrs", part,
+                (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
+                 tris.uv0, tris.uv1, tris.uv2, tris.mat_id,
+                 *_material_sources(scene)),
+                lambda: tuple(a[:, off:off + T].contiguous()
+                              for a in _tri_attr_tables(scene)))
 
+        # the loose tail is the whole table's: a slice tests it like any
+        # other cluster (its real boxes)
         L = scene.loose_tris
-        n_tail = (L + cs - 1) // cs if L > 0 and aligned else 0
+        n_tail = (L + cs - 1) // cs if L > 0 and aligned and whole else 0
         tri_tmax = tmax
         loose_attr = None
         if n_tail:
@@ -186,7 +220,7 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             lhit = lt < BIG
             t_best = torch.where(lhit, lt, t_best)
             kind = torch.where(lhit, 0, kind)
-            prim = torch.where(lhit, base + lidx, prim)
+            prim = torch.where(lhit, base + lidx + off, prim)
             u = torch.where(lhit, lu, u)
             v = torch.where(lhit, lv, v)
             if want_attrs:
@@ -202,7 +236,9 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                       n_batch=n_batch)
             stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
             make = stream_tables if stream else tri_tables
-            mesh = _kept(scene, "stream" if stream else "tri",
+            mesh = _kept(scene, "stream" if stream else "tri", part,
+                         (geom.woop_o, geom.woop_d, geom.cluster_lo,
+                          geom.cluster_hi),
                          lambda: make(geom.woop_o, geom.woop_d,
                                       *_walked_boxes(geom, aligned, n_tail),
                                       cs))
@@ -217,14 +253,20 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                                            loose_attr)
             t_best = torch.where(better, tt, t_best)
             kind = torch.where(better, 0, kind)
-            prim = torch.where(better, ti, prim)
+            prim = torch.where(better, ti + off, prim)
             u = torch.where(better, tu, u)
             v = torch.where(better, tv, v)
 
     if has_tori:
-        tor = _kept(scene, "torus", lambda: torus_tables(
-            geom.tor_w2o, geom.tor_major, geom.tor_minor,
-            _material_rows(scene, scene.tori.mat_id).contiguous()))
+        off, K = geom.tor_offset, geom.tor_major.shape[0]
+        tor = _kept(scene, "torus",
+                    () if K == scene.tori.count else (off, K),
+                    (geom.tor_w2o, geom.tor_major, geom.tor_minor,
+                     scene.tori.mat_id, *_material_sources(scene)),
+                    lambda: torus_tables(
+                        geom.tor_w2o, geom.tor_major, geom.tor_minor,
+                        _material_rows(scene, scene.tori.mat_id[off:off + K])
+                        .contiguous()))
         # fold triangle hits into the torus query's tmax
         if has_tris and occlusion:
             tor_tmax = torch.where(t_best < BIG, 0.0, tmax)
@@ -241,7 +283,7 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
         better = kt < t_best
         t_best = torch.where(better, kt, t_best)
         kind = torch.where(better, 1, kind)
-        prim = torch.where(better, ki, prim)
+        prim = torch.where(better, ki + off, prim)
 
     attrs = None
     if want_attrs:

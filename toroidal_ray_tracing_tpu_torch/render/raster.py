@@ -32,7 +32,7 @@ import numpy as np
 import torch
 
 from toroidal_ray_tracing_tpu_torch.render.renderer import (
-    _as_device_scene, autofill_pixel_spread, check_device)
+    autofill_pixel_spread, check_device)
 from toroidal_ray_tracing_tpu_torch.scene.types import (LIGHT_POINT,
                                                         RenderSettings, Scene)
 
@@ -310,7 +310,7 @@ def raster_render(scene: Scene, camera, width: int, height: int,
     if settings is None:
         settings = RenderSettings.default()
     settings = autofill_pixel_spread(settings, camera, width, height)
-    scene = _as_device_scene(scene, device)
+    scene = scene.to(device)
     settings = settings.to(device)
     view, proj, _, _ = camera.matrices(width / height)
     viewproj = torch.from_numpy((proj @ view).astype(F32)).to(device)

@@ -16,7 +16,6 @@ unless the caller passes `device="cpu"`; without a GPU, the default raises.
 from __future__ import annotations
 
 import dataclasses
-import weakref
 
 import numpy as np
 import torch
@@ -127,36 +126,14 @@ def check_device(device) -> torch.device:
     return device
 
 
-_device_scenes: dict = {}
-
-
-def _as_device_scene(scene: Scene, device: torch.device) -> Scene:
-    """The copy of a scene on `device`, made once per scene object and
-    device (the JAX package's `_as_device_scene`): cached under
-    (id(scene), device) and evicted by a weakref callback when the scene
-    is collected (a `Scene` is unhashable, so it cannot key a
-    WeakKeyDictionary). A scene already on `device` is returned as it is.
-    The copy shares the scene's `kernel_tables`."""
-    if scene.device == device:
-        return scene
-    key = (id(scene), device)
-    hit = _device_scenes.get(key)
-    if hit is not None and hit[0]() is scene:
-        return hit[1]
-    moved = scene.to(device)
-    ref = weakref.ref(scene, lambda _r, k=key: _device_scenes.pop(k, None))
-    _device_scenes[key] = (ref, moved)
-    return moved
-
-
 def _setup(scene, settings, camera, width, height, device):
     """Check the device and move the scene (once per scene object, see
-    `_as_device_scene`) and settings onto it."""
+    `Scene.to`) and settings onto it."""
     device = check_device(device)
     if settings is None:
         settings = RenderSettings.default()
     settings = autofill_pixel_spread(settings, camera, width, height)
-    return _as_device_scene(scene, device), settings.to(device), device
+    return scene.to(device), settings.to(device), device
 
 
 def _spp_frame(scene, settings, camera, width, height, backend, spp, gen,

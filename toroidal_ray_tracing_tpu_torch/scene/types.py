@@ -12,7 +12,8 @@ The reference keeps scene state as Vulkan buffers addressed through `ObjDesc`
 * `Scene` — the trace-ready flattened scene (world-space triangles with
   precomputed Woop transforms + torus batch + material/texture tables)
 
-Device tensors are float32 / int32. `Scene.to(device)` moves every tensor.
+Device tensors are float32 / int32. `Scene.to(device)` gives the scene's
+one copy on a device (`derived`).
 The texture atlas keeps its packed u32 words as int32 tensors holding the
 same 32 bits (torch has no general-purpose uint32 arithmetic); see
 `tex_dequant`.
@@ -21,6 +22,7 @@ same 32 bits (torch has no general-purpose uint32 arithmetic); see
 from __future__ import annotations
 
 import dataclasses
+import weakref
 from typing import Optional
 
 import numpy as np
@@ -57,6 +59,42 @@ def _to(obj, device):
         elif dataclasses.is_dataclass(v):
             changes[f.name] = _to(v, device)
     return dataclasses.replace(obj, **changes)
+
+
+def _tensors(obj) -> list:
+    """Every tensor of a dataclass, recursively, in field order."""
+    out = []
+    for f in dataclasses.fields(obj):
+        v = getattr(obj, f.name)
+        if isinstance(v, torch.Tensor):
+            out.append(v)
+        elif dataclasses.is_dataclass(v):
+            out.extend(_tensors(v))
+    return out
+
+
+_derived: dict = {}
+
+
+def derived(obj, key, make):
+    """make()'s result, kept per object and key (a scene's copy on a
+    device, its padded form for a mesh). It is made again when a tensor of
+    `obj` was replaced or changed in place since (its `_version` moved),
+    and dropped by a weakref callback when `obj` is collected (a `Scene`
+    is unhashable, so it cannot key a WeakKeyDictionary). A result that is
+    `obj` itself is not kept (the entry would keep `obj` alive)."""
+    k = (id(obj), key)
+    tensors = _tensors(obj)
+    hit = _derived.get(k)
+    if (hit is not None and hit[0]() is obj and len(hit[1]) == len(tensors)
+            and all(a is b and a._version == v
+                    for a, (b, v) in zip(tensors, hit[1]))):
+        return hit[2]
+    out = make()
+    if out is not obj:
+        ref = weakref.ref(obj, lambda _r, k=k: _derived.pop(k, None))
+        _derived[k] = (ref, [(t, t._version) for t in tensors], out)
+    return out
 
 
 @dataclasses.dataclass
@@ -323,8 +361,7 @@ class Scene:
     loose_tris: int = 0
     # tables the kernel backend derives from the scene, built at its first
     # query on a device and keyed by (name, device) (ops/trace_kernel.py);
-    # a copy made by `to` shares them, so a scene moved to the card on every
-    # `render` builds them once
+    # the scene's copy made by `to` shares them
     kernel_tables: dict = dataclasses.field(
         default_factory=dict, init=False, repr=False, compare=False)
 
@@ -341,8 +378,22 @@ class Scene:
         return self.cluster_lo.device
 
     def to(self, device) -> "Scene":
-        """The `to_device` analog: a Scene whose tensors live on `device`,
-        sharing this scene's `kernel_tables`."""
-        moved = _to(self, device)
-        moved.kernel_tables = self.kernel_tables
-        return moved
+        """The `to_device` analog (and the JAX package's
+        `_as_device_scene`): this scene's one copy on `device`, made at the
+        first call and again only after a tensor of the scene changed
+        (`derived`); the scene itself when it is there. The copy shares
+        this scene's `kernel_tables`, so a scene rendered from the host on
+        every call builds its kernel tables once."""
+        device = torch.device(device)
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+        if self.device == device:
+            return self
+        return derived(self, device, lambda: _copy_scene(self, device))
+
+
+def _copy_scene(scene: Scene, device) -> Scene:
+    """A new copy of `scene` on `device` sharing its `kernel_tables`."""
+    moved = _to(scene, device)
+    moved.kernel_tables = scene.kernel_tables
+    return moved

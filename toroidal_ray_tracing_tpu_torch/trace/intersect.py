@@ -10,6 +10,15 @@ Two backends:
   kernel-emitted shading attributes. On CUDA tensors the kernels launch; on
   CPU tensors their plain twins run.
 
+Multi-device: a query can test a slice of the primitives (`GeomSlice`,
+offsets mapping local indices back to global ids); with `prim_group` the
+per-rank winners then merge with a lexicographic min over that
+`torch.distributed` group (`combine_hits_over_axis`).
+
+Gradients: `closest_hit_diff` runs the kernels for the forward pass and
+recomputes the backward pass through the dense torch path
+(`ClosestHitDiff`).
+
 Hit kinds: 0 = triangle, 1 = torus, -1 = miss (raytrace.rmiss).
 Per-ray vectors are (3, N) rows throughout.
 """
@@ -24,10 +33,13 @@ import torch
 from toroidal_ray_tracing_tpu_torch.geom import torus as torus_geom
 from toroidal_ray_tracing_tpu_torch.geom.triangle import intersect_woop
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
+from toroidal_ray_tracing_tpu_torch.utils.collectives import (MAX, MIN, SUM,
+                                                              all_reduce)
 
 BIG = 3.0e38
 TMIN = 1.0e-3      # raytrace.rgen:61
 TMAX = 10000.0     # raytrace.rgen:62
+_INT_MAX = 2147483647
 
 
 @dataclasses.dataclass
@@ -59,16 +71,20 @@ class Hit:
 
 @dataclasses.dataclass
 class GeomSlice:
-    """The intersection-only geometry a query tests (the whole scene here;
-    prims-axis sharding waits for the multi-device port)."""
+    """The intersection-only geometry a query tests: the whole scene, or
+    one rank's slice of its primitives (`parallel.sharding`). The offsets
+    map local indices back to global ids; the cluster boxes are the
+    slice's own, so each slice culls against its clusters."""
 
-    woop_o: torch.Tensor      # (3, 4, T)
-    woop_d: torch.Tensor      # (3, 3, T)
-    cluster_lo: torch.Tensor  # (C, 3)
-    cluster_hi: torch.Tensor  # (C, 3)
-    tor_w2o: torch.Tensor     # (K, 3, 4)
-    tor_major: torch.Tensor   # (K,)
-    tor_minor: torch.Tensor   # (K,)
+    woop_o: torch.Tensor      # (3, 4, Tl)
+    woop_d: torch.Tensor      # (3, 3, Tl)
+    cluster_lo: torch.Tensor  # (Cl, 3)
+    cluster_hi: torch.Tensor  # (Cl, 3)
+    tor_w2o: torch.Tensor     # (Kl, 3, 4)
+    tor_major: torch.Tensor   # (Kl,)
+    tor_minor: torch.Tensor   # (Kl,)
+    tri_offset: int = 0       # global index of the slice's first triangle
+    tor_offset: int = 0       # ... and of its first torus
 
 
 def geom_from_scene(scene: Scene) -> GeomSlice:
@@ -95,22 +111,69 @@ def _ray_chunk(n_prims: int, budget: int = 1 << 24) -> int:
     return 1 << (c.bit_length() - 1)
 
 
-def closest_hit(scene: Scene, origins, dirs, tmax=None,
-                backend: str = "torch", geom: Optional[GeomSlice] = None,
-                want_attrs: bool = False, occlusion: bool = False) -> Hit:
-    """Nearest hit for every ray. origins/dirs: (3, N) f32 rows.
-
-    want_attrs: emit interpolated ShadeAttrs (kernel backend only; the
-    torch path shades via gathers). occlusion: any-hit semantics — only
-    Hit.kind >= 0 is meaningful then."""
+def _tmax(tmax, origins):
+    """The (N,) float32 tmax of a query: TMAX by default, else tmax
+    broadcast over the rays."""
     n = origins.shape[1]
     if tmax is None:
-        tmax = torch.full((n,), TMAX, dtype=torch.float32,
+        return torch.full((n,), TMAX, dtype=torch.float32,
                           device=origins.device)
-    else:
-        tmax = torch.broadcast_to(torch.as_tensor(
-            tmax, dtype=torch.float32, device=origins.device), (n,))
-    tmax = tmax.contiguous()
+    return torch.broadcast_to(torch.as_tensor(
+        tmax, dtype=torch.float32, device=origins.device), (n,)).contiguous()
+
+
+def combine_hits_over_axis(hit: Hit, group) -> Hit:
+    """Merge the per-rank winners of `group` into the global nearest hit:
+    the min of t, then among the ranks on that t the min of the key
+    prim*2+kind (so ties resolve alike on every rank), then the winner's
+    u and v. Exactly one rank holds the winner's attrs: the others' are
+    zeroed and the rows summed over the group."""
+    t = all_reduce(hit.t, MIN, group)
+    on_min = (hit.t == t) & (hit.kind >= 0)
+    own = hit.prim * 2 + hit.kind
+    key = all_reduce(torch.where(on_min, own, _INT_MAX), MIN, group)
+    pick = on_min & (own == key)
+    uv = all_reduce(torch.where(pick[None, :], torch.stack([hit.u, hit.v]),
+                                -BIG), MAX, group)
+    missed = key == _INT_MAX
+    attrs = hit.attrs
+    if attrs is not None:
+        # one SUM over every attribute row (the int rows travel as exact
+        # small float32 integers)
+        fields = [getattr(attrs, f.name) for f in dataclasses.fields(attrs)]
+        rows = [a.float().reshape(-1, a.shape[-1]) for a in fields]
+        summed = all_reduce(torch.where(pick[None, :], torch.cat(rows), 0.0),
+                            SUM, group)
+        parts, r = [], 0
+        for a, rw in zip(fields, rows):
+            b = summed[r:r + rw.shape[0]].reshape(a.shape)
+            parts.append(b if a.dtype == torch.float32
+                         else torch.round(b).to(a.dtype))
+            r += rw.shape[0]
+        attrs = ShadeAttrs(*parts)
+    return Hit(
+        t=t,
+        kind=torch.where(missed, -1, key & 1).to(torch.int32),
+        prim=torch.where(missed, 0, key >> 1).to(torch.int32),
+        u=torch.where(missed, 0.0, uv[0]),
+        v=torch.where(missed, 0.0, uv[1]),
+        attrs=attrs,
+    )
+
+
+def closest_hit(scene: Scene, origins, dirs, tmax=None,
+                backend: str = "torch", geom: Optional[GeomSlice] = None,
+                want_attrs: bool = False, occlusion: bool = False,
+                prim_group=None) -> Hit:
+    """Nearest hit for every ray. origins/dirs: (3, N) f32 rows.
+
+    geom: the geometry to test (default: the whole scene). prim_group: the
+    `torch.distributed` group whose ranks hold the other slices; their
+    winners merge (`combine_hits_over_axis`). want_attrs: emit
+    interpolated ShadeAttrs (kernel backend only; the torch path shades
+    via gathers). occlusion: any-hit semantics — only Hit.kind >= 0 is
+    meaningful then."""
+    tmax = _tmax(tmax, origins)
     if geom is None:
         geom = geom_from_scene(scene)
 
@@ -118,11 +181,15 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
         from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
             closest_hit_kernel)
 
-        return closest_hit_kernel(scene, geom, origins, dirs, tmax,
-                                  want_attrs=want_attrs, occlusion=occlusion)
-    if backend != "torch":
+        hit = closest_hit_kernel(scene, geom, origins, dirs, tmax,
+                                 want_attrs=want_attrs, occlusion=occlusion)
+    elif backend == "torch":
+        hit = _closest_hit_torch(scene, geom, origins, dirs, tmax)
+    else:
         raise ValueError(f"unknown backend {backend!r}")
-    return _closest_hit_torch(scene, geom, origins, dirs, tmax)
+    if prim_group is not None:
+        hit = combine_hits_over_axis(hit, prim_group)
+    return hit
 
 
 def _closest_hit_torch(scene: Scene, geom: GeomSlice, origins, dirs,
@@ -161,7 +228,8 @@ def _closest_hit_torch(scene: Scene, geom: GeomSlice, origins, dirs,
             better = tt < tb
             tb = torch.where(better, tt, tb)
             kind[sl] = torch.where(better, 0, kind[sl])
-            prim[sl] = torch.where(better, p[:, 0].to(torch.int32), prim[sl])
+            prim[sl] = torch.where(better, p[:, 0].to(torch.int32)
+                                   + geom.tri_offset, prim[sl])
             u[sl] = torch.where(better, tu.gather(1, p)[:, 0], u[sl])
             v[sl] = torch.where(better, tv.gather(1, p)[:, 0], v[sl])
         if has_tori:
@@ -186,16 +254,109 @@ def _closest_hit_torch(scene: Scene, geom: GeomSlice, origins, dirs,
             better = kt < tb
             tb = torch.where(better, kt, tb)
             kind[sl] = torch.where(better, 1, kind[sl])
-            prim[sl] = torch.where(better, p[:, 0].to(torch.int32), prim[sl])
+            prim[sl] = torch.where(better, p[:, 0].to(torch.int32)
+                                   + geom.tor_offset, prim[sl])
         t_best[sl] = tb
     return Hit(t=t_best, kind=kind, prim=prim, u=u, v=v)
 
 
+class ClosestHitDiff(torch.autograd.Function):
+    """Closest hit through the kernels with a backward pass (the JAX
+    package's `_closest_hit_pallas_diff` custom VJP).
+
+    Forward: `closest_hit_kernel` (no attrs) on detached tensors. Backward:
+    recompute (t, u, v) on the dense torch path and pull the cotangents
+    through it with `torch.autograd.grad`, one ray chunk at a time, each
+    chunk's graph freed before the next: the dense path holds (chunk x
+    prims) tensors for every saved op. kind and prim get no gradient.
+
+    Inputs: scene (kept on ctx), origins, dirs (3, N), tmax (N,), then the
+    geometry tensors woop_o, woop_d, tor_w2o, tor_major, tor_minor.
+    Returns (t, kind, prim, u, v)."""
+
+    @staticmethod
+    def forward(ctx, scene, origins, dirs, tmax, *geo):
+        from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
+            closest_hit_kernel)
+
+        hit = closest_hit_kernel(scene, _geom_of(scene, *(g.detach()
+                                                          for g in geo)),
+                                 origins.detach(), dirs.detach(),
+                                 tmax.detach())
+        ctx.scene = scene
+        ctx.save_for_backward(origins, dirs, tmax, *geo)
+        ctx.mark_non_differentiable(hit.kind, hit.prim)
+        return hit.t, hit.kind, hit.prim, hit.u, hit.v
+
+    @staticmethod
+    def backward(ctx, gt, _gkind, _gprim, gu, gv):
+        origins, dirs, tmax, *geo = ctx.saved_tensors
+        scene = ctx.scene
+        need = ctx.needs_input_grad[1:]
+        leaves = [g.detach().requires_grad_(w) for g, w in zip(geo, need[3:])]
+        geom = _geom_of(scene, *leaves)
+        grads = [torch.zeros_like(a) if w else None
+                 for a, w in zip((origins, dirs, tmax, *geo), need)]
+        n = origins.shape[1]
+        chunk = _ray_chunk(max(int(geo[0].shape[2]), int(geo[4].shape[0]) * 8))
+        for s in range(0, n, chunk):
+            sl = slice(s, min(s + chunk, n))
+            cts = (gt[sl], gu[sl], gv[sl])
+            if not any(bool(c.any()) for c in cts):
+                continue            # no cotangent reaches these rays
+            with torch.enable_grad():
+                rays = [a[..., sl].detach().requires_grad_(w)
+                        for a, w in zip((origins, dirs, tmax), need)]
+                h = _closest_hit_torch(scene, geom, *rays)
+                pairs = [(o, c) for o, c in zip((h.t, h.u, h.v), cts)
+                         if o.requires_grad]
+                wrt = [(i, x) for i, x in enumerate(rays + leaves)
+                       if x.requires_grad]
+                if not pairs or not wrt:
+                    continue
+                got = torch.autograd.grad([o for o, _ in pairs],
+                                          [x for _, x in wrt],
+                                          [c for _, c in pairs],
+                                          allow_unused=True)
+            for (i, _), g in zip(wrt, got):
+                if g is None:
+                    continue
+                if i < 3:
+                    grads[i][..., sl] += g
+                else:
+                    grads[i] += g
+        return (None, *grads)
+
+
+def _geom_of(scene: Scene, woop_o, woop_d, tor_w2o, tor_major, tor_minor):
+    return GeomSlice(woop_o=woop_o, woop_d=woop_d,
+                     cluster_lo=scene.cluster_lo,
+                     cluster_hi=scene.cluster_hi, tor_w2o=tor_w2o,
+                     tor_major=tor_major, tor_minor=tor_minor)
+
+
+def closest_hit_diff(scene: Scene, origins, dirs, tmax=None) -> Hit:
+    """Differentiable closest hit on the kernel backend: the kernels run
+    the primal, the dense torch path the backward pass (`ClosestHitDiff`)
+    — inverse rendering at kernel speed (`trace_rays_fixed(...,
+    backend="kernel")`). origins/dirs: (3, N) rows."""
+    g = geom_from_scene(scene)
+    t, kind, prim, u, v = ClosestHitDiff.apply(
+        scene, origins, dirs, _tmax(tmax, origins), g.woop_o, g.woop_d,
+        g.tor_w2o, g.tor_major, g.tor_minor)
+    return Hit(t=t, kind=kind, prim=prim, u=u, v=v)
+
+
 def any_hit(scene: Scene, origins, dirs, tmax, backend: str = "torch",
-            geom: Optional[GeomSlice] = None):
+            geom: Optional[GeomSlice] = None, prim_group=None):
     """Occlusion query (shadow rays: TerminateOnFirstHit | SkipClosestHit,
     raytrace.rchit:96-109). The kernel backend runs its kernels in any-hit
-    mode. Returns a bool mask."""
+    mode. Returns a bool mask; with prim_group, a ray is occluded when any
+    rank's slice occludes it (a MAX over the group: a hit is t < BIG on
+    every path, so this equals the full combine's kind >= 0)."""
     hit = closest_hit(scene, origins, dirs, tmax=tmax, backend=backend,
                       geom=geom, occlusion=backend == "kernel")
-    return hit.kind >= 0
+    mask = hit.kind >= 0
+    if prim_group is not None:
+        mask = all_reduce(mask, MAX, prim_group)
+    return mask

@@ -117,8 +117,9 @@ def _sample_texture(scene: Scene, tex_id, uv, lod, valid=None,
 
 
 def shade(scene: Scene, settings: RenderSettings, origins, dirs, hit: Hit,
-          backend: str = "torch") -> ShadeResult:
-    """origins/dirs: (3, N) rows."""
+          backend: str = "torch", geom=None, prim_group=None) -> ShadeResult:
+    """origins/dirs: (3, N) rows. geom / prim_group: the shadow query's
+    geometry slice and the group it merges over (`closest_hit`'s)."""
     tris = scene.triangles
     tor = scene.tori
     mats = scene.materials
@@ -139,7 +140,8 @@ def shade(scene: Scene, settings: RenderSettings, origins, dirs, hit: Hit,
         return _shade_common(scene, settings, dirs, hit, missed,
                              ray_hit_pos, world_pos, _normalize(a.nrm), a.uv,
                              a.ambient, a.diffuse, a.specular, a.shininess,
-                             a.illum, tex_id, a.tex_density, backend)
+                             a.illum, tex_id, a.tex_density, backend, geom,
+                             prim_group)
 
     tri_prim = torch.where(is_tor, 0, prim).long()
     tor_prim = torch.clamp(torch.where(is_tor, prim, 0),
@@ -195,13 +197,13 @@ def shade(scene: Scene, settings: RenderSettings, origins, dirs, hit: Hit,
         tri_uv, mats.ambient[mat_id].T, mats.diffuse[mat_id].T,
         mats.specular[mat_id].T, mats.shininess[mat_id], mats.illum[mat_id],
         torch.where(is_tor, -1, mats.texture_id[mat_id]), tex_density,
-        backend)
+        backend, geom, prim_group)
 
 
 def _shade_common(scene, settings, dirs, hit, missed, ray_hit_pos,
                   world_pos, nrm, tri_uv, ambient, diffuse_c, specular_c,
-                  shininess, illum, tex_id, tex_density,
-                  backend) -> ShadeResult:
+                  shininess, illum, tex_id, tex_density, backend, geom,
+                  prim_group) -> ShadeResult:
     # --- light (rchit:57-71) ---
     light = settings.light
     lpos = light.position
@@ -239,10 +241,14 @@ def _shade_common(scene, settings, dirs, hit, missed, ray_hit_pos,
     # --- shadow ray (rchit:89-120): only where dot(N, L) > 0 ---
     facing = ndotl > 0.0
     need_shadow = facing & ~missed
-    # rays that don't need the query get tmax = 0 (never hit)
+    # rays that don't need the query get tmax = 0 (never hit). The query
+    # is cut off from autograd: hard-shadow visibility has zero derivative
+    # almost everywhere, and the dense path's backward would carry 0 * inf
+    # = NaN from far-sentinel lanes into the light and geometry gradients
     shadow_tmax = torch.where(need_shadow, ldist, 0.0)
-    shadowed = any_hit(scene, ray_hit_pos, L.contiguous(), shadow_tmax,
-                       backend=backend)
+    shadowed = any_hit(scene, ray_hit_pos.detach(), L.detach().contiguous(),
+                       shadow_tmax.detach(), backend=backend, geom=geom,
+                       prim_group=prim_group)
     shadowed = shadowed & need_shadow
     attenuation_local = torch.where(shadowed, 0.3, 1.0)
 

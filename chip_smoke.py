@@ -84,7 +84,37 @@ Phases, each printed on its own lines with its wall seconds:
      Adam steps); `render_sharded` on a 1x1 mesh over a one-rank NCCL
      group (configs 3 and 6 at 1080p), and on two gloo ranks sharing the
      card (`parallel.dryrun`, meshes 1x2 and 2x1: configs 6, 4 and 8 at
-     480x270), each frame equal to `render` (RMSE < 1e-6).
+     480x270), each frame equal to `render` (RMSE < 1e-6);
+ 10. the oracle on the card: each ladder scene, full scene at full
+     ladder depth, through `render(..., backend="kernel")` (launch counts
+     set to 0 just before it and read just after) and through the port's
+     oracle `render_oracle(..., device="cuda")` (dense Möller–Trumbore
+     over every triangle row, a float64 quartic per torus), held to
+     tests/test_parity.py's `assert_parity` rule: image RMSE < bound,
+     RMSE < 2e-4 after dropping the worst 0.1% of pixels (at least one),
+     and the same on hit_position clipped to +-1e4 with the RMSE bound
+     x50. Only the resolution is cut:
+       config 1 (1 torus, depth 1), 256x256 (its ladder size): K3, 1e-3;
+       config 2 (torus on a plane, depth 1), 512x512 (its ladder size):
+         K3, 2e-2 (the contact circle);
+       config 3 (4 tori + mirror, depth 3), 1920x1080 (full): K2, 2e-2
+         (grazing mirror bounces); and at 512x512: K3, 2e-2;
+       config 4 (1,024 tori + plane, depth 5), 480x270 (cut from 1080p):
+         K2's tree, 1e-3;
+       config 6 (23,168 triangles + mirror, depth 3), 480x270: K1, 1e-3;
+       the capture (cornellish, toroidal rho 4, depth 10), 480x270: K1,
+         1e-2 and the worst 1% dropped;
+       config 7 (textured, depth 3), 480x270: K1, K3, K4, the image's
+         plain RMSE < 1e-3 alone (as tests/test_mipmaps.py holds mip
+         sampling);
+       config 8 (1,179,648 triangles, depth 2), 128x72 (the dense oracle
+         tests every row): K5, 1e-3; again with the group switch on: K6,
+         1e-3, and bit-equal to K5's frame.
+     Config 5 (config 3's scene at 4K with 2 spp of jitter) is left out:
+     the oracle has no jitter, as the JAX package's has none. Each cell
+     prints the oracle's seconds, the render's ms, both RMSEs, the pixels
+     off by > 1e-3 and its launches; between them the cells launch all
+     six kernels.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -2110,6 +2140,119 @@ def phase_gradients_multidevice(torch, totals):
     return summary
 
 
+def oracle_cells():
+    """Phase 10's cells: (name, scene key, build, camera, settings, width,
+    height, kernels that must launch, stream group, bounds). Full scenes at
+    full ladder depth; only the resolution is cut. Bounds are
+    tests/test_parity.py's (rmse, robust, exclude); rmse_only gates the
+    image's plain RMSE alone, as tests/test_mipmaps.py does."""
+    from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
+
+    default = dict(rmse=1e-3, robust=2e-4, exclude=0.001)
+    contact = dict(default, rmse=2e-2)
+    by_key = {c[0]: c for c in main_cells()}
+    cells = []
+    for num, res, needs, bounds in (
+            (1, (256, 256), ["torus_closest_hit_small"], default),
+            (2, (512, 512), ["torus_closest_hit_small"], contact)):
+        sc = SCENARIOS[num]
+        cells.append((sc.name, sc.name, sc.build, sc.camera, sc.settings(),
+                      *res, needs, 0, bounds))
+    for name, res, bounds in (
+            ("config3_multi_torus", FULL, contact),
+            ("config3_multi_torus_k3", (K3_RES, K3_RES), contact),
+            ("config4_instanced_grid", CHECK_RES, default),
+            ("config6_mesh_torus", CHECK_RES, default),
+            ("cornellish_toroidal_rho4", CHECK_RES,
+             dict(rmse=1e-2, robust=2e-4, exclude=0.01)),
+            ("config7_textured", CHECK_RES, dict(rmse=1e-3, rmse_only=True)),
+            ("config8_streamed_mesh", CHECK_RES_C8, default),
+            ("config8_streamed_mesh_k6", CHECK_RES_C8, default)):
+        _, key, build, cam, st, _, _, needs, group = by_key[name]
+        cells.append((name, key, build, cam, st, *res, needs, group, bounds))
+    return cells
+
+
+def parity(torch, a, b, exclude):
+    """(plain RMSE, RMSE after dropping the worst `exclude` fraction of
+    pixels (at least one), pixels off by > 1e-3) of two (H, W, 3)
+    tensors: tests/test_parity.py's assert_parity measures."""
+    err2 = (a - b).pow(2).mean(dim=-1).flatten().double()
+    k = max(1, int(err2.numel() * exclude))
+    rest = torch.sort(err2).values[:-k]
+    off = int(((a - b).abs().amax(dim=-1) > 1e-3).sum())
+    return (float(err2.mean().sqrt()), float(rest.mean().sqrt()), off)
+
+
+def phase_oracle(torch, totals):
+    """Phase 10: every ladder scene through `render(..., backend="kernel")`
+    against the port's oracle (`oracle.render_oracle`), both on the card,
+    at tests/test_parity.py's bounds."""
+    from toroidal_ray_tracing_tpu_torch import render, tonemap
+    from toroidal_ray_tracing_tpu_torch.ops import tri_stream
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.oracle import render_oracle
+
+    rows, images, launched_all = [], {}, {}
+    for name, key, build, cam, st, w, h, needs, group, bnd in oracle_cells():
+        scene = scene_of(key, build)
+        tri_stream.STREAM_GROUP = group
+        render(scene, cam, w, h, st, backend="kernel", device=DEVICE)
+
+        def run():
+            return once_ms(torch, lambda: render(
+                scene, cam, w, h, st, backend="kernel", device=DEVICE))
+
+        (out, ms), launched = counted(LAUNCHES, reset_launches, run)
+        tri_stream.STREAM_GROUP = 0
+        o, oracle_ms = once_ms(torch, lambda: render_oracle(
+            scene, cam, w, h, st, device=DEVICE))
+        for k, v in launched.items():
+            totals[k] = totals.get(k, 0) + v
+            launched_all[k] = launched_all.get(k, 0) + v
+        images[name] = out["image"]
+        exclude = bnd.get("exclude", 0.001)
+        img = parity(torch, out["image"], o["image"], exclude)
+        pos = parity(torch, out["hit_position"].clamp(-1e4, 1e4),
+                     o["hit_position"].clamp(-1e4, 1e4), exclude)
+        print(f"{name} {w}x{h}: oracle {oracle_ms / 1e3:.2f} s, render "
+              f"{ms:.2f} ms; image rmse {img[0]:.3e}, robust {img[1]:.3e}, "
+              f"{img[2]} of {w * h} pixels off by > 1e-3; hit_position "
+              f"rmse {pos[0]:.3e}, robust {pos[1]:.3e}; launches "
+              f"{launched}", flush=True)
+        if bnd.get("rmse_only"):
+            ok = img[0] < bnd["rmse"]
+            what = f"image rmse < {bnd['rmse']:g}"
+        else:
+            ok = (img[0] < bnd["rmse"] and img[1] < bnd["robust"]
+                  and pos[0] < 50 * bnd["rmse"] and pos[1] < bnd["robust"])
+            what = (f"rmse < {bnd['rmse']:g} (hit_position "
+                    f"{50 * bnd['rmse']:g}), robust < {bnd['robust']:g} "
+                    f"without the worst {100 * exclude:g}%")
+        check(ok and bool(torch.isfinite(o["image"]).all()),
+              f"{name}: kernel render against the oracle, {what}")
+        for k in needs:
+            check(launched.get(k, 0) > 0, f"{name}: {k} launched")
+        write_ppm(os.path.join(OUT_DIR, f"oracle_{name}.ppm"),
+                  tonemap(o["image"]).cpu().numpy())
+        rows.append(dict(cell=name, width=w, height=h,
+                         oracle_s=oracle_ms / 1e3, render_ms=ms,
+                         image_rmse=img[0], image_robust=img[1],
+                         pixels_off=img[2], hit_position_rmse=pos[0],
+                         hit_position_robust=pos[1], bounds=bnd,
+                         launches=launched))
+    check(torch.equal(images["config8_streamed_mesh_k6"],
+                      images["config8_streamed_mesh"]),
+          "config 8 at 128x72 through K6 bit-equal to the K5 frame")
+    for k in ("tri_closest_hit", "torus_closest_hit",
+              "torus_closest_hit_small", "quad_gather",
+              "tri_closest_hit_stream", "tri_closest_hit_stream_grouped"):
+        check(launched_all.get(k, 0) > 0,
+              f"phase 10 launched {k} ({launched_all.get(k, 0)} times)")
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2191,6 +2334,13 @@ def main() -> int:
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     done("9. gradients and multi-device")
 
+    phase("10. oracle on the card")
+    before = dict(launches)
+    oracle_rows = phase_oracle(torch, launches)
+    print("launches, phase 10: " + json.dumps(
+        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    done("10. oracle on the card")
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -2201,6 +2351,7 @@ def main() -> int:
                    "cells": stats, "profile": profile_rows,
                    "experiment": experiment, "front_doors": front_doors,
                    "gradients_multidevice": phase9,
+                   "oracle": oracle_rows,
                    "phase_seconds": phase_s},
                   f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

@@ -52,6 +52,10 @@ from toroidal_ray_tracing_tpu_torch.parallel.multihost import (
     host_band, init_distributed, make_hybrid_mesh)
 from toroidal_ray_tracing_tpu_torch.utils import collectives
 from toroidal_ray_tracing_tpu_torch.experiments import grad_check
+from toroidal_ray_tracing_tpu_torch.oracle import render_oracle
+out = render_oracle(build_scene(procedural.scene_multi_torus(True)), cam, 8,
+                    8, st, device="cpu")
+assert out["image"].shape == (8, 8, 3)
 bad = [m for m in sys.modules
        if m == "jax" or m.startswith("jax.") or m == "flax"
        or m == "toroidal_ray_tracing_tpu"

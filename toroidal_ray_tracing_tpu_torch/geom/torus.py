@@ -1,7 +1,8 @@
 """Analytic torus intersection: vectorized quartic root finding on tensors.
 
 Per-ray torus intersection via Ferrari resolvent-cubic factorization with
-Newton polish, branch-free (masked selects), in float32 with the same
+Newton polish, branch-free (masked selects), in the dtype of the inputs
+(float32 on the render path, float64 in the oracle) with the same
 Newton-polish counts as the JAX package's `geom/torus.py`.
 
 Torus: axis +y, centered at origin, major radius R, minor radius r:
@@ -252,7 +253,7 @@ def torus_intersect(o, d, R, r, tmin, tmax, newton_iters: int = 3,
     no hit; shapes broadcast from o/d (..., 3) and R/r (...). `cubic`
     selects the resolvent solver (see `quartic_min_positive`)."""
     b3, b2, b1, b0, tshift = torus_coefficients(o, d, R, r)
-    tmax = torch.as_tensor(tmax, dtype=torch.float32, device=b3.device)
+    tmax = torch.as_tensor(tmax, dtype=b3.dtype, device=b3.device)
     lo = tmin - tshift
     hi = tmax - tshift
     # invalid / padding tori carry r < 0 and never hit

@@ -332,14 +332,36 @@ class TextureAtlas:
     n_levels: torch.Tensor  # (n_tex,) i32
     data4q: torch.Tensor    # (total_texels, 3) i32 bits of the packed u32 words
 
+    @property
+    def data4(self) -> torch.Tensor:
+        """(total_texels, 12) linear-f32 quad view (tap-major: t00 rgb,
+        t10 rgb, t01 rgb, t11 rgb), decoded on demand."""
+        return torch.cat([tex_dequant(self.data4q, tap) for tap in range(4)],
+                         dim=-1)
+
+    @property
+    def data(self) -> torch.Tensor:
+        """(total_texels, 3) linear-f32 texel table view (top-left tap)."""
+        return tex_dequant(self.data4q, 0)
+
+
+# the sRGB decode of every byte value, (b / 255) ** 2.2 rounded as NumPy's
+# float32 power rounds it: a table gives every device the same bits
+_SRGB_DECODE = (np.arange(256, dtype=F32) * F32(1.0 / 255.0)) ** F32(2.2)
+_srgb_tables: dict = {}
+
 
 def tex_dequant(words: torch.Tensor, tap: int) -> torch.Tensor:
     """Byte `tap` of packed channel words -> linear f32 in [0, 1]: the
-    sampler's sRGB decode (gamma 2.2). Arithmetic right shift of the int32
-    bits is harmless: the mask keeps only the byte."""
+    sampler's sRGB decode (gamma 2.2), a 256-entry table lookup. Arithmetic
+    right shift of the int32 bits is harmless: the mask keeps only the
+    byte."""
+    table = _srgb_tables.get(words.device)
+    if table is None:
+        table = _srgb_tables[words.device] = torch.from_numpy(
+            _SRGB_DECODE).to(words.device)
     b = (words >> (8 * tap)) & 0xFF
-    c = b.to(torch.float32) * float(F32(1.0 / 255.0))
-    return c ** float(F32(2.2))
+    return table.index_select(0, b.reshape(-1)).view(b.shape)
 
 
 @dataclasses.dataclass

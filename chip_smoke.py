@@ -34,7 +34,9 @@ Phases, each printed on its own lines with its wall seconds:
      repeat, and a render of config 8 from its host scene;
   4. the main path, each path run with the launch counts set to 0 just
      before it and read just after: `render(..., backend="kernel",
-     device="cuda")` at 1920x1080 for config 3, config 6, config 4, the
+     device="cuda")`, which compacts live rays (`trace.wavefront`), at
+     1920x1080 for config 3 (K2 on its whole-frame segments and K3 on its
+     compacted n/8 prefix), config 6, config 4, the
      toroidal capture, config 7 (textured: K1, K3, K4) and config 8 (1.18M
      triangles: K5), config 8 again with the group switch on (K6; the image
      must be bit-equal to K5's), plus config 3 at 512x512 (the K3 route);
@@ -114,7 +116,19 @@ Phases, each printed on its own lines with its wall seconds:
      the oracle has no jitter, as the JAX package's has none. Each cell
      prints the oracle's seconds, the render's ms, both RMSEs, the pixels
      off by > 1e-3 and its launches; between them the cells launch all
-     six kernels.
+     six kernels (config 3 at 1080p both K2 and K3, as in phase 4);
+ 11. compaction: the mirror cells (configs 3, 6, 7 and the capture at
+     1920x1080, from phase 4's scenes), the experiment's depth-10
+     capture frame (phase 7's OBJ scene, rho 4) and config 8, each
+     rendered with `trace.wavefront.COMPACT_FACTORS` at its default and
+     set to () in 8 alternating pairs: per segment the lanes traced and
+     the live spans, ms/frame both ways (median and quartiles), the
+     launches and one profiled frame's device busy time and idle share
+     both ways. Held: ray counts equal, hit positions bit-equal, each
+     segment on the smallest bucket holding its live spans, a late
+     segment on a smaller prefix (config 8: every segment at n); images
+     bit-equal, but config 3's (K3 on its prefix, K2 on the whole frame)
+     by phase 4's backend rule, with K3 launched only compacted.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -1098,7 +1112,9 @@ def main_cells():
 
     W, H = FULL
     cells = []
-    for num, needs in ((3, ["torus_closest_hit"]),
+    # config 3 at 1080p: K2 on its whole-frame segment, K3 on the
+    # compacted prefixes (n/2 and below route to K3, as on the TPU)
+    for num, needs in ((3, ["torus_closest_hit", "torus_closest_hit_small"]),
                        (6, ["tri_closest_hit"]),
                        (4, ["torus_closest_hit"]),
                        (7, ["tri_closest_hit", "torus_closest_hit_small",
@@ -1288,52 +1304,63 @@ def phase_goldens(torch):
             check(err < 5e-4, f"golden {name} ({backend}): max diff {err:.2e}")
 
 
+def profile_frame(torch, fn):
+    """One call of fn under torch.profiler: (device busy ms, the sum of the
+    CUDA events' device times, or None when the profiler saw none; the
+    CUDA events; {our kernel: [ms, calls]})."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
+
+    ours = re.compile(r"(\w+)(?:<[^>]*>)?\(")   # name, template args
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(torch)
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine: dict = {}
+    for e in dev:
+        m = ours.search(e.name.split("::")[-1])
+        if m and m.group(1) in LAUNCHES:
+            row = mine.setdefault(m.group(1), [0.0, 0])
+            row[0] += e.time_range.elapsed_us() / 1e3
+            row[1] += 1
+    busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
+    return (busy if dev else None), len(dev), mine
+
+
 def phase_profile(torch, cells, stats):
     """One profiled frame per cell: device busy = the sum of the CUDA
     events' device times; the idle share is taken against the same run's
     unprofiled frame time (the profiler's overhead inflates its own)."""
-    from torch.profiler import ProfilerActivity, profile
-
     from toroidal_ray_tracing_tpu_torch import render
     from toroidal_ray_tracing_tpu_torch.ops import tri_stream
-    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
 
     frame_ms = {s["cell"]: s["ms_per_frame"] for s in stats
                 if "ms_per_frame" in s}
-    ours = re.compile(r"(\w+)(?:<[^>]*>)?\(")   # name, template args
     rows = []
     for name, key, _, cam, st, w, h, _, group in cells:
         tri_stream.STREAM_GROUP = group
         scene = _SCENES[key]
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            render(scene, cam, w, h, st, backend="kernel", device=DEVICE)
-            sync(torch)
+        busy, events, mine = profile_frame(torch, lambda: render(
+            scene, cam, w, h, st, backend="kernel", device=DEVICE))
         tri_stream.STREAM_GROUP = 0
-        dev = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-        busy = sum(e.time_range.elapsed_us() for e in dev) / 1e3
-        mine: dict = {}
-        for e in dev:
-            m = ours.search(e.name.split("::")[-1])
-            if m and m.group(1) in LAUNCHES:
-                ms, calls = mine.get(m.group(1), (0.0, 0))
-                mine[m.group(1)] = (ms + e.time_range.elapsed_us() / 1e3,
-                                    calls + 1)
         row = dict(cell=name, frame_ms=frame_ms[name],
-                   device_busy_ms=busy if dev else None,
-                   idle_share=(1 - busy / frame_ms[name]) if dev else None,
-                   cuda_events=len(dev),
+                   device_busy_ms=busy,
+                   idle_share=(None if busy is None
+                               else 1 - busy / frame_ms[name]),
+                   cuda_events=events,
                    kernels={k: dict(ms=v[0], calls=v[1])
                             for k, v in mine.items()})
         rows.append(row)
-        if not dev:
+        if busy is None:
             print(f"{name}: the profiler saw no device time (not measured)",
                   flush=True)
             continue
         print(f"{name}: frame {frame_ms[name]:.2f} ms, device busy "
               f"{busy:.2f} ms, idle {100 * row['idle_share']:.0f}%, "
-              f"{len(dev)} CUDA events, ours "
+              f"{events} CUDA events, ours "
               + ", ".join(f"{k} {v[0]:.2f} ms x{v[1]}"
                           for k, v in mine.items()), flush=True)
     return rows
@@ -2253,6 +2280,159 @@ def phase_oracle(torch, totals):
     return rows
 
 
+COMPACT_PAIRS = 8         # phase 11: compacted / uncompacted frames in turns
+
+
+def compaction_cells():
+    """Phase 11's cells: (name, scene key, camera, settings, width, height,
+    rule). rule "bit-equal": the prefixes route as the whole frame does;
+    "route": a prefix changes a route (config 3: K2 on the whole frame,
+    K3 below 2^20 rays), so the image meets phase 4's backend rule;
+    "whole": no mirrors, every segment must trace all n rays."""
+    from toroidal_ray_tracing_tpu_torch.cameras import ToroidalCamera
+    from toroidal_ray_tracing_tpu_torch.experiments import rho_sweep
+    from toroidal_ray_tracing_tpu_torch.scene import RenderSettings
+
+    by_key = {c[0]: c for c in main_cells()}
+    cells = []
+    for name, rule in (("config3_multi_torus", "route"),
+                       ("config6_mesh_torus", "bit-equal"),
+                       ("config7_textured", "bit-equal"),
+                       ("cornellish_toroidal_rho4", "bit-equal"),
+                       ("config8_streamed_mesh", "whole")):
+        _, key, _, cam, st, w, h, _, _ = by_key[name]
+        cells.append((name, key, cam, st, w, h, rule))
+    # the experiment's depth-10 capture frame (phase 7's OBJ scene)
+    cells.insert(4, (
+        "capture_config6_obj", "config6_obj",
+        ToroidalCamera(eye=(0.0, 1.5, 0.0), center=(8.0, 0.0, 0.0)),
+        RenderSettings.default(max_depth=10,
+                               rho=rho_sweep.rho_values()[0]),
+        *FULL, "bit-equal"))
+    return cells
+
+
+def phase_compaction(torch, totals):
+    """Phase 11: live-ray compaction (`trace.wavefront`'s default
+    COMPACT_FACTORS) against none (COMPACT_FACTORS = ()) on the mirror
+    cells, the depth-10 frames and config 8: prefixes and live spans per
+    segment, ms/frame in turns, launches, one profiled frame each way,
+    and the outputs held to each cell's rule."""
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.trace import wavefront
+    from toroidal_ray_tracing_tpu_torch.utils.profiling import record_segments
+
+    factors = wavefront.COMPACT_FACTORS
+    check(len(factors) > 0, f"compaction on by default: COMPACT_FACTORS "
+          f"{factors}")
+    ways = {"compacted": factors, "uncompacted": ()}
+    rows = []
+    try:
+        for name, key, cam, st, w, h, rule in compaction_cells():
+            scene = _SCENES[key]
+            n = w * h
+            sizes = wavefront.bucket_sizes(n)
+            span = wavefront.COMPACT_SPAN
+            n_spans = -(-n // span)
+
+            def frame():
+                out = render(scene, cam, w, h, st, backend="kernel",
+                             device=DEVICE)
+                sync(torch)
+                return out
+
+            row = dict(cell=name, width=w, height=h, rule=rule,
+                       buckets=list(sizes))
+            outs = {}
+            for way, f in ways.items():
+                wavefront.COMPACT_FACTORS = f
+                segs = []
+                with record_segments(segs):
+                    out, launched = counted(LAUNCHES, reset_launches, frame)
+                for k, v in launched.items():
+                    totals[k] = totals.get(k, 0) + v
+                outs[way] = out
+                row[way] = dict(
+                    lanes=[s[0] for s in segs],
+                    live_spans=[s[1] for s in segs],
+                    launches={k: v for k, v in launched.items() if v})
+            # ms/frame in turns, the order alternating pair by pair
+            times = {way: [] for way in ways}
+            for i in range(COMPACT_PAIRS):
+                for way in (ways if i % 2 == 0 else reversed(list(ways))):
+                    wavefront.COMPACT_FACTORS = ways[way]
+                    times[way].append(once_ms(torch, frame)[1])
+            for way in ways:
+                wavefront.COMPACT_FACTORS = ways[way]
+                q1, med, q3 = statistics.quantiles(times[way], n=4)
+                busy, events, mine = profile_frame(torch, frame)
+                row[way].update(
+                    ms=times[way], ms_median=statistics.median(times[way]),
+                    ms_q1=q1, ms_q3=q3, device_busy_ms=busy,
+                    idle_share=(None if busy is None else
+                                1 - busy / statistics.median(times[way])),
+                    cuda_events=events,
+                    kernels={k: dict(ms=v[0], calls=v[1])
+                             for k, v in mine.items()})
+            wavefront.COMPACT_FACTORS = factors
+            a, b = outs["compacted"], outs["uncompacted"]
+            c, u = row["compacted"], row["uncompacted"]
+            print(f"{name} {w}x{h}, buckets {list(sizes)}:", flush=True)
+            for seg, (lanes, live) in enumerate(zip(c["lanes"],
+                                                    c["live_spans"])):
+                print(f"  segment {seg}: {lanes} lanes ({lanes / n:.3f} n), "
+                      f"live spans {live} of {n_spans} "
+                      f"({100 * live / n_spans:.1f}%)", flush=True)
+            for way, r in (("compacted", c), ("uncompacted", u)):
+                busy = ("not measured" if r["device_busy_ms"] is None else
+                        f"device busy {r['device_busy_ms']:.2f} ms, idle "
+                        f"{100 * r['idle_share']:.0f}%")
+                print(f"  {way}: {r['ms_median']:.2f} ms/frame (median of "
+                      f"{COMPACT_PAIRS}, quartiles {r['ms_q1']:.2f}-"
+                      f"{r['ms_q3']:.2f}), {busy}, {r['cuda_events']} CUDA "
+                      f"events, launches {r['launches']}; kernels "
+                      + ", ".join(f"{k} {v['ms']:.2f} ms x{v['calls']}"
+                                  for k, v in r["kernels"].items()),
+                      flush=True)
+            check(a["rays_traced"] == b["rays_traced"],
+                  f"{name}: rays {a['rays_traced']} == {b['rays_traced']}")
+            check(torch.equal(a["hit_position"], b["hit_position"]),
+                  f"{name}: hit positions bit-equal (segment 0 traces the "
+                  "whole frame)")
+            check(c["lanes"][0] == sizes[0]
+                  and set(u["lanes"]) == {sizes[0]},
+                  f"{name}: segment 0 and every uncompacted segment trace "
+                  f"{sizes[0]} lanes")
+            check(all(lanes == min(z for z in sizes if z >= live * span)
+                      for lanes, live in zip(c["lanes"], c["live_spans"])),
+                  f"{name}: each segment traces the smallest bucket holding "
+                  "its live spans")
+            if rule == "whole":
+                check(torch.equal(a["image"], b["image"])
+                      and set(c["lanes"]) == {n},
+                      f"{name}: bit-equal, every segment at n")
+            else:
+                check(min(c["lanes"]) < n,
+                      f"{name}: a late segment traces a smaller prefix "
+                      f"({c['lanes']})")
+                if rule == "bit-equal":
+                    check(torch.equal(a["image"], b["image"]),
+                          f"{name}: image bit-equal")
+                else:
+                    agree(torch, f"{name} compacted vs uncompacted",
+                          a["image"], b["image"])
+                    check(c["launches"].get("torus_closest_hit_small", 0) > 0
+                          and "torus_closest_hit_small" not in u["launches"],
+                          f"{name}: the prefixes route to K3, the whole "
+                          "frame to K2")
+            rows.append(row)
+    finally:
+        wavefront.COMPACT_FACTORS = factors
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2341,6 +2521,13 @@ def main() -> int:
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     done("10. oracle on the card")
 
+    phase("11. compaction")
+    before = dict(launches)
+    compaction_rows = phase_compaction(torch, launches)
+    print("launches, phase 11: " + json.dumps(
+        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    done("11. compaction")
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -2351,7 +2538,7 @@ def main() -> int:
                    "cells": stats, "profile": profile_rows,
                    "experiment": experiment, "front_doors": front_doors,
                    "gradients_multidevice": phase9,
-                   "oracle": oracle_rows,
+                   "oracle": oracle_rows, "compaction": compaction_rows,
                    "phase_seconds": phase_s},
                   f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

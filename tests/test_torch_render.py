@@ -30,6 +30,7 @@ from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, Scene,
                                                   build_scene, procedural,
                                                   scene_from_numpy,
                                                   settings_from_numpy)
+from toroidal_ray_tracing_tpu_torch.trace import wavefront
 
 torch.set_num_threads(2)
 
@@ -164,6 +165,43 @@ def test_banded_and_spp_render():
     torch.testing.assert_close(a["image"], b["image"], rtol=0, atol=0)
     assert a["rays_traced"] > full["rays_traced"]
     assert rmse(a["image"].numpy(), full["image"].numpy()) > 0
+
+
+def test_kernel_render_and_bands_compact(monkeypatch):
+    """backend="kernel" compacts live spans in `render` and in each of its
+    tile_rows bands: config 3's mirror scene at 96x96 (9,216 rays; bands
+    of 48 rows, 4,608 rays) traces its late segments on a smaller prefix,
+    and equals the render with COMPACT_FACTORS = () bit for bit, bands to
+    1e-6 as above, ray counts exact."""
+    scene = build_scene(procedural.scene_multi_torus(True))
+    cam = PinholeCamera(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0))
+    st = RenderSettings.default(max_depth=3)
+    lanes = []
+    real = wavefront.closest_hit
+
+    def spy(*a, **k):
+        lanes.append(a[1].shape[1])
+        return real(*a, **k)
+
+    monkeypatch.setattr(wavefront, "closest_hit", spy)
+    outs = {}
+    for name, kw in (("full", {}), ("banded", dict(tile_rows=48))):
+        outs[name] = render(scene, cam, 96, 96, st, backend="kernel",
+                            device="cpu", **kw)
+        outs[name + "_lanes"] = lanes[:]
+        lanes.clear()
+    monkeypatch.setattr(wavefront, "COMPACT_FACTORS", ())
+    plain = render(scene, cam, 96, 96, st, backend="kernel", device="cpu")
+    assert outs["full_lanes"][0] == 9216 and min(outs["full_lanes"]) < 9216
+    assert max(outs["banded_lanes"]) == 4608
+    assert min(outs["banded_lanes"]) < 4608
+    assert set(lanes) == {9216}
+    full, banded = outs["full"], outs["banded"]
+    assert full["rays_traced"] == plain["rays_traced"] \
+        == banded["rays_traced"]
+    for key in ("image", "hit_position"):
+        assert torch.equal(full[key], plain[key]), key
+        torch.testing.assert_close(banded[key], full[key], rtol=0, atol=1e-6)
 
 
 def test_entry_points_default_to_cuda():

@@ -19,8 +19,11 @@ from toroidal_ray_tracing_tpu.scene import build_scene as jax_build
 from toroidal_ray_tracing_tpu.scene import procedural as jax_proc
 from toroidal_ray_tracing_tpu_torch import (PinholeCamera, render,
                                             render_frames, render_sequence)
-from toroidal_ray_tracing_tpu_torch.scene import (scene_from_numpy,
+from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
+                                                  build_scene, procedural,
+                                                  scene_from_numpy,
                                                   settings_from_numpy)
+from toroidal_ray_tracing_tpu_torch.trace import wavefront
 
 torch.set_num_threads(2)
 
@@ -101,6 +104,41 @@ def test_frames_match_jax_and_per_frame(setup, backend):
                          frames_per_batch=1, device="cpu")
     assert float((solo["images"] - batch["images"]).abs().max()) < 1e-6
     assert solo["rays_traced"] == batch["rays_traced"]
+
+
+@pytest.mark.parametrize("front", ["render_sequence", "render_frames"])
+def test_compacted_batch_equals_per_frame(front, monkeypatch):
+    """backend="kernel" compacts one wavefront of several frames as it
+    compacts each frame's own: config 3's mirror scene, 3 frames at 64x64
+    (12,288 rays a batch, 4,096 a frame), late segments on a smaller
+    prefix in both, every frame within 1e-6 of its `render` (the file's
+    bound), ray counts exact."""
+    scene = build_scene(procedural.scene_multi_torus(True))
+    st = RenderSettings.default(max_depth=3)
+    cams = [PinholeCamera(eye=(8.0 - f, 5.0, 8.0), center=(0.0, 0.5, 0.0))
+            for f in range(3)]
+    lanes = []
+    real = wavefront.closest_hit
+
+    def spy(*a, **k):
+        lanes.append(a[1].shape[1])
+        return real(*a, **k)
+
+    monkeypatch.setattr(wavefront, "closest_hit", spy)
+    fn = render_sequence if front == "render_sequence" else render_frames
+    batch = fn(scene, cams, 64, 64, st, backend="kernel", device="cpu")
+    assert lanes[0] == 3 * 4096 and min(lanes) < lanes[0], lanes
+    lanes.clear()
+    frames = [render(scene, cam, 64, 64, st, backend="kernel", device="cpu")
+              for cam in cams]
+    assert min(lanes) < 4096, lanes
+    for f, one in enumerate(frames):
+        got = batch["images"][f]
+        if front == "render_frames":
+            got = got.permute(1, 2, 0)
+        err = float((got - one["image"]).abs().max())
+        assert err < 1e-6, f"frame {f}: {err}"
+    assert batch["rays_traced"] == sum(o["rays_traced"] for o in frames)
 
 
 def test_spp_jitter_is_seeded(setup):

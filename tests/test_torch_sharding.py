@@ -30,19 +30,23 @@ from toroidal_ray_tracing_tpu_torch.parallel.sharding import (padded_scene,
 from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, build_scene,
                                                   procedural,
                                                   scene_from_numpy)
+from toroidal_ray_tracing_tpu_torch.trace.wavefront import bucket_sizes
 
 torch.set_num_threads(2)
 
 RES = "16x16"
 TIMEOUT = 300.0
 MESHES = [(8, 1), (4, 2), (2, 4), (1, 8)]
+# config 3's scene at depth 3 on the kernel twins, 4,608 rays a rays rank:
+# big enough for the compaction buckets (4,608 and 2,304 lanes)
+COMPACT_CASE = "flagship@2x4:kernel/96x96"
 CASES = ([f"cornellish@{a}x{b}" for a, b in MESHES]
          + ["torus_grid16@2x4",
             "multi_torus@4x2:kernel", "multi_torus@1x8:kernel",
             "cornellish@2x4:kernel", "textured@1x8:kernel",
             "torus_plane@4x2", "torus_plane@1x8",
             "textured@4x2", "textured@1x8",
-            "tie@1x8", "tie@2x4"])
+            "tie@1x8", "tie@2x4", COMPACT_CASE])
 HYBRID = ["cornellish@hybrid1", "cornellish@hybrid2"]
 
 
@@ -248,6 +252,31 @@ def test_early_exit_reduced_across_ranks(world8):
     miss = rows[0]["rays_rank_all_miss"]
     assert miss[0] and not all(miss)
     assert {row["segments"] for row in rows} == {2}
+
+
+def test_ranks_with_different_live_spans_pick_one_bucket(world8):
+    """Live-ray compaction over a 2x4 mesh: the two rays ranks (the
+    frame's upper and lower half) keep different live spans, so alone the
+    upper one would trace a smaller bucket; every rank traces each
+    segment on one prefix, the smallest bucket holding the larger rank's
+    live spans. The frame equals the single-process render."""
+    rows = world8[1][COMPACT_CASE]
+    _same_as_render(rows, COMPACT_CASE)
+    sizes = bucket_sizes(96 * 96 // 2)
+    assert len(sizes) > 1
+    prefixes = {tuple(row["prefixes"]) for row in rows}
+    assert len(prefixes) == 1
+    prefixes = prefixes.pop()
+    live = [row["live_spans"] for row in rows]
+    assert any(len({spans[s] for spans in live}) > 1
+               for s in range(len(prefixes)))
+    def bucket(spans):
+        return min(b for b in sizes if b >= spans * 128)
+
+    for s, lanes in enumerate(prefixes):
+        assert lanes == bucket(max(spans[s] for spans in live)), (s, lanes)
+    assert any(bucket(spans[s]) < lanes for spans in live
+               for s, lanes in enumerate(prefixes)), (prefixes, live)
 
 
 def test_every_rank_traced_the_same_segments(world8):

@@ -97,12 +97,18 @@ def count(counts, key: str, k) -> None:
         counts[key] = counts.get(key, 0) + int(k)
 
 
-def visit_order(lo, hi, origins, n_batch: int):
+def batch_anchor(origins, n_batch: int):
+    """The point a batch's visit order starts from: its mean origin. The
+    JAX kernels average over their padded batch (pad rays have zero
+    origins), so the sum is divided by that padded size `n_batch`. The sum
+    runs in float64, so the anchor does not depend on the rays' order."""
+    return (origins.sum(dim=1, dtype=torch.float64) / n_batch).float()
+
+
+def visit_order(lo, hi, origins, n_batch: int, anchor=None):
     """Front-to-back block order: argsort (stable) of each box's clamped
-    distance from the batch's mean origin. The JAX kernels average over
-    their padded batch (pad rays have zero origins), so the mean here
-    divides the sum by that padded size `n_batch`."""
-    mean_o = origins.sum(dim=1) / float(n_batch)
+    distance from `anchor` (default: `batch_anchor(origins, n_batch)`)."""
+    mean_o = batch_anchor(origins, n_batch) if anchor is None else anchor
     gap = torch.clamp(torch.maximum(lo - mean_o[None, :], mean_o[None, :] - hi),
                       min=0.0)
     cdist = torch.linalg.vector_norm(gap, dim=1)

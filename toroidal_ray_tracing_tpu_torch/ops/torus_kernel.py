@@ -353,17 +353,20 @@ def _check_tables(name: str, tables, want_attrs: bool) -> None:
 def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
                               want_attrs: bool = False,
                               occlusion: bool = False,
-                              n_batch: int | None = None, counters=None):
+                              n_batch: int | None = None, counters=None,
+                              anchor=None):
     """K2 wrapper. origins/dirs (3, N); tmax (N,); tables: the scene's
     `torus_tables`. n_batch: batch size the chunk visit order averages
     origins over (default N). counters: optional (2,) int64 CUDA tensor the
-    kernel adds its (ray, box) slab tests and (ray, torus) quartics to."""
+    kernel adds its (ray, box) slab tests and (ray, torus) quartics to.
+    anchor: the (3,) point the visit order starts from (default: the
+    batch's `batch_anchor`)."""
     _check_tables("torus_closest_hit_chunked", tables, want_attrs)
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
     Kp, C, M = tb.w2o_rows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
-    order = visit_order(tb.clo, tb.chi, origins, n_batch or n)
+    order = visit_order(tb.clo, tb.chi, origins, n_batch or n, anchor)
     mat = tb.mat if want_attrs else None
     check_args(origins.device, w2o=(tb.w2o_rows, (Kp, 12), F32),
                rad=(tb.rad, (Kp, 2), F32), tor_lo=(tb.tor_lo, (Kp, 3), F32),
@@ -438,8 +441,9 @@ def use_small_kernel(n_batch: int, K: int) -> bool:
 
 def torus_closest_hit(origins, dirs, tmax, tables: TorusTables,
                       want_attrs: bool = False, occlusion: bool = False,
-                      n_batch: int | None = None):
-    """Route to K3 or K2 as the TPU launcher does, then run it."""
+                      n_batch: int | None = None, anchor=None):
+    """Route to K3 or K2 as the TPU launcher does, then run it (anchor: K2's
+    visit order, K3 has none)."""
     n_batch = n_batch or origins.shape[1]
     if use_small_kernel(n_batch, tables.K):
         return torus_closest_hit_small(origins, dirs, tmax, tables,
@@ -447,4 +451,5 @@ def torus_closest_hit(origins, dirs, tmax, tables: TorusTables,
                                        occlusion=occlusion)
     return torus_closest_hit_chunked(origins, dirs, tmax, tables,
                                      want_attrs=want_attrs,
-                                     occlusion=occlusion, n_batch=n_batch)
+                                     occlusion=occlusion, n_batch=n_batch,
+                                     anchor=anchor)

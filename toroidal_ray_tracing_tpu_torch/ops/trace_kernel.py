@@ -164,10 +164,12 @@ def _loose_attr(tables, base: int, L: int, idx, u_, v_, hit):
 
 
 def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
-                       want_attrs: bool = False, occlusion: bool = False):
+                       want_attrs: bool = False, occlusion: bool = False,
+                       anchor=None):
     """Closest hit through the kernels. origins/dirs: (3, N) rows; tmax
     (N,). want_attrs: emit Hit.attrs. occlusion: any-hit (only
-    Hit.kind >= 0 is meaningful)."""
+    Hit.kind >= 0 is meaningful). anchor: the (3,) point the tree kernels'
+    visit orders start from (default: the batch's mean origin)."""
     if want_attrs and occlusion:
         raise ValueError("want_attrs and occlusion are exclusive")
     origins = origins.contiguous()
@@ -233,7 +235,7 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             tri_attr = loose_attr
         else:
             kw = dict(attr_tables=tables, occlusion=occlusion,
-                      n_batch=n_batch)
+                      n_batch=n_batch, anchor=anchor)
             stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
             make = stream_tables if stream else tri_tables
             mesh = _kept(scene, "stream" if stream else "tri", part,
@@ -276,7 +278,7 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             tor_tmax = tmax
         out = torus_closest_hit(origins, dirs, tor_tmax.contiguous(), tor,
                                 want_attrs=want_attrs, occlusion=occlusion,
-                                n_batch=n_batch)
+                                n_batch=n_batch, anchor=anchor)
         kt, ki = out[:2]
         if want_attrs:
             tor_attr = out[2]

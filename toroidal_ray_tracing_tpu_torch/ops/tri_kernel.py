@@ -168,14 +168,16 @@ def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi,
 
 def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
                     attr_tables=None, occlusion: bool = False,
-                    n_batch: int | None = None, counters=None):
+                    n_batch: int | None = None, counters=None,
+                    anchor=None):
     """K1 wrapper. origins/dirs: (3, N) rows; tmax: (N,); tables: the
     mesh's `tri_tables`. attr_tables: optional ((21, T), (8, T), (8, T))
     interpolation tables. n_batch: the batch size the visit order averages
     origins over (the caller's padded batch; default N). counters: optional
     (2,) int64 CUDA tensor the kernel adds its (ray, box) slab tests and
-    (ray, triangle) Woop tests to. Returns (t, idx, u, v[, attrs (21,
-    N)]) — t is BIG on a miss, idx int32."""
+    (ray, triangle) Woop tests to. anchor: the (3,) point the visit order
+    starts from (default: the batch's `batch_anchor`). Returns (t, idx, u,
+    v[, attrs (21, N)]) — t is BIG on a miss, idx int32."""
     if not isinstance(tables, TriTables):
         raise TypeError("tri_closest_hit takes the mesh's prebuilt "
                         "TriTables (tri_tables)")
@@ -183,7 +185,7 @@ def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
     n = origins.shape[1]
     tb = tables
     T, C, M = tb.wrows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
-    order = (visit_order(tb.clo, tb.chi, origins, n_batch or n)
+    order = (visit_order(tb.clo, tb.chi, origins, n_batch or n, anchor)
              if tb.box_test else
              torch.zeros((1,), dtype=torch.int32, device=origins.device))
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3

@@ -176,21 +176,23 @@ def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,
 def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
                            attr_tables=None, occlusion: bool = False,
                            n_batch: int | None = None,
-                           group: int | None = None, counters=None):
+                           group: int | None = None, counters=None,
+                           anchor=None):
     """K5/K6 wrapper, K1's contract. origins/dirs (3, N); tmax (N,);
     tables: the mesh's `stream_tables`. attr_tables: optional ((21, T), (8,
     T), (8, T)). n_batch: the batch size the superblock rank averages
     origins over (the caller's padded batch; default N). group: K6 when > 1
     (default: the module's STREAM_GROUP). counters: optional (2,) int64
     CUDA tensor the kernel adds its (ray, box) slab tests and (ray,
-    triangle) Woop tests to. Returns (t, idx, u, v[, attrs (21, N)])."""
+    triangle) Woop tests to. anchor: as `tri_closest_hit`'s. Returns (t,
+    idx, u, v[, attrs (21, N)])."""
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
     group = STREAM_GROUP if group is None else group
     T, S, Cp, M = (tb.wrows.shape[0], tb.sb_lo.shape[0], tb.clo.shape[0],
                    tb.tree_lo.shape[0])
-    order = visit_order(tb.sb_lo, tb.sb_hi, origins, n_batch or n)
+    order = visit_order(tb.sb_lo, tb.sb_hi, origins, n_batch or n, anchor)
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
                sb_lo=(tb.sb_lo, (S, 3), F32), sb_hi=(tb.sb_hi, (S, 3), F32),

@@ -10,18 +10,20 @@ starts `--world` processes of this module (`--rank r`), which join one
 gloo group through a FileStore in a temporary directory, run every case
 and print one line `DRYRUN_RANK {json}`: per case the sharded frame
 against a single-process `render` of the same scene (RMSE, max
-differences, ray counts), the segments each rank traced, the kernel
-launches of the first sharded render, its milliseconds, and those of a
-second render (the padded scene and its tables kept) with the part spent
-in the collectives. The parent checks them all and exits 1
-on any failure. With no `--cases`, every mesh shape of the world renders
-the flagship scene (config 3's four tori) at 64x64.
+differences, ray counts), the segments each rank traced with the lanes
+each traced and its live spans, the kernel launches of the first sharded
+render, its milliseconds, and those of a second render (the padded scene
+and its tables kept) with the part spent in the collectives. The parent
+checks them all and exits 1 on any failure. With no `--cases`, every
+mesh shape of the world renders the flagship scene (config 3's four
+tori) at 64x64.
 
-A case is `CELL@RxP[:BACKEND]` (a ("rays", "prims") mesh of R x P ranks,
-backend torch by default), `CELL@hybridP` (`multihost.make_hybrid_mesh`
-with P prims ranks; `--nodes` poses the world as that many nodes through
-the launcher's variables), or `tie@RxP` (synthetic per-rank hits with
-equal t merged over the mesh's prims group). CELL names a scene of
+A case is `CELL@RxP[:BACKEND][/WxH]` (a ("rays", "prims") mesh of R x P
+ranks, backend torch by default, at WxH instead of `--res`),
+`CELL@hybridP` (`multihost.make_hybrid_mesh` with P prims ranks;
+`--nodes` poses the world as that many nodes through the launcher's
+variables), or `tie@RxP` (synthetic per-rank hits with equal t merged
+over the mesh's prims group). CELL names a scene of
 `CELLS` or `config<N>` (the ladder's scene, camera and settings).
 
 Ranks that share one card use gloo: NCCL refuses two ranks on one
@@ -71,8 +73,11 @@ def mesh_shapes(n: int) -> list:
 
 def parse_case(spec: str) -> dict:
     cell, _, rest = spec.partition("@")
+    rest, _, res = rest.partition("/")
     mesh, _, backend = rest.partition(":")
     case = dict(spec=spec, cell=cell, backend=backend or "torch")
+    if res:
+        case["res"] = tuple(int(x) for x in res.split("x"))
     if mesh.startswith("hybrid"):
         case["hybrid"] = int(mesh[len("hybrid"):])
     else:
@@ -106,24 +111,6 @@ def _cell(name: str, cache: dict):
             cache[name] = (build_scene(getattr(procedural, fn)(**kw)), cam,
                            RenderSettings.default(max_depth=depth))
     return cache[name]
-
-
-@contextlib.contextmanager
-def _segment_counter(counts: list):
-    """Count the segments the bounce loop traces (its closest-hit calls)."""
-    from toroidal_ray_tracing_tpu_torch.trace import wavefront
-
-    real = wavefront.closest_hit
-
-    def counted(*a, **k):
-        counts[0] += 1
-        return real(*a, **k)
-
-    wavefront.closest_hit = counted
-    try:
-        yield
-    finally:
-        wavefront.closest_hit = real
 
 
 @contextlib.contextmanager
@@ -166,13 +153,14 @@ def _render_case(case, mesh, res, device, cache) -> dict:
         LAUNCHES, reset_launches)
     from toroidal_ray_tracing_tpu_torch.parallel import render_sharded
     from toroidal_ray_tracing_tpu_torch.parallel.multihost import host_band
+    from toroidal_ray_tracing_tpu_torch.utils.profiling import record_segments
 
     scene, cam, st = _cell(case["cell"], cache)
-    w, h = res
-    segments = [0]
+    w, h = case.get("res", res)
+    segments = []
     reset_launches()
     t0 = time.perf_counter()
-    with _segment_counter(segments):
+    with record_segments(segments):
         out = render_sharded(scene, cam, w, h, st, mesh=mesh,
                              backend=case["backend"], device=device)
     if device.type == "cuda":
@@ -204,7 +192,8 @@ def _render_case(case, mesh, res, device, cache) -> dict:
                             - ref["hit_position"]).abs().max()),
         finite=bool(torch.isfinite(img).all()),
         rays=out["rays_traced"], ref_rays=ref["rays_traced"],
-        segments=segments[0], ms=ms, again_ms=again_ms,
+        segments=len(segments), prefixes=[s[0] for s in segments],
+        live_spans=[s[1] for s in segments], ms=ms, again_ms=again_ms,
         merge_ms=merge[0], launches=launches,
         rays_rank_all_miss=all_miss)
     if "hybrid" in case:
@@ -399,9 +388,9 @@ def launch(world: int, cases: str, device: str = "cuda",
 def failures(ranks: list) -> list:
     """Every check the ranks' results fail, as text: each sharded frame
     equals the single-process render (RMSE < 1e-6, equal ray counts,
-    finite), every rank traced the same segments for a case, a hybrid
-    rank's band is its node's, synthetic ties merge to the expected
-    winner."""
+    finite), every rank traced the same segments on the same lanes (one
+    compaction bucket) for a case, a hybrid rank's band is its node's,
+    synthetic ties merge to the expected winner."""
     bad = []
     for i, row in enumerate(ranks[0]["results"]):
         rows = [rk["results"][i] for rk in ranks]
@@ -417,9 +406,9 @@ def failures(ranks: list) -> list:
                     and rw["rays"] == rw["ref_rays"]):
                 bad.append(f"{spec} rank {rk['rank']}: rmse {rw['rmse']:.3g}"
                            f", rays {rw['rays']} vs {rw['ref_rays']}")
-        if len({rw["segments"] for rw in rows}) != 1:
-            bad.append(f"{spec}: segments differ by rank "
-                       f"{[rw['segments'] for rw in rows]}")
+        if len({tuple(rw["prefixes"]) for rw in rows}) != 1:
+            bad.append(f"{spec}: segments or their lanes differ by rank "
+                       f"{[rw['prefixes'] for rw in rows]}")
         for rk, rw in zip(ranks, rows):
             if "band" not in rw:
                 continue

@@ -164,7 +164,7 @@ def combine_hits_over_axis(hit: Hit, group) -> Hit:
 def closest_hit(scene: Scene, origins, dirs, tmax=None,
                 backend: str = "torch", geom: Optional[GeomSlice] = None,
                 want_attrs: bool = False, occlusion: bool = False,
-                prim_group=None) -> Hit:
+                prim_group=None, anchor=None) -> Hit:
     """Nearest hit for every ray. origins/dirs: (3, N) f32 rows.
 
     geom: the geometry to test (default: the whole scene). prim_group: the
@@ -172,7 +172,10 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
     winners merge (`combine_hits_over_axis`). want_attrs: emit
     interpolated ShadeAttrs (kernel backend only; the torch path shades
     via gathers). occlusion: any-hit semantics — only Hit.kind >= 0 is
-    meaningful then."""
+    meaningful then. anchor: kernel backend, the (3,) point the kernels'
+    visit orders start from, which decides exact ties between boxes
+    (default: the batch's mean origin; `trace_rays` passes the whole
+    wavefront's)."""
     tmax = _tmax(tmax, origins)
     if geom is None:
         geom = geom_from_scene(scene)
@@ -182,7 +185,8 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
             closest_hit_kernel)
 
         hit = closest_hit_kernel(scene, geom, origins, dirs, tmax,
-                                 want_attrs=want_attrs, occlusion=occlusion)
+                                 want_attrs=want_attrs, occlusion=occlusion,
+                                 anchor=anchor)
     elif backend == "torch":
         hit = _closest_hit_torch(scene, geom, origins, dirs, tmax)
     else:

@@ -6,6 +6,17 @@ do-while that always traces the primary segment and stops once no ray
 wants another bounce (`prd.done == 1 || depth >= maxDepth`). Here that is
 an eager Python loop; per-ray vectors are (3, N) rows.
 
+Live-ray compaction (`backend="kernel"`, the JAX package's `pallas` path):
+the reference's dead rays leave the raygen loop for free
+(raytrace.rgen:100-103); here every segment would trace the whole batch.
+So once every live `COMPACT_SPAN`-ray span fits in the first n/f lanes (f
+in `COMPACT_FACTORS`), the spans are packed live-first and the segment
+traces and shades only that prefix; the suffix is all dead and stays as
+it is. Spans move whole: raygen's block swizzle makes a span a compact
+screen patch, so the kernels' warps stay coherent. The outputs are
+unpermuted once at the end. `backend="torch"` traces every segment whole,
+as the JAX package's jnp path does.
+
 `trace_rays_fixed` is the differentiable variant: a fixed number of
 segments, autograd through shading and (on the kernel backend)
 `closest_hit_diff`'s recompute.
@@ -13,8 +24,14 @@ segments, autograd through shading and (on the kernel backend)
 
 from __future__ import annotations
 
+import math
+import os
+
 import torch
 
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (batch_anchor,
+                                                              round_up)
+from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import RAY_TILE
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
 from toroidal_ray_tracing_tpu_torch.trace.intersect import (closest_hit,
                                                             closest_hit_diff)
@@ -22,6 +39,60 @@ from toroidal_ray_tracing_tpu_torch.trace.shade import shade
 from toroidal_ray_tracing_tpu_torch.utils.collectives import MAX, all_reduce
 
 SEG_TMAX = 10000.0   # raytrace.rgen:62
+
+COMPACT_SPAN = 128   # compaction moves whole spans of this many rays
+COMPACT_FACTORS = tuple(
+    int(f) for f in os.environ.get("TRT_COMPACT_FACTORS", "2,4,8").split(",")
+    if f)            # prefix buckets n/f; "" traces every segment whole. The
+                     # mirror-floor ladder scenes keep 15.2% of spans live at
+                     # bounce 2 (the JAX package's scripts/live_fraction.py)
+COMPACT_MIN = 2048   # a bucket holds at least one 2048-ray kernel tile
+
+# rows of the stacked ray state: origin, direction, accumulated color,
+# attenuation, first-hit position
+_O, _D, _HV, _AT, _HP = (slice(0, 3), slice(3, 6), slice(6, 9),
+                         slice(9, 12), slice(12, 15))
+
+
+def bucket_sizes(n: int, factors=None) -> tuple:
+    """The lane counts a segment of an n-ray kernel-backend batch may trace,
+    largest first: n rounded up to whole spans (the tail lanes start dead),
+    then ceil(n / f) rounded up to whole spans for each factor f with
+    n // f >= COMPACT_MIN. Just (n,) when no factor qualifies: the batch
+    then traces whole and unpadded."""
+    factors = COMPACT_FACTORS if factors is None else factors
+    lanes = round_up(n, COMPACT_SPAN)
+    smaller = {round_up(-(-n // f), COMPACT_SPAN) for f in factors
+               if n // f >= COMPACT_MIN}
+    smaller = sorted((s for s in smaller if s < lanes), reverse=True)
+    return (lanes, *smaller) if smaller else (n,)
+
+
+def live_spans(active):
+    """(S,) bool: the spans of `active` (a whole number of spans) that hold
+    a live ray."""
+    return active.view(-1, COMPACT_SPAN).any(dim=1)
+
+
+def span_order(live):
+    """The span permutation that packs live spans first, each span keeping
+    its place among its kind (stable)."""
+    return torch.argsort(~live, stable=True)
+
+
+def span_lanes(order):
+    """The lane gather index that lays spans out in `order`."""
+    ar = torch.arange(COMPACT_SPAN, device=order.device)
+    return (order[:, None] * COMPACT_SPAN + ar).reshape(-1)
+
+
+def _sync_group(ray_group, prim_group):
+    """The group whose ranks must agree on the stop and the bucket: the one
+    group given, or the world when both are (a ("rays", "prims") mesh
+    spans it, `parallel.sharding.make_mesh`)."""
+    if ray_group is not None and prim_group is not None:
+        return torch.distributed.group.WORLD
+    return ray_group if ray_group is not None else prim_group
 
 
 def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
@@ -36,17 +107,39 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
     shadow ray per lit hit, raytrace.rchit:90-109) of this batch as a
     Python int.
 
+    backend="kernel" compacts live spans into the smallest of
+    `bucket_sizes(N)` that holds them all (module docstring). Its kernels
+    order their boxes front to back from the mean origin of the whole
+    batch, dead and unpacked rays included, so a compacted segment visits
+    in the order, and breaks exact ties as, the whole batch would: each
+    ray's result is the same wherever its span sits (the K2 / K3 route
+    still follows the prefix's size, as on the TPU).
+
     geom / prim_group: primitive-sharded queries (`closest_hit`).
-    ray_group: the group the ray batch is sharded over. The stop test is
-    reduced over both groups, so every rank runs the same number of
-    segments (the queries' merges are collectives)."""
+    ray_group: the group the ray batch is sharded over. Each segment's
+    stop test and bucket come from one reduction over both groups (the
+    most live spans of any rank), so every rank runs the same number of
+    segments on the same prefix size (the queries' merges are
+    collectives). The host reads one number a segment."""
     n = origins.shape[1]
     dev = origins.device
     max_depth = int(settings.max_depth)
-    hit_value = torch.zeros((3, n), dtype=torch.float32, device=dev)
-    attenuation = torch.ones((3, n), dtype=torch.float32, device=dev)
-    hit_position = torch.zeros((3, n), dtype=torch.float32, device=dev)
-    active = torch.ones((n,), dtype=torch.bool, device=dev)
+    sizes = bucket_sizes(n) if backend == "kernel" else (n,)
+    compact = len(sizes) > 1
+    lanes = sizes[0]
+    state = torch.empty((15, lanes), dtype=torch.float32, device=dev)
+    state[_O, :n] = origins
+    state[_D, :n] = dirs
+    state[_O, n:] = 0.0
+    state[_D, n:] = 1.0 / math.sqrt(3.0)
+    state[_HV] = 0.0
+    state[_AT] = 1.0
+    state[_HP] = 0.0
+    active = torch.arange(lanes, device=dev) < n
+    n_batch = round_up(max(n, 1), RAY_TILE)   # the kernels' anchor divisor
+    group = _sync_group(ray_group, prim_group)
+    span_orig = None        # each slot's original span, once spans moved
+    nb = lanes              # lanes this segment traces
     any_active = True
     depth = 0
     rays = torch.zeros((), dtype=torch.int64, device=dev)
@@ -54,35 +147,63 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
     # do-while (rgen:75-108): the primary segment is traced even when
     # max_depth <= 0
     while any_active and (depth < max_depth or depth == 0):
+        s = state[:, :nb]
+        act = active[:nb]
+        o, d, att, hv = s[_O], s[_D], s[_AT], s[_HV]
         # dead rays trace with tmax = 0: every kernel skips them
-        seg_tmax = torch.where(active, SEG_TMAX, 0.0)
-        hit = closest_hit(scene, origins, dirs, tmax=seg_tmax,
-                          backend=backend, geom=geom, prim_group=prim_group,
-                          want_attrs=backend == "kernel")
-        sh = shade(scene, settings, origins, dirs, hit, backend=backend,
-                   geom=geom, prim_group=prim_group)
+        seg_tmax = torch.where(act, SEG_TMAX, 0.0)
+        anchor = (batch_anchor(state[_O], n_batch) if backend == "kernel"
+                  else None)
+        hit = closest_hit(scene, o, d, tmax=seg_tmax, backend=backend,
+                          geom=geom, prim_group=prim_group,
+                          want_attrs=backend == "kernel", anchor=anchor)
+        sh = shade(scene, settings, o, d, hit, backend=backend, geom=geom,
+                   prim_group=prim_group)
 
-        live = active[None, :]
+        live = act[None, :]
         # rchit multiplies prd.attenuation before rgen accumulates
         # (rchit:127 runs inside traceRayEXT, before rgen:92)
-        attenuation = torch.where(live, attenuation * sh.atten_factor,
-                                  attenuation)
-        hit_value = torch.where(live, hit_value + sh.hit_value * attenuation,
-                                hit_value)
+        torch.where(live, att * sh.atten_factor, att, out=att)
+        torch.where(live, hv + sh.hit_value * att, hv, out=hv)
         if depth == 0:
-            hit_position = torch.where(live, sh.hit_position, hit_position)
+            torch.where(live, sh.hit_position, s[_HP], out=s[_HP])
 
-        rays = rays + active.sum() + (active & sh.shadow_rays).sum()
-        active = active & ~sh.done & (depth + 1 < max_depth)
-        origins = torch.where(active[None, :], sh.next_origin, origins)
-        dirs = torch.where(active[None, :], sh.next_dir, dirs)
-        live_any = active.any()
-        for group in (ray_group, prim_group):
-            if group is not None:
-                live_any = all_reduce(live_any, MAX, group)
-        any_active = bool(live_any)
+        rays = rays + act.sum() + (act & sh.shadow_rays).sum()
+        act = act & ~sh.done & (depth + 1 < max_depth)
+        active[:nb] = act
+        torch.where(act[None, :], sh.next_origin, o, out=o)
+        torch.where(act[None, :], sh.next_dir, d, out=d)
+
+        # the stop test and the next bucket: the live spans (the most of
+        # any rank's, which every rank's bucket then holds), read once
+        if compact:
+            spans = live_spans(act)
+            count = spans.sum()
+        else:
+            count = act.any()
+        if group is not None:
+            count = all_reduce(count, MAX, group)
+        count = int(count)
+        any_active = count > 0
+        fit = (min(z for z in sizes if z >= count * COMPACT_SPAN)
+               if compact else nb)
+        if any_active and fit < nb:
+            # pack the prefix's live spans first (the suffix is dead)
+            order = span_order(spans)
+            idx = span_lanes(order)
+            state[:, :nb] = s.index_select(1, idx)
+            active[:nb] = act.index_select(0, idx)
+            if span_orig is None:
+                span_orig = torch.arange(lanes // COMPACT_SPAN, device=dev)
+            span_orig[:order.shape[0]] = span_orig[order]
+            nb = fit
         depth += 1
-    return hit_value, hit_position, int(rays)
+
+    if span_orig is not None:
+        # every slot's rows back to its original span's lanes
+        state = torch.empty_like(state).index_copy_(
+            1, span_lanes(span_orig), state)
+    return state[_HV, :n], state[_HP, :n], int(rays)
 
 
 def trace_rays_fixed(scene: Scene, settings: RenderSettings, origins, dirs,

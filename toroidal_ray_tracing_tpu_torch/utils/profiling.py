@@ -12,6 +12,10 @@ Here:
 * `trace_to(log_dir)` — `torch.profiler` over the enclosed block, CPU and
   (on a CUDA device) CUDA activities, written as a Chrome/Perfetto trace
   `trace.json` into `log_dir` (the NSight-capture analog).
+* `record_segments(out)` — each segment the bounce loop traces in the
+  enclosed block, as [lanes traced, live spans among them]: what live-ray
+  compaction did (it reads the live mask, so it synchronizes once a
+  segment; leave it out of timed runs).
 
 The JAX module's `enable_compile_cache` (XLA's persistent compilation
 cache) has no counterpart: nothing here compiles per shape, and the CUDA
@@ -88,3 +92,26 @@ def trace_to(log_dir: str, device="cuda"):
         if device.type == "cuda":
             torch.cuda.synchronize(device)
     prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+@contextlib.contextmanager
+def record_segments(out: list):
+    """Append [lanes traced, live spans among them] to `out` for every
+    segment `trace.wavefront.trace_rays` traces inside the block (a span
+    is `COMPACT_SPAN` lanes; a partial last span counts)."""
+    from toroidal_ray_tracing_tpu_torch.trace import wavefront
+
+    real = wavefront.closest_hit
+    span = wavefront.COMPACT_SPAN
+
+    def recorded(*a, **k):
+        lanes = k["tmax"].shape[0]
+        live = torch.nn.functional.pad(k["tmax"] > 0, (0, (-lanes) % span))
+        out.append([int(lanes), int(live.view(-1, span).any(dim=1).sum())])
+        return real(*a, **k)
+
+    wavefront.closest_hit = recorded
+    try:
+        yield out
+    finally:
+        wavefront.closest_hit = real

@@ -66,8 +66,9 @@ Phases, each printed on its own lines with its wall seconds:
   8. the measurement front doors, each path run with the launch counts set
      to 0 just before it and read just after: the bench headline (config
      3's 16-frame sequence, with mfu and cull_speedup), `run_scenario` of
-     every ladder config in front-door mode (2 frames; config 5 its 8; the
-     ray counts of the cells phase 4 renders equal phase 4's),
+     every ladder config in front-door mode (2 frames; config 5 its 8, its
+     jitter from `utils.prng` on the card, launching K2 and K3; the ray
+     counts of the cells phase 4 renders equal phase 4's),
      `raster_render` of configs 6 and 7 at 1920x1080 (timed) and at
      240x135 against the CPU, a 4-value light-intensity sweep of config 3
      at 1080p (each frame bit-equal to its own `render`), the microbench
@@ -111,9 +112,12 @@ Phases, each printed on its own lines with its wall seconds:
          sampling);
        config 8 (1,179,648 triangles, depth 2), 128x72 (the dense oracle
          tests every row): K5, 1e-3; again with the group switch on: K6,
-         1e-3, and bit-equal to K5's frame.
-     Config 5 (config 3's scene at 4K with 2 spp of jitter) is left out:
-     the oracle has no jitter, as the JAX package's has none. Each cell
+         1e-3, and bit-equal to K5's frame;
+       config 5 (config 3's scene, fly-through frame 0, depth 3, 2 spp),
+         960x540 (cut from 3840x2160): K3, 2e-2; the reference is the mean
+         of two oracle passes, the centered rays and, through
+         `JitteredCamera`, the rays of render's jittered sample (the same
+         `utils.prng.uniform` draw, key fold_in(PRNGKey(0), 1)). Each cell
      prints the oracle's seconds, the render's ms, both RMSEs, the pixels
      off by > 1e-3 and its launches; between them the cells launch all
      six kernels (config 3 at 1080p both K2 and K3, as in phase 4);
@@ -128,7 +132,17 @@ Phases, each printed on its own lines with its wall seconds:
      segment on the smallest bucket holding its live spans, a late
      segment on a smaller prefix (config 8: every segment at n); images
      bit-equal, but config 3's (K3 on its prefix, K2 on the whole frame)
-     by phase 4's backend rule, with K3 launched only compacted.
+     by phase 4's backend rule, with K3 launched only compacted;
+ 12. random streams and the graft entry: config 5's jitter for sample 1
+     of frames 0 and 7 (keys fold_in(PRNGKey(0), 1) and fold_in(PRNGKey(0),
+     15), shape (3840*2160, 2)) drawn on the card by `utils.prng.uniform`,
+     bit-equal to the same function on the CPU and to the fingerprints of
+     `jax.random.uniform`'s draw pinned below (JITTER_PINS), with the
+     draw's ms (CUDA events, median of 10); then `entry()`'s `fn(*args)`
+     (config 3's scene, 64x64 rays, depth 3, K3) on the card, its launches
+     counted (launch counts set to 0 just before it and read just after):
+     finite, its ray count equal to the CPU twin's, its image within
+     phase 4's backend rule of the CPU twin's.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -155,7 +169,22 @@ FRAME_STRIDE = 63         # K5/K6 meet the twin on every 63rd 1080p ray
 K3_RES = 512              # config 3 at this square size routes to K3
 CHECK_RES = (480, 270)    # kernel-vs-torch backend agreement renders
 CHECK_RES_C8 = (128, 72)  # the same for config 8 (1.18M triangles)
+JITTER_CHECK_RES = (960, 540)   # config 5 against the oracle, 2 spp
 FAILURES: list[str] = []
+JITTER_PIXELS = 3840 * 2160   # config 5's frame
+# Config 5's jitter, sample 1 of frames 0 and 7 (keys fold_in(PRNGKey(0),
+# f * 2 + 1): 1 and 15) at (3840*2160, 2), as `jax.random.uniform` draws it
+# (JAX 0.9.0, jax_threefry_partitionable on): the first and last four
+# uint32 words and the uint64 sum of all words. tests/test_torch_prng.py
+# derives them again from JAX.
+JITTER_PINS = {
+    1: ((0x3BEF0100, 0x3CAB2400, 0x3F14D85E, 0x3EB942D4),
+        (0x3F17E40C, 0x3F05E218, 0x3F4D0364, 0x3EDBA328),
+        17464193098880362),
+    15: ((0x3F1D75FC, 0x3ED52B7C, 0x3F28B4EE, 0x3EE66B34),
+         (0x3E552AF0, 0x3F102148, 0x3F20F3A2, 0x3F1D1970),
+         17464176581738104),
+}
 
 # Operations per test, as the kernels' source notes count them.
 SLAB_OPS = 26             # (ray, box) slab test, csrc/common.cuh
@@ -163,6 +192,16 @@ WOOP_OPS = 50             # (ray, triangle) Woop test, csrc/common.cuh
 QUARTIC_OPS = 600         # (ray, torus) quartic test, csrc/torus_hit.cu
 KERNEL_DIR = "toroidal_ray_tracing_tpu_torch/csrc"
 JAX_OPS = "toroidal_ray_tracing_tpu/ops"
+
+
+def jitter_fingerprint(words):
+    """(first four, last four, uint64 sum) of a draw's uint32 words (a
+    flat NumPy array)."""
+    import numpy as np
+
+    return (tuple(int(w) for w in words[:4]),
+            tuple(int(w) for w in words[-4:]),
+            int(words.astype(np.uint64).sum()))
 
 
 def check(ok: bool, what: str) -> bool:
@@ -1803,6 +1842,10 @@ def phase_front_doors(torch, totals, stats):
         check(tuple(imgs.shape) == (st["frames"], 3, sc.height, sc.width)
               and bool(torch.isfinite(imgs).all()) and launched,
               f"run_scenario({num}): frames finite, kernels launched")
+        if sc.spp > 1:
+            check(all(launched.get(k, 0) > 0 for k in (
+                "torus_closest_hit", "torus_closest_hit_small")),
+                  f"run_scenario({num}), {sc.spp} spp: K2 and K3 launched")
         if sc.name in phase4:
             check(st["rays_per_frame"] == phase4[sc.name],
                   f"run_scenario({num}): {st['rays_per_frame']:.0f} rays a "
@@ -2169,8 +2212,8 @@ def phase_gradients_multidevice(torch, totals):
 
 def oracle_cells():
     """Phase 10's cells: (name, scene key, build, camera, settings, width,
-    height, kernels that must launch, stream group, bounds). Full scenes at
-    full ladder depth; only the resolution is cut. Bounds are
+    height, kernels that must launch, stream group, bounds, spp). Full
+    scenes at full ladder depth; only the resolution is cut. Bounds are
     tests/test_parity.py's (rmse, robust, exclude); rmse_only gates the
     image's plain RMSE alone, as tests/test_mipmaps.py does."""
     from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
@@ -2181,10 +2224,11 @@ def oracle_cells():
     cells = []
     for num, res, needs, bounds in (
             (1, (256, 256), ["torus_closest_hit_small"], default),
-            (2, (512, 512), ["torus_closest_hit_small"], contact)):
+            (2, (512, 512), ["torus_closest_hit_small"], contact),
+            (5, JITTER_CHECK_RES, ["torus_closest_hit_small"], contact)):
         sc = SCENARIOS[num]
-        cells.append((sc.name, sc.name, sc.build, sc.camera, sc.settings(),
-                      *res, needs, 0, bounds))
+        cells.append((sc.name, sc.name, sc.build, sc.camera_at(0),
+                      sc.settings(), *res, needs, 0, bounds, sc.spp))
     for name, res, bounds in (
             ("config3_multi_torus", FULL, contact),
             ("config3_multi_torus_k3", (K3_RES, K3_RES), contact),
@@ -2196,8 +2240,51 @@ def oracle_cells():
             ("config8_streamed_mesh", CHECK_RES_C8, default),
             ("config8_streamed_mesh_k6", CHECK_RES_C8, default)):
         _, key, build, cam, st, _, _, needs, group = by_key[name]
-        cells.append((name, key, build, cam, st, *res, needs, group, bounds))
+        cells.append((name, key, build, cam, st, *res, needs, group, bounds,
+                      1))
     return cells
+
+
+class JitteredCamera:
+    """`camera` with one jittered sample of `render`: `jitter[i]` moves the
+    i-th ray in render's block-major trace order, as render applies it, so
+    the oracle traces the rays of that sample (row-major, as the oracle
+    takes them)."""
+
+    def __init__(self, camera, jitter):
+        self.camera, self.jitter = camera, jitter
+
+    def pixel_spread(self, width, height):
+        return self.camera.pixel_spread(width, height)
+
+    def generate_rays(self, width, height, settings=None, device="cpu"):
+        from toroidal_ray_tracing_tpu_torch.cameras.pinhole import (
+            block_unswizzle, pick_block)
+
+        block = pick_block(width, height)
+        rays = self.camera.device_rays(
+            self.camera.ray_params(width, height, settings), width, height,
+            settings, jitter=self.jitter, block=block, device=device)
+        return tuple(block_unswizzle(a, width, height, block).reshape(-1, 3)
+                     for a in rays)
+
+
+def oracle_mean(scene, cam, w, h, st, spp):
+    """The oracle's image of `render(..., spp, seed=0)`: the mean of the
+    centered pass and one pass a jittered sample, sample s through
+    `JitteredCamera` with render's draw `uniform(fold_in(PRNGKey(0), s))`;
+    the dumps are the centered pass's, as render's are."""
+    from toroidal_ray_tracing_tpu_torch.oracle import render_oracle
+    from toroidal_ray_tracing_tpu_torch.utils import prng
+
+    out = render_oracle(scene, cam, w, h, st, device=DEVICE)
+    acc = out["image"]
+    for s in range(1, spp):
+        jitter = prng.uniform(prng.fold_in(prng.prng_key(0), s), (w * h, 2),
+                              DEVICE)
+        acc = acc + render_oracle(scene, JitteredCamera(cam, jitter), w, h,
+                                  st, device=DEVICE)["image"]
+    return dict(out, image=acc / float(spp))
 
 
 def parity(torch, a, b, exclude):
@@ -2219,22 +2306,24 @@ def phase_oracle(torch, totals):
     from toroidal_ray_tracing_tpu_torch.ops import tri_stream
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
         LAUNCHES, reset_launches)
-    from toroidal_ray_tracing_tpu_torch.oracle import render_oracle
 
     rows, images, launched_all = [], {}, {}
-    for name, key, build, cam, st, w, h, needs, group, bnd in oracle_cells():
+    for (name, key, build, cam, st, w, h, needs, group, bnd,
+         spp) in oracle_cells():
         scene = scene_of(key, build)
         tri_stream.STREAM_GROUP = group
-        render(scene, cam, w, h, st, backend="kernel", device=DEVICE)
+        render(scene, cam, w, h, st, backend="kernel", spp=spp,
+               device=DEVICE)
 
         def run():
             return once_ms(torch, lambda: render(
-                scene, cam, w, h, st, backend="kernel", device=DEVICE))
+                scene, cam, w, h, st, backend="kernel", spp=spp,
+                device=DEVICE))
 
         (out, ms), launched = counted(LAUNCHES, reset_launches, run)
         tri_stream.STREAM_GROUP = 0
-        o, oracle_ms = once_ms(torch, lambda: render_oracle(
-            scene, cam, w, h, st, device=DEVICE))
+        o, oracle_ms = once_ms(torch, lambda: oracle_mean(
+            scene, cam, w, h, st, spp))
         for k, v in launched.items():
             totals[k] = totals.get(k, 0) + v
             launched_all[k] = launched_all.get(k, 0) + v
@@ -2243,7 +2332,8 @@ def phase_oracle(torch, totals):
         img = parity(torch, out["image"], o["image"], exclude)
         pos = parity(torch, out["hit_position"].clamp(-1e4, 1e4),
                      o["hit_position"].clamp(-1e4, 1e4), exclude)
-        print(f"{name} {w}x{h}: oracle {oracle_ms / 1e3:.2f} s, render "
+        print(f"{name} {w}x{h}, {spp} spp: oracle {oracle_ms / 1e3:.2f} s, "
+              f"render "
               f"{ms:.2f} ms; image rmse {img[0]:.3e}, robust {img[1]:.3e}, "
               f"{img[2]} of {w * h} pixels off by > 1e-3; hit_position "
               f"rmse {pos[0]:.3e}, robust {pos[1]:.3e}; launches "
@@ -2263,7 +2353,7 @@ def phase_oracle(torch, totals):
             check(launched.get(k, 0) > 0, f"{name}: {k} launched")
         write_ppm(os.path.join(OUT_DIR, f"oracle_{name}.ppm"),
                   tonemap(o["image"]).cpu().numpy())
-        rows.append(dict(cell=name, width=w, height=h,
+        rows.append(dict(cell=name, width=w, height=h, spp=spp,
                          oracle_s=oracle_ms / 1e3, render_ms=ms,
                          image_rmse=img[0], image_robust=img[1],
                          pixels_off=img[2], hit_position_rmse=pos[0],
@@ -2433,6 +2523,67 @@ def phase_compaction(torch, totals):
     return rows
 
 
+def phase_streams_entry(torch, totals):
+    """Phase 12: config 5's jitter drawn on the card against the CPU and
+    JAX's pinned fingerprints, with its ms; `entry()` on the card against
+    its CPU twin."""
+    import numpy as np
+
+    from toroidal_ray_tracing_tpu_torch.entry import entry
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.utils import prng
+
+    summary: dict = {}
+    shape = (JITTER_PIXELS, 2)
+    for sample, pins in sorted(JITTER_PINS.items()):
+        key = prng.fold_in(prng.prng_key(0), sample)
+        ms = cuda_ms(lambda: prng.uniform(key, shape, DEVICE), reps=10)
+        words = prng.uniform(key, shape, DEVICE).cpu().numpy()
+        words = words.view(np.uint32).ravel()
+        cpu = prng.uniform(key, shape, "cpu").numpy().view(np.uint32).ravel()
+        first, last, total = jitter_fingerprint(words)
+        print(f"config 5 jitter, key fold_in(PRNGKey(0), {sample}) = "
+              f"({key[0]:#010x}, {key[1]:#010x}), {shape}: {ms:.3f} ms on "
+              f"the card; words {[hex(w) for w in first]} ... "
+              f"{[hex(w) for w in last]}, sum {total}", flush=True)
+        check(np.array_equal(words, cpu),
+              f"jitter key {sample}: the card's draw bit-equal to the CPU's")
+        check((first, last, total) == pins,
+              f"jitter key {sample}: the fingerprint of jax.random.uniform")
+        summary[f"jitter_{sample}_ms"] = ms
+
+    fn, args = entry(device=DEVICE)
+
+    def run():
+        out = fn(*args)
+        sync(torch)
+        return out
+
+    (color, hitpos, rays), launched = counted(LAUNCHES, reset_launches, run)
+    for k, v in launched.items():
+        totals[k] = totals.get(k, 0) + v
+    launched = {k: v for k, v in launched.items() if v}
+    _, ms = once_ms(torch, lambda: fn(*args))
+    cfn, cargs = entry(device="cpu")
+    ccolor, _, crays = cfn(*cargs)
+    print(f"entry(): fn(*args) on the card, {color.shape[1]} rays, "
+          f"{rays} traced (CPU twin {crays}), {ms:.2f} ms, launches "
+          f"{launched}", flush=True)
+    check(tuple(color.shape) == (3, 64 * 64)
+          and bool(torch.isfinite(color).all())
+          and bool(torch.isfinite(hitpos).all()), "entry(): output finite")
+    check(rays == crays, f"entry(): {rays} rays traced, the CPU twin's "
+          f"{crays}")
+    check(launched.get("torus_closest_hit_small", 0) > 0,
+          "entry(): K3 launched")
+    agree(torch, "entry() card vs CPU twin",
+          color.T.reshape(64, 64, 3).cpu(), ccolor.T.reshape(64, 64, 3))
+    summary["entry"] = dict(rays=rays, cpu_rays=crays, ms=ms,
+                            launches=launched)
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2528,6 +2679,13 @@ def main() -> int:
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     done("11. compaction")
 
+    phase("12. random streams and the graft entry")
+    before = dict(launches)
+    streams = phase_streams_entry(torch, launches)
+    print("launches, phase 12: " + json.dumps(
+        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    done("12. random streams and the graft entry")
+
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
@@ -2539,6 +2697,7 @@ def main() -> int:
                    "experiment": experiment, "front_doors": front_doors,
                    "gradients_multidevice": phase9,
                    "oracle": oracle_rows, "compaction": compaction_rows,
+                   "streams_entry": streams,
                    "phase_seconds": phase_s},
                   f, indent=1)
     keys = ("route", "source", "replaces", "launches", "max_abs_err", "ms",

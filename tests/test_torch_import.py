@@ -53,6 +53,11 @@ from toroidal_ray_tracing_tpu_torch.parallel.multihost import (
 from toroidal_ray_tracing_tpu_torch.utils import collectives
 from toroidal_ray_tracing_tpu_torch.experiments import grad_check
 from toroidal_ray_tracing_tpu_torch.oracle import render_oracle
+from toroidal_ray_tracing_tpu_torch.utils import prng
+from toroidal_ray_tracing_tpu_torch.entry import entry
+fn, args = entry(device="cpu")
+assert fn(*args)[2] > 0
+assert prng.uniform(prng.fold_in(prng.prng_key(0), 1), (4, 2)).shape == (4, 2)
 out = render_oracle(build_scene(procedural.scene_multi_torus(True)), cam, 8,
                     8, st, device="cpu")
 assert out["image"].shape == (8, 8, 3)

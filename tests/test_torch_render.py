@@ -167,6 +167,29 @@ def test_banded_and_spp_render():
     assert rmse(a["image"].numpy(), full["image"].numpy()) > 0
 
 
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+@pytest.mark.parametrize("tile_rows", [None, 5])
+def test_spp_render_matches_jax(tile_rows, backend):
+    """spp = 2 draws the JAX package's jitter: `render`'s sample s from
+    fold_in(PRNGKey(seed), s), its tile_rows bands' from the split chain.
+    Config 3's scene at 24x16, depth 3, seed 3, against the JAX `render`
+    (jnp): max |diff| < 5e-4 (tests/test_golden.py's bound), ray counts
+    exact."""
+    jscene = jax_build(jax_proc.scene_multi_torus(True))
+    jst = JaxSettings.default(max_depth=3)
+    eye, center = (8.0, 5.0, 8.0), (0.0, 0.5, 0.0)
+    kw = dict(spp=2, seed=3, tile_rows=tile_rows)
+    ref = jax_render(jscene, JaxPinhole(eye=eye, center=center), 24, 16,
+                     jst, **kw)
+    out = render(scene_from_numpy(jscene),
+                 PinholeCamera(eye=eye, center=center), 24, 16,
+                 settings_from_numpy(jst), backend=backend, device="cpu",
+                 **kw)
+    err = float(np.abs(out["image"].numpy() - np.asarray(ref["image"])).max())
+    assert err < 5e-4, f"{tile_rows}/{backend}: max diff {err}"
+    assert out["rays_traced"] == int(float(ref["rays_traced"]))
+
+
 def test_kernel_render_and_bands_compact(monkeypatch):
     """backend="kernel" compacts live spans in `render` and in each of its
     tile_rows bands: config 3's mirror scene at 96x96 (9,216 rays; bands

@@ -8,10 +8,13 @@ import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 from toroidal_ray_tracing_tpu.experiments import configs as jax_configs
+from toroidal_ray_tracing_tpu.scene.build import (
+    build_texture_atlas as jax_atlas)
 from toroidal_ray_tracing_tpu_torch import bench, render
 from toroidal_ray_tracing_tpu_torch.experiments import configs, microbench
 from toroidal_ray_tracing_tpu_torch.scene import procedural
@@ -106,6 +109,18 @@ def test_microbench_rows_on_cpu(capsys):
     assert len(names) == 8 and "texture sample (K4)" in names
     assert all(ms > 0 for _, ms in rows)
     assert '"rows_ms"' in capsys.readouterr().out
+
+
+def test_microbench_atlas_is_the_jax_packages():
+    """The texture rows sample the JAX microbench's atlas: the mip chain of
+    np.random.default_rng(5)'s 512x512x3 uniform draw, bit for bit."""
+    texels = np.random.default_rng(5).uniform(size=(512, 512, 3))
+    want = jax_atlas([texels.astype(np.float32)])
+    got = microbench.bench_atlas()
+    for field in ("offsets", "sizes", "n_levels", "data4q"):
+        a, b = getattr(got, field).numpy(), np.asarray(getattr(want, field))
+        assert a.shape == b.shape and a.itemsize == b.itemsize, field
+        np.testing.assert_array_equal(a.view(b.dtype), b, err_msg=field)
 
 
 def test_profiling(tmp_path):

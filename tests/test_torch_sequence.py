@@ -23,7 +23,9 @@ from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
                                                   build_scene, procedural,
                                                   scene_from_numpy,
                                                   settings_from_numpy)
+from toroidal_ray_tracing_tpu_torch.render import renderer
 from toroidal_ray_tracing_tpu_torch.trace import wavefront
+from toroidal_ray_tracing_tpu_torch.utils import prng
 
 torch.set_num_threads(2)
 
@@ -141,21 +143,40 @@ def test_compacted_batch_equals_per_frame(front, monkeypatch):
     assert batch["rays_traced"] == sum(o["rays_traced"] for o in frames)
 
 
+def _keyed_frame(scene, st, cam, spp, sample_key):
+    """One frame through render's own sample loop, sample s's jitter drawn
+    from sample_key(s)."""
+    scene, st, device = renderer._setup(scene, st, cam, RES, RES, "cpu")
+    (image, *_), _ = renderer._spp_frame(scene, st, cam, RES, RES, "torch",
+                                         spp, sample_key, device)
+    return image
+
+
 def test_spp_jitter_is_seeded(setup):
-    """spp > 1 averages seeded jittered samples after the centered one:
-    frame f of a batch equals render(spp, seed + f), the same seed gives
-    the same images, another seed other images."""
+    """spp > 1 averages jittered samples after the centered one, sample s
+    of frame f drawn from the JAX package's key fold_in(PRNGKey(seed),
+    f * spp + s): frame 0 equals render(spp, seed), frame f the frame whose
+    jitter comes from that key (not render(spp, seed + f)); the same seed
+    gives the same images, another seed other images."""
     _, _, scene, st, cams = setup
     kw = dict(spp=2, seed=3, device="cpu")
     a = render_frames(scene, cams[:2], RES, RES, st, **kw)
     b = render_sequence(scene, cams[:2], RES, RES, st, **kw)
+    root = prng.prng_key(3)
     for f in range(2):
-        one = render(scene, cams[f], RES, RES, st, spp=2, seed=3 + f,
-                     device="cpu")
-        torch.testing.assert_close(a["images"][f].permute(1, 2, 0),
-                                   one["image"], rtol=0, atol=0)
-        torch.testing.assert_close(b["images"][f], one["image"], rtol=0,
-                                   atol=0)
+        one = _keyed_frame(scene, st, cams[f], 2,
+                           lambda s, f=f: prng.fold_in(root, f * 2 + s))
+        if f == 0:
+            torch.testing.assert_close(
+                render(scene, cams[0], RES, RES, st, **kw)["image"], one,
+                rtol=0, atol=0)
+        else:
+            old_rule = render(scene, cams[f], RES, RES, st, spp=2,
+                              seed=3 + f, device="cpu")["image"]
+            assert float((old_rule - one).abs().max()) > 0
+        torch.testing.assert_close(a["images"][f].permute(1, 2, 0), one,
+                                   rtol=0, atol=0)
+        torch.testing.assert_close(b["images"][f], one, rtol=0, atol=0)
     again = render_sequence(scene, cams[:2], RES, RES, st, **kw)
     torch.testing.assert_close(again["images"], b["images"], rtol=0, atol=0)
     other = render_sequence(scene, cams[:2], RES, RES, st, spp=2, seed=4,
@@ -166,3 +187,36 @@ def test_spp_jitter_is_seeded(setup):
     with pytest.raises(ValueError):
         render_sequence(scene, cams[:2], RES, RES, st, spp=2,
                         frames_per_batch=2, device="cpu")
+
+
+FLAGSHIP_POSES = [((8.0 - f, 5.0, 8.0), (0.0, 0.5, 0.0)) for f in range(3)]
+
+
+@pytest.fixture(scope="module")
+def flagship():
+    jscene = jax_build(jax_proc.scene_multi_torus(True))
+    jst = JaxSettings.default(max_depth=3)
+    return jscene, jst, scene_from_numpy(jscene), settings_from_numpy(jst)
+
+
+@pytest.mark.parametrize("backend", ["torch", "kernel"])
+@pytest.mark.parametrize("front", ["render_sequence", "render_frames"])
+def test_spp_frames_match_jax(flagship, front, backend):
+    """spp = 2 over 3 cameras with seed 3 draws the JAX front doors'
+    jitter (fold_in(PRNGKey(seed), f * spp + s)): config 3's scene at
+    24x16, depth 3, max |diff| < 5e-4 (tests/test_golden.py's bound)
+    against the JAX package's jnp backend, ray counts exact."""
+    jscene, jst, scene, st = flagship
+    fns = {"render_sequence": (jax_sequence, render_sequence),
+           "render_frames": (jax_frames, render_frames)}
+    jfn, fn = fns[front]
+    jcams = [JaxPinhole(eye=e, center=c) for e, c in FLAGSHIP_POSES]
+    cams = [PinholeCamera(eye=e, center=c) for e, c in FLAGSHIP_POSES]
+    ref = jfn(jscene, jcams, 24, 16, jst, spp=2, seed=3)
+    out = fn(scene, cams, 24, 16, st, backend=backend, spp=2, seed=3,
+             device="cpu")
+    want = np.asarray(ref["images"])
+    assert tuple(out["images"].shape) == want.shape
+    err = float(np.abs(out["images"].numpy() - want).max())
+    assert err < 5e-4, f"{front}/{backend}: max diff {err}"
+    assert out["rays_traced"] == int(float(ref["rays_traced"]))

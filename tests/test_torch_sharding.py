@@ -14,12 +14,17 @@ killed and the test fails with their output.
 
 import dataclasses
 
+import jax
 import numpy as np
 import pytest
 import torch
 
+from toroidal_ray_tracing_tpu.cameras import PinholeCamera as JaxPinhole
+from toroidal_ray_tracing_tpu.parallel import make_mesh as jax_mesh
+from toroidal_ray_tracing_tpu.parallel import render_sharded as jax_sharded
 from toroidal_ray_tracing_tpu.parallel.sharding import (
     pad_scene_for_mesh as jax_pad)
+from toroidal_ray_tracing_tpu.scene import RenderSettings as JaxSettings
 from toroidal_ray_tracing_tpu.scene import build_scene as jax_build
 from toroidal_ray_tracing_tpu.scene import procedural as jax_proc
 from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera, generate_rays
@@ -48,6 +53,9 @@ CASES = ([f"cornellish@{a}x{b}" for a, b in MESHES]
             "textured@4x2", "textured@1x8",
             "tie@1x8", "tie@2x4", COMPACT_CASE])
 HYBRID = ["cornellish@hybrid1", "cornellish@hybrid2"]
+# config 3's scene at 24x16, depth 3, 2 spp of seed 3 on two rays ranks
+SPP_CASES = ["flagship@2x1/24x16+spp2+seed3",
+             "flagship@2x1:kernel/24x16+spp2+seed3"]
 
 
 # ---------------------------------------------------------------------------
@@ -184,6 +192,13 @@ def nodes2():
     return ranks, _by_case(ranks)
 
 
+@pytest.fixture(scope="module")
+def spp2():
+    ranks = dryrun.launch(2, ",".join(SPP_CASES), device="cpu",
+                          timeout=TIMEOUT)
+    return ranks, _by_case(ranks)
+
+
 def _same_as_render(rows, spec):
     for r, row in enumerate(rows):
         assert row["finite"], (spec, r)
@@ -302,6 +317,29 @@ def test_hybrid_multihost_mesh(nodes2, n_prims):
         assert row["band"] == [node * 8, 8] and row["band_rejects_uneven"]
         assert row["coord"][0] // (2 // n_prims) == node
     assert dryrun.failures(nodes2[0]) == []
+
+
+@pytest.mark.parametrize("spec", SPP_CASES)
+def test_spp_sharded_matches_jax(spp2, spec):
+    """render_sharded with spp = 2 on two gloo ranks draws the JAX
+    package's `render_sharded` jitter (NumPy's default_rng(seed), one draw
+    a sample): every rank's frame equals a single-process trace of the same
+    rays (RMSE < 1e-6) and the JAX package's sharded frame on a 2x1 CPU
+    mesh (jnp) within max |diff| 5e-4, ray counts exact."""
+    rows = spp2[1][spec]
+    _same_as_render(rows, spec)
+    ref = jax_sharded(jax_build(jax_proc.scene_multi_torus(analytic=True)),
+                      JaxPinhole(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0)),
+                      24, 16, JaxSettings.default(max_depth=3),
+                      mesh=jax_mesh(2, 1, devices=jax.devices()[:2]),
+                      backend="jnp", spp=2, seed=3)
+    want = np.asarray(ref["image"])
+    for r, row in enumerate(rows):
+        got = np.asarray(row["image"], np.float32).reshape(want.shape)
+        err = float(np.abs(got - want).max())
+        assert err < 5e-4, (spec, r, err)
+        assert row["rays"] == int(float(ref["rays_traced"])), (spec, r)
+    assert dryrun.failures(spp2[0]) == []
 
 
 def test_dryrun_multichip():

@@ -59,6 +59,17 @@ def time_calls(fn, k: int, device) -> float:
     return statistics.median(times) / k
 
 
+def bench_atlas():
+    """The texture rows' atlas: a 512x512 RGB texture of
+    `np.random.default_rng(5).uniform` draws and its mip chain, as the JAX
+    package's microbench builds it, so both packages' texture rows sample
+    the same texels."""
+    from toroidal_ray_tracing_tpu_torch.scene.build import build_texture_atlas
+
+    texels = np.random.default_rng(5).uniform(size=(512, 512, 3))
+    return build_texture_atlas([texels.astype(F32)])
+
+
 def run(scene_num: int = 3, rays: int = 2 * 1024 * 1024, k: int = 8,
         device="cuda"):
     """The rows for ladder scene `scene_num` on `rays` primary rays (cut to
@@ -69,7 +80,6 @@ def run(scene_num: int = 3, rays: int = 2 * 1024 * 1024, k: int = 8,
     from toroidal_ray_tracing_tpu_torch.ops import torus_kernel, tri_kernel
     from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
         closest_hit_kernel)
-    from toroidal_ray_tracing_tpu_torch.scene.build import build_texture_atlas
     from toroidal_ray_tracing_tpu_torch.scene.types import _to
     from toroidal_ray_tracing_tpu_torch.trace.intersect import geom_from_scene
     from toroidal_ray_tracing_tpu_torch.trace.shade import (_sample_texture,
@@ -129,10 +139,7 @@ def run(scene_num: int = 3, rays: int = 2 * 1024 * 1024, k: int = 8,
 
     # trilinear mipmapped sampling in isolation: n uvs and lods from the
     # rays against a random 512x512 texture's mip chain
-    gen = torch.Generator().manual_seed(5)
-    atlas = build_texture_atlas([torch.rand((512, 512, 3), generator=gen)
-                                 .numpy()])
-    tex = types.SimpleNamespace(textures=_to(atlas, device))
+    tex = types.SimpleNamespace(textures=_to(bench_atlas(), device))
     uv = torch.remainder(o[:2] * 0.137 + d[:2], 1.0)
     lod = d[0].abs() * 6.0
     tid = torch.zeros((n,), dtype=torch.int32, device=device)

@@ -18,8 +18,12 @@ checks them all and exits 1 on any failure. With no `--cases`, every
 mesh shape of the world renders the flagship scene (config 3's four
 tori) at 64x64.
 
-A case is `CELL@RxP[:BACKEND][/WxH]` (a ("rays", "prims") mesh of R x P
-ranks, backend torch by default, at WxH instead of `--res`),
+A case is `CELL@RxP[:BACKEND][/WxH][+sppN][+seedS]` (a ("rays",
+"prims") mesh of R x P ranks, backend torch by default, at WxH instead of
+`--res`; with N > 1 samples a pixel, the jittered ones drawn from
+`render_sharded`'s NumPy stream of seed S (0 by default), the frame is
+held to a single-process trace of the same rays, and each rank also
+reports its image),
 `CELL@hybridP` (`multihost.make_hybrid_mesh` with P prims ranks;
 `--nodes` poses the world as that many nodes through the launcher's
 variables), or `tie@RxP` (synthetic per-rank hits with equal t merged
@@ -72,10 +76,18 @@ def mesh_shapes(n: int) -> list:
 
 
 def parse_case(spec: str) -> dict:
-    cell, _, rest = spec.partition("@")
+    head, *samples = spec.split("+")
+    cell, _, rest = head.partition("@")
     rest, _, res = rest.partition("/")
     mesh, _, backend = rest.partition(":")
-    case = dict(spec=spec, cell=cell, backend=backend or "torch")
+    case = dict(spec=spec, cell=cell, backend=backend or "torch", spp=1,
+                seed=0)
+    for token in samples:
+        name = token.rstrip("0123456789")
+        if name not in ("spp", "seed") or name == token:
+            raise ValueError(f"case {spec!r}: {token!r} is not sppN or "
+                             "seedS")
+        case[name] = int(token[len(name):])
     if res:
         case["res"] = tuple(int(x) for x in res.split("x"))
     if mesh.startswith("hybrid"):
@@ -147,6 +159,33 @@ def _merge_timer(spent: list, device):
             setattr(m, name, fn)
 
 
+def _jittered_reference(scene, cam, w, h, st, case, device) -> dict:
+    """The single-process frame of `render_sharded`'s samples: the
+    centered rays, then one draw a sample of its NumPy stream, each
+    traced whole and row-major on one process."""
+    from toroidal_ray_tracing_tpu_torch.cameras import generate_rays
+    from toroidal_ray_tracing_tpu_torch.render.renderer import _setup
+    from toroidal_ray_tracing_tpu_torch.trace.wavefront import trace_rays
+
+    scene, st, device = _setup(scene, st, cam, w, h, device)
+    rng = np.random.default_rng(case["seed"])
+    acc = first = None
+    nrays = 0
+    for s in range(case["spp"]):
+        jitter = (None if s == 0 else torch.from_numpy(
+            rng.random((w * h, 2), dtype=np.float32)).to(device))
+        o, d = generate_rays(cam, w, h, st, jitter=jitter, device=device)
+        color, hitpos, nr = trace_rays(scene, st, o.T.contiguous(),
+                                       d.T.contiguous(),
+                                       backend=case["backend"])
+        acc = color if acc is None else acc + color
+        if s == 0:
+            first = hitpos
+        nrays += nr
+    return {"image": (acc / float(case["spp"])).T.reshape(h, w, 3),
+            "hit_position": first.T.reshape(h, w, 3), "rays_traced": nrays}
+
+
 def _render_case(case, mesh, res, device, cache) -> dict:
     from toroidal_ray_tracing_tpu_torch import render
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
@@ -160,9 +199,11 @@ def _render_case(case, mesh, res, device, cache) -> dict:
     segments = []
     reset_launches()
     t0 = time.perf_counter()
+    samples = dict(spp=case["spp"], seed=case["seed"])
     with record_segments(segments):
         out = render_sharded(scene, cam, w, h, st, mesh=mesh,
-                             backend=case["backend"], device=device)
+                             backend=case["backend"], device=device,
+                             **samples)
     if device.type == "cuda":
         torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
@@ -173,11 +214,15 @@ def _render_case(case, mesh, res, device, cache) -> dict:
     t0 = time.perf_counter()
     with _merge_timer(merge, device):
         render_sharded(scene, cam, w, h, st, mesh=mesh,
-                       backend=case["backend"], device=device)
+                       backend=case["backend"], device=device, **samples)
     if device.type == "cuda":
         torch.cuda.synchronize()
     again_ms = (time.perf_counter() - t0) * 1e3
-    ref = render(scene, cam, w, h, st, backend=case["backend"], device=device)
+    if case["spp"] > 1:
+        ref = _jittered_reference(scene, cam, w, h, st, case, device)
+    else:
+        ref = render(scene, cam, w, h, st, backend=case["backend"],
+                     device=device)
     img, rimg = out["image"], ref["image"]
     rows = mesh["rays"].size()
     n = w * h
@@ -196,6 +241,8 @@ def _render_case(case, mesh, res, device, cache) -> dict:
         live_spans=[s[1] for s in segments], ms=ms, again_ms=again_ms,
         merge_ms=merge[0], launches=launches,
         rays_rank_all_miss=all_miss)
+    if case["spp"] > 1:
+        result["image"] = img.flatten().tolist()
     if "hybrid" in case:
         local = int(os.environ.get("LOCAL_WORLD_SIZE", "1"))
         nodes = torch.distributed.get_world_size() // local

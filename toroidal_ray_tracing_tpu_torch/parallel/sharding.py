@@ -22,6 +22,7 @@ import dataclasses
 import math
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.distributed as dist
 from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
@@ -164,9 +165,12 @@ def render_sharded(scene: Scene, camera, width: int, height: int,
     The flat pixel batch splits evenly over the "rays" ranks (padded with
     zero-origin, unit-direction rays that are dropped at the end); each
     "prims" rank tests its slice of the padded scene. spp > 1 adds
-    jittered samples from a torch.Generator seeded with `seed`. device: as
-    `render` (the CUDA device unless device="cpu"). mesh: default, every
-    rank on "rays" (`make_mesh`).
+    jittered samples, each drawn on the host as the JAX package's
+    `render_sharded` draws it, `np.random.default_rng(seed).random((W*H,
+    2), float32)` (one generator, one draw a sample), and copied to the
+    device; the pad rays take none. device: as `render` (the CUDA device
+    unless device="cpu"). mesh: default, every rank on "rays"
+    (`make_mesh`).
 
     Returns `render`'s dict — image, hit_position, ray_origin, ray_dir,
     each (H, W, 3), the full frame on every rank — and rays_traced, the
@@ -191,12 +195,12 @@ def render_sharded(scene: Scene, camera, width: int, height: int,
     pad = n_local * n_rays - n
     mine = slice(r * n_local, (r + 1) * n_local)
     unit = 1.0 / math.sqrt(3.0)
-    gen = torch.Generator().manual_seed(seed)
+    rng = np.random.default_rng(seed)
     acc = first = None
     nrays = 0
     for s in range(max(spp, 1)):
-        jitter = (None if s == 0 else
-                  torch.rand((n, 2), generator=gen).to(device))
+        jitter = (None if s == 0 else torch.from_numpy(
+            rng.random((n, 2), dtype=np.float32)).to(device))
         o, d = generate_rays(camera, width, height, settings, jitter=jitter,
                              device=device)
         if s == 0:

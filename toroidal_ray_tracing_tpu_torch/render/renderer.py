@@ -25,6 +25,7 @@ from toroidal_ray_tracing_tpu_torch.cameras.pinhole import (block_unswizzle,
                                                             pick_block)
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
 from toroidal_ray_tracing_tpu_torch.trace.wavefront import trace_rays
+from toroidal_ray_tracing_tpu_torch.utils import prng
 
 F32 = np.float32
 INV_GAMMA = float(F32(1.0 / 2.2))
@@ -75,18 +76,24 @@ def _frame(scene, settings, camera, params, width, height, backend, jitter,
 
 
 def _render_banded(scene, camera, width, height, settings, backend, spp,
-                   gen, device, tile_rows):
+                   seed, device, tile_rows):
     """Row-band rendering: bounds the live ray state for very large frames.
-    Bands trace row-major slices of the full-frame rays."""
+    Bands trace row-major slices of the full-frame rays. Each jittered
+    sample steps the reference's split chain from PRNGKey(seed)
+    (`key, sub = split(key)`), so a banded spp > 1 image is another draw
+    than the unbanded one, as in the JAX package."""
     n = width * height
+    key = prng.prng_key(seed)
     bands = [(y0, min(tile_rows, height - y0))
              for y0 in range(0, height, tile_rows)]
     color = torch.zeros((n, 3), dtype=torch.float32, device=device)
     hitpos = orig0 = dir0 = None
     nrays = 0
     for s in range(max(spp, 1)):
-        jitter = (None if s == 0 else
-                  torch.rand((n, 2), generator=gen).to(device))
+        jitter = None
+        if s > 0:
+            key, sub = prng.split(key)
+            jitter = prng.uniform(sub, (n, 2), device)
         o_full, d_full = generate_rays(camera, width, height, settings,
                                        jitter=jitter, device=device)
         if s == 0:
@@ -136,18 +143,21 @@ def _setup(scene, settings, camera, width, height, device):
     return scene.to(device), settings.to(device), device
 
 
-def _spp_frame(scene, settings, camera, width, height, backend, spp, gen,
-               device):
+def _spp_frame(scene, settings, camera, width, height, backend, spp,
+               sample_key, device):
     """One frame's spp samples, the centered one first (it also provides
-    the hit/ray dumps); jitter from `gen`. Returns (image, hit_position,
-    ray_origin, ray_dir) as (H, W, 3) and the exact ray count."""
+    the hit/ray dumps); sample s >= 1 adds the jitter
+    `prng.uniform(sample_key(s), (n, 2))`, drawn on `device` and taken
+    by the rays in their trace order, as the JAX package's. Returns
+    (image, hit_position, ray_origin, ray_dir) as (H, W, 3) and the exact
+    ray count."""
     params = camera.ray_params(width, height, settings)
     n = width * height
     acc = dumps = None
     nrays = 0
     for s in range(max(spp, 1)):
         jitter = (None if s == 0 else
-                  torch.rand((n, 2), generator=gen).to(device))
+                  prng.uniform(sample_key(s), (n, 2), device))
         c, hp, o, d, nr = _frame(scene, settings, camera, params, width,
                                  height, backend, jitter, device)
         acc = c if acc is None else acc + c
@@ -166,8 +176,11 @@ def render(scene: Scene, camera, width: int, height: int,
     backend: "torch" (plain tensor ops) or "kernel" (the hand-written
          closest-hit and texture kernels on CUDA; their plain twins on the
          CPU).
-    spp: samples per pixel; > 1 adds jittered samples (a torch.Generator
-         seeded with `seed`) after the centered one.
+    spp: samples per pixel; > 1 adds jittered samples after the centered
+         one, sample s drawn as the JAX package's `render` draws it:
+         `jax.random.uniform(fold_in(PRNGKey(seed), s), (W*H, 2))`
+         (`utils.prng`), on `device`. With tile_rows, the samples step
+         the reference's banded split chain instead.
     tile_rows: render in horizontal bands of this many rows.
     device: where to render, the CUDA device by default. Without a GPU
          that raises — there is no CPU fallback; pass device="cpu" for the
@@ -178,12 +191,13 @@ def render(scene: Scene, camera, width: int, height: int,
     """
     scene, settings, device = _setup(scene, settings, camera, width, height,
                                      device)
-    gen = torch.Generator().manual_seed(seed)
     if tile_rows is not None and tile_rows < height:
         return _render_banded(scene, camera, width, height, settings,
-                              backend, spp, gen, device, tile_rows)
+                              backend, spp, seed, device, tile_rows)
+    root = prng.prng_key(seed)
     (image, hitpos, origins, dirs), nrays = _spp_frame(
-        scene, settings, camera, width, height, backend, spp, gen, device)
+        scene, settings, camera, width, height, backend, spp,
+        lambda s: prng.fold_in(root, s), device)
     return {
         "image": image,
         "hit_position": hitpos,
@@ -218,18 +232,20 @@ def _frames(scene, cameras, width, height, settings, backend, spp, seed,
     """Yield (frame index, (image, hit_position, ray_origin, ray_dir) as
     (H, W, 3) or (image,) without dumps, ray count) over the cameras.
 
-    With spp > 1, frame f's jitter comes from a torch.Generator seeded with
-    seed + f, so frame f equals render(cameras[f], spp=spp, seed=seed + f).
+    With spp > 1, sample s of frame f draws its jitter from the key
+    fold_in(PRNGKey(seed), f * spp + s), as the JAX package's sequence
+    front doors do: frame 0 equals render(cameras[0], spp=spp, seed=seed).
     A group of frames (frames_per_batch) is traced as one wavefront batch:
     their rays concatenate and every per-ray result is the frame's own."""
     scene, settings, device = _setup(scene, settings, cameras[0], width,
                                      height, device)
     group = _frame_groups(len(cameras), width, height, spp, frames_per_batch)
     if group == 1:
+        root = prng.prng_key(seed)
         for f, cam in enumerate(cameras):
-            gen = torch.Generator().manual_seed(seed + f)
-            outs, nrays = _spp_frame(scene, settings, cam, width, height,
-                                     backend, spp, gen, device)
+            outs, nrays = _spp_frame(
+                scene, settings, cam, width, height, backend, spp,
+                lambda s, f=f: prng.fold_in(root, f * spp + s), device)
             yield f, outs if dumps else outs[:1], nrays
         return
     n = width * height
@@ -262,7 +278,8 @@ def render_sequence(scene: Scene, cameras, width: int, height: int,
     frames_per_batch: trace this many frames' rays as one wavefront batch
          (None = enough frames to fill ~2M-ray batches, dividing the frame
          count; 1 disables; needs spp == 1).
-    spp / seed: as `render`; frame f's jitter is seeded with seed + f.
+    spp / seed: as `render`, but sample s of frame f draws from
+         fold_in(PRNGKey(seed), f * spp + s) (the JAX package's rule).
     device: as `render` (the CUDA device unless device="cpu").
 
     Returns {"images": (F, H, W, 3) linear color (if keep_images),

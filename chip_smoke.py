@@ -31,7 +31,11 @@ Phases, each printed on its own lines with its wall seconds:
      of the frame and as many rays near the mesh), each bound from the
      kernel's counters; K5's and K6's wrappers against their bare
      launches, beside the per-scene table preparation they no longer
-     repeat, and a render of config 8 from its host scene;
+     repeat, and a render of config 8 from its host scene; the threefry
+     jitter kernel (csrc/threefry.cu) bit-equal to its twin
+     `utils.prng.uniform` at config 5's (3840*2160, 2) and at n and (n, 2)
+     for n in 1, 3, 4099, with its wrapper, bare-launch, device (in a CUDA
+     graph) and twin times and its int32-operation bound;
   4. the main path, each path run with the launch counts set to 0 just
      before it and read just after: `render(..., backend="kernel",
      device="cuda")`, which compacts live rays (`trace.wavefront`), at
@@ -42,7 +46,11 @@ Phases, each printed on its own lines with its wall seconds:
      must be bit-equal to K5's), plus config 3 at 512x512 (the K3 route);
      then `render_frames` over config 7's 4-camera orbit and
      `render_sequence` over config 8's 2-camera orbit at 1080p, each frame
-     equal to a per-frame `render` with exact ray counts. Each scene also
+     equal to a per-frame `render` with exact ray counts; config 5's frame
+     0 at 3840x2160, 2 spp, through `render` and its banded path
+     (tile_rows=540): one threefry launch each, K2 and K3, the image
+     bit-equal to the same render with the twin's draw, and one profiled
+     frame (device busy, idle share, the kernels' ms). Each scene also
      renders on both backends, which must agree (480x270; config 8 at
      128x72, where the torch backend's dense 1.18M-triangle query is
      affordable);
@@ -67,7 +75,8 @@ Phases, each printed on its own lines with its wall seconds:
      to 0 just before it and read just after: the bench headline (config
      3's 16-frame sequence, with mfu and cull_speedup), `run_scenario` of
      every ladder config in front-door mode (2 frames; config 5 its 8, its
-     jitter from `utils.prng` on the card, launching K2 and K3; the ray
+     jitter drawn by the threefry kernel, one launch a frame of each of
+     its 4 calls, launching K2 and K3; the ray
      counts of the cells phase 4 renders equal phase 4's),
      `raster_render` of configs 6 and 7 at 1920x1080 (timed) and at
      240x135 against the CPU, a 4-value light-intensity sweep of config 3
@@ -117,10 +126,12 @@ Phases, each printed on its own lines with its wall seconds:
          960x540 (cut from 3840x2160): K3, 2e-2; the reference is the mean
          of two oracle passes, the centered rays and, through
          `JitteredCamera`, the rays of render's jittered sample (the same
-         `utils.prng.uniform` draw, key fold_in(PRNGKey(0), 1)). Each cell
+         draw, key fold_in(PRNGKey(0), 1), by the twin `utils.prng.uniform`,
+         so the reference does not rest on the kernel; the render's draw
+         must launch the threefry kernel). Each cell
      prints the oracle's seconds, the render's ms, both RMSEs, the pixels
      off by > 1e-3 and its launches; between them the cells launch all
-     six kernels (config 3 at 1080p both K2 and K3, as in phase 4);
+     seven kernels (config 3 at 1080p both K2 and K3, as in phase 4);
  11. compaction: the mirror cells (configs 3, 6, 7 and the capture at
      1920x1080, from phase 4's scenes), the experiment's depth-10
      capture frame (phase 7's OBJ scene, rho 4) and config 8, each
@@ -135,10 +146,12 @@ Phases, each printed on its own lines with its wall seconds:
      by phase 4's backend rule, with K3 launched only compacted;
  12. random streams and the graft entry: config 5's jitter for sample 1
      of frames 0 and 7 (keys fold_in(PRNGKey(0), 1) and fold_in(PRNGKey(0),
-     15), shape (3840*2160, 2)) drawn on the card by `utils.prng.uniform`,
-     bit-equal to the same function on the CPU and to the fingerprints of
-     `jax.random.uniform`'s draw pinned below (JITTER_PINS), with the
-     draw's ms (CUDA events, median of 10); then `entry()`'s `fn(*args)`
+     15), shape (3840*2160, 2)) drawn on the card by the threefry kernel
+     (`ops.threefry_kernel.uniform`), bit-equal to its twin
+     `utils.prng.uniform` on the card and on the CPU and to the
+     fingerprints of `jax.random.uniform`'s draw pinned below
+     (JITTER_PINS), with the kernel's and the twin's ms (CUDA events,
+     median of 10); then `entry()`'s `fn(*args)`
      (config 3's scene, 64x64 rays, depth 3, K3) on the card, its launches
      counted (launch counts set to 0 just before it and read just after):
      finite, its ray count equal to the CPU twin's, its image within
@@ -190,6 +203,7 @@ JITTER_PINS = {
 SLAB_OPS = 26             # (ray, box) slab test, csrc/common.cuh
 WOOP_OPS = 50             # (ray, triangle) Woop test, csrc/common.cuh
 QUARTIC_OPS = 600         # (ray, torus) quartic test, csrc/torus_hit.cu
+THREEFRY_INT_OPS = 75     # int32 operations a drawn float, csrc/threefry.cu
 KERNEL_DIR = "toroidal_ray_tracing_tpu_torch/csrc"
 JAX_OPS = "toroidal_ray_tracing_tpu/ops"
 
@@ -244,15 +258,16 @@ def once_ms(torch, fn):
     return out, (time.perf_counter() - t0) * 1e3
 
 
-def bound(nbytes: float, ops: float):
+def bound(nbytes: float, ops: float, int_ops: float = 0.0):
     """(bound_ms, bound_by): the larger of bytes / HBM rate and operations
-    / f32 rate, the H100 SXM data-sheet peaks at its 700 W limit that
-    `utils/roofline.py` keeps."""
+    / their rate (f32 `ops`, int32 `int_ops`), the H100 SXM peaks at its
+    700 W limit that `utils/roofline.py` keeps."""
     from toroidal_ray_tracing_tpu_torch.utils.roofline import (PEAK_BYTES,
-                                                               PEAK_F32)
+                                                               PEAK_F32,
+                                                               PEAK_INT32)
 
     tb = nbytes / PEAK_BYTES * 1e3
-    to = ops / PEAK_F32 * 1e3
+    to = (ops / PEAK_F32 + int_ops / PEAK_INT32) * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
 
 
@@ -881,6 +896,59 @@ def phase_kernels(torch, results):
     # --- K5 / K6: config 8, 1.18M triangles ---------------------------------
     phase_stream(torch, results, rays, light)
 
+    # --- the jitter draw: config 5's shape ------------------------------
+    threefry_row(torch, results)
+
+
+def threefry_row(torch, results):
+    """The threefry kernel against its twin `utils.prng.uniform`, bit for
+    bit (float words as uint32), at config 5's (3840*2160, 2) and at (n,)
+    and (n, 2) for n in 1, 3, 4099 (tails of 1-3 elements); times of the
+    wrapper, the bare launch, its device time in a CUDA graph and the twin
+    on the card; the bound from the 4 bytes written and THREEFRY_INT_OPS
+    int32 operations (at the 128 lanes a clock the SM issues) plus one f32
+    subtract a float. No PyTorch call computes threefry-2x32 (`torch.rand`
+    is Philox), so library_ms is null."""
+    from toroidal_ray_tracing_tpu_torch.experiments.k3_turns import graph_ms
+    from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel as tfk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import launch
+    from toroidal_ray_tracing_tpu_torch.utils import prng
+
+    key = prng.fold_in(prng.prng_key(0), 1)
+    shape = (JITTER_PIXELS, 2)
+    worst = 0.0
+    for shp in ((1,), (3,), (4099,), (1, 2), (3, 2), (4099, 2), shape):
+        got = tfk.uniform(key, shp, DEVICE)
+        ref = prng.uniform(key, shp, DEVICE)
+        eq = torch.equal(got.view(torch.int32), ref.view(torch.int32))
+        err = float((got - ref).abs().max())
+        worst = max(worst, err)
+        check(eq and got.shape == ref.shape,
+              f"threefry_uniform {shp} bit-equal to its twin (max abs "
+              f"diff {err:.1e})")
+    n = JITTER_PIXELS * 2
+    out = torch.empty(shape, device=DEVICE)
+
+    def run():
+        launch("trt_threefry_uniform", out, n, *key)
+
+    wrapped = cuda_ms(lambda: tfk.uniform(key, shape, DEVICE), reps=10)
+    bare = cuda_ms(run, reps=10)
+    device = graph_ms(run)
+    plain = cuda_ms(lambda: prng.uniform(key, shape, DEVICE), reps=10)
+    b, by = bound(n * 4, n, n * THREEFRY_INT_OPS)
+    print(f"threefry_uniform {shape}: wrapper {wrapped:.4f} ms, bare "
+          f"launch {bare:.4f} ms ({device:.4f} ms on the device, in a "
+          f"graph) vs plain {plain:.3f} ms; bound {b:.4f} ms ({by}: "
+          f"{n * 4 / 1e6:.1f} MB, {n * THREEFRY_INT_OPS / 1e9:.3f}e9 int32 "
+          f"operations); device / bound {device / b:.2f}", flush=True)
+    results["threefry_uniform"] = dict(
+        source=f"{KERNEL_DIR}/threefry.cu",
+        replaces="toroidal_ray_tracing_tpu/render/renderer.py:53",
+        max_abs_err=worst, ms=wrapped, bare_ms=bare, device_ms=device,
+        plain_ms=plain, library_ms=None, bound_ms=b, bound_by=by,
+        elements=n)
+
 
 def stream_bound(torch, n, work, st, attr_tables, t, idx, out_rows):
     """bound_ms of a K5/K6 call on n rays from the kernel's own counters
@@ -1280,6 +1348,7 @@ def phase_main_path(torch, totals):
               f"{worst:.2e}), rays {out['rays_traced']} == {total}")
         stats.append(dict(cell=f"{front}_{sc.name}", frames=n_frames,
                           ms=ms, rays=out["rays_traced"], launches=launched))
+    stats.extend(config5_renders(torch, counted, add))
     for k, v in totals.items():
         check(v > 0, f"main path launched {k} ({v} times)")
 
@@ -1302,6 +1371,65 @@ def phase_main_path(torch, totals):
         write_ppm(os.path.join(OUT_DIR, f"chip_smoke_{name}.ppm"),
                   tonemap(a["image"]).cpu().numpy())
     return stats, cells
+
+
+def config5_renders(torch, counted, add):
+    """Config 5's frame 0 at 3840x2160, 2 spp, through `render` and through
+    its banded path (tile_rows=540), each counted: sample 1's jitter is one
+    threefry kernel launch, and the image is bit-equal to the same render
+    with the jitter drawn by the kernel's twin on the card. Then one
+    `render` frame under torch.profiler: device busy, idle share, CUDA
+    events and the kernels' ms."""
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel as tfk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.utils import prng
+
+    sc, scene = config(5)
+    cam, st = sc.camera_at(0), sc.settings()
+    rows = []
+    for tile_rows in (None, 540):
+        def run():
+            return once_ms(torch, lambda: render(
+                scene, cam, sc.width, sc.height, st, backend="kernel",
+                spp=sc.spp, tile_rows=tile_rows, device=DEVICE))
+
+        run()                                          # warm-up
+        (out, ms), launched = counted(LAUNCHES, reset_launches, run)
+        add(launched)
+        real = tfk.uniform
+        tfk.uniform = prng.uniform
+        try:
+            twin, _ = run()
+        finally:
+            tfk.uniform = real
+        name = f"render {sc.name}" + (f" tile_rows={tile_rows}"
+                                      if tile_rows else "")
+        print(f"{name} {sc.width}x{sc.height}, {sc.spp} spp: {ms:.1f} ms, "
+              f"{out['rays_traced']} rays, launches {launched}", flush=True)
+        check(launched["threefry_uniform"] == sc.spp - 1
+              and all(launched[k] > 0 for k in ("torus_closest_hit",
+                                                "torus_closest_hit_small")),
+              f"{name}: {sc.spp - 1} threefry_uniform launch, K2 and K3 "
+              "launched")
+        check(bool(torch.isfinite(out["image"]).all())
+              and torch.equal(out["image"], twin["image"])
+              and out["rays_traced"] == twin["rays_traced"],
+              f"{name}: finite, bit-equal to the twin-drawn render")
+        rows.append(dict(cell=name.replace(" ", "_"), ms=ms, spp=sc.spp,
+                         rays=out["rays_traced"], launches=launched))
+    busy, events, mine = profile_frame(torch, lambda: render(
+        scene, cam, sc.width, sc.height, st, backend="kernel", spp=sc.spp,
+        device=DEVICE))
+    ms = rows[0]["ms"]
+    idle = None if busy is None else max(0.0, 1.0 - busy / ms)
+    print(f"render {sc.name} profiled: device busy {busy} ms of {ms:.1f}, "
+          f"idle share {idle}, {events} CUDA events, our kernels (ms, "
+          f"calls) {mine}", flush=True)
+    rows[0].update(busy_ms=busy, idle_share=idle, cuda_events=events,
+                   kernels_ms=mine)
+    return rows
 
 
 def phase_goldens(torch):
@@ -1843,9 +1971,14 @@ def phase_front_doors(torch, totals, stats):
               and bool(torch.isfinite(imgs).all()) and launched,
               f"run_scenario({num}): frames finite, kernels launched")
         if sc.spp > 1:
+            draws = (1 + configs.WINDOWS) * st["frames"] * (sc.spp - 1)
             check(all(launched.get(k, 0) > 0 for k in (
-                "torus_closest_hit", "torus_closest_hit_small")),
-                  f"run_scenario({num}), {sc.spp} spp: K2 and K3 launched")
+                "torus_closest_hit", "torus_closest_hit_small"))
+                  and launched.get("threefry_uniform", 0) == draws,
+                  f"run_scenario({num}), {sc.spp} spp: K2 and K3 launched, "
+                  f"threefry_uniform {launched.get('threefry_uniform', 0)} "
+                  f"times ({sc.spp - 1} a frame, {st['frames']} frames, "
+                  f"{1 + configs.WINDOWS} calls)")
         if sc.name in phase4:
             check(st["rays_per_frame"] == phase4[sc.name],
                   f"run_scenario({num}): {st['rays_per_frame']:.0f} rays a "
@@ -2225,7 +2358,8 @@ def oracle_cells():
     for num, res, needs, bounds in (
             (1, (256, 256), ["torus_closest_hit_small"], default),
             (2, (512, 512), ["torus_closest_hit_small"], contact),
-            (5, JITTER_CHECK_RES, ["torus_closest_hit_small"], contact)):
+            (5, JITTER_CHECK_RES, ["torus_closest_hit_small",
+                                   "threefry_uniform"], contact)):
         sc = SCENARIOS[num]
         cells.append((sc.name, sc.name, sc.build, sc.camera_at(0),
                       sc.settings(), *res, needs, 0, bounds, sc.spp))
@@ -2364,7 +2498,8 @@ def phase_oracle(torch, totals):
           "config 8 at 128x72 through K6 bit-equal to the K5 frame")
     for k in ("tri_closest_hit", "torus_closest_hit",
               "torus_closest_hit_small", "quad_gather",
-              "tri_closest_hit_stream", "tri_closest_hit_stream_grouped"):
+              "tri_closest_hit_stream", "tri_closest_hit_stream_grouped",
+              "threefry_uniform"):
         check(launched_all.get(k, 0) > 0,
               f"phase 10 launched {k} ({launched_all.get(k, 0)} times)")
     return rows
@@ -2530,28 +2665,37 @@ def phase_streams_entry(torch, totals):
     import numpy as np
 
     from toroidal_ray_tracing_tpu_torch.entry import entry
+    from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel as tfk
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
         LAUNCHES, reset_launches)
     from toroidal_ray_tracing_tpu_torch.utils import prng
+
+    def words(a):
+        return a.cpu().numpy().view(np.uint32).ravel()
 
     summary: dict = {}
     shape = (JITTER_PIXELS, 2)
     for sample, pins in sorted(JITTER_PINS.items()):
         key = prng.fold_in(prng.prng_key(0), sample)
-        ms = cuda_ms(lambda: prng.uniform(key, shape, DEVICE), reps=10)
-        words = prng.uniform(key, shape, DEVICE).cpu().numpy()
-        words = words.view(np.uint32).ravel()
-        cpu = prng.uniform(key, shape, "cpu").numpy().view(np.uint32).ravel()
-        first, last, total = jitter_fingerprint(words)
+        ms = cuda_ms(lambda: tfk.uniform(key, shape, DEVICE), reps=10)
+        twin_ms = cuda_ms(lambda: prng.uniform(key, shape, DEVICE), reps=10)
+        kern = words(tfk.uniform(key, shape, DEVICE))
+        twin = words(prng.uniform(key, shape, DEVICE))
+        cpu = words(prng.uniform(key, shape, "cpu"))
+        first, last, total = jitter_fingerprint(kern)
         print(f"config 5 jitter, key fold_in(PRNGKey(0), {sample}) = "
-              f"({key[0]:#010x}, {key[1]:#010x}), {shape}: {ms:.3f} ms on "
-              f"the card; words {[hex(w) for w in first]} ... "
-              f"{[hex(w) for w in last]}, sum {total}", flush=True)
-        check(np.array_equal(words, cpu),
-              f"jitter key {sample}: the card's draw bit-equal to the CPU's")
+              f"({key[0]:#010x}, {key[1]:#010x}), {shape}: threefry kernel "
+              f"{ms:.4f} ms, its twin {twin_ms:.3f} ms on the card; words "
+              f"{[hex(w) for w in first]} ... {[hex(w) for w in last]}, sum "
+              f"{total}", flush=True)
+        check(np.array_equal(kern, twin) and np.array_equal(twin, cpu),
+              f"jitter key {sample}: the kernel's draw bit-equal to the "
+              "twin's on the card and on the CPU")
         check((first, last, total) == pins,
-              f"jitter key {sample}: the fingerprint of jax.random.uniform")
+              f"jitter key {sample}: the kernel's draw has the fingerprint "
+              "of jax.random.uniform")
         summary[f"jitter_{sample}_ms"] = ms
+        summary[f"jitter_{sample}_twin_ms"] = twin_ms
 
     fn, args = entry(device=DEVICE)
 

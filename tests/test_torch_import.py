@@ -58,6 +58,8 @@ from toroidal_ray_tracing_tpu_torch.entry import entry
 fn, args = entry(device="cpu")
 assert fn(*args)[2] > 0
 assert prng.uniform(prng.fold_in(prng.prng_key(0), 1), (4, 2)).shape == (4, 2)
+from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel
+assert threefry_kernel.uniform((0, 1), (4, 2), "cpu").shape == (4, 2)
 out = render_oracle(build_scene(procedural.scene_multi_torus(True)), cam, 8,
                     8, st, device="cpu")
 assert out["image"].shape == (8, 8, 3)

@@ -10,11 +10,12 @@ gitignored directory, or this one) and no profiler in it. It runs
 `run_scenario(5, backend="kernel")` (3840x2160, 2 spp, 8 fly-through
 frames through `render_frames`; one warm-up call and 3 timed windows) and
 counts the launches of each kernel a frame. It also times one jittered
-sample's draw as that checkout makes it: `utils.prng.uniform` on the card
-where the checkout has `utils.prng`, else a host `torch.rand` with a
-seeded generator and its copy to the card; host clock to a
-`torch.cuda.synchronize()`, median of 10 after a warm-up. Pair p runs the
-parent first when p is even and this checkout first when p is odd.
+sample's draw as that checkout makes it: the threefry kernel
+(`ops.threefry_kernel.uniform`) where the checkout has it, else
+`utils.prng.uniform` on the card where it has `utils.prng`, else a host
+`torch.rand` with a seeded generator and its copy to the card; host clock
+to a `torch.cuda.synchronize()`, median of 10 after a warm-up. Pair p runs
+the parent first when p is even and this checkout first when p is odd.
 
 Prints the card's name and power limit, one line a turn, then for each
 side ms/frame and Mrays/s (median and quartiles over the turns' median
@@ -54,8 +55,14 @@ except ImportError:
     draw = lambda: torch.rand(shape, generator=gen).to("cuda")
 else:
     key = prng.fold_in(prng.prng_key(0), 1)
-    how = "utils.prng.uniform on the card"
-    draw = lambda: prng.uniform(key, shape, "cuda")
+    try:
+        from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel
+    except ImportError:
+        how = "utils.prng.uniform on the card"
+        draw = lambda: prng.uniform(key, shape, "cuda")
+    else:
+        how = "ops.threefry_kernel.uniform (the CUDA kernel)"
+        draw = lambda: threefry_kernel.uniform(key, shape, "cuda")
 times = []
 for i in range(DRAWS + 1):
     torch.cuda.synchronize()

@@ -46,7 +46,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"tri_closest_hit": 0, "torus_closest_hit": 0,
             "torus_closest_hit_small": 0, "quad_gather": 0,
             "tri_closest_hit_stream": 0,
-            "tri_closest_hit_stream_grouped": 0}
+            "tri_closest_hit_stream_grouped": 0, "threefry_uniform": 0}
 
 
 def reset_launches() -> None:
@@ -278,6 +278,9 @@ _SIGNATURES = {
                                            _P, _I, _I, _P, _P, _P, _I, _I,
                                            _P, _P, _P, _I, _P, _P, _P, _P,
                                            _P, _P, _P],
+    # out, n, k1, k2, stream
+    "trt_threefry_uniform": [_P, ctypes.c_int64, ctypes.c_uint32,
+                             ctypes.c_uint32, _P],
 }
 
 

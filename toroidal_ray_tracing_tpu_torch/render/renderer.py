@@ -23,6 +23,7 @@ import torch
 from toroidal_ray_tracing_tpu_torch.cameras import generate_rays
 from toroidal_ray_tracing_tpu_torch.cameras.pinhole import (block_unswizzle,
                                                             pick_block)
+from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
 from toroidal_ray_tracing_tpu_torch.trace.wavefront import trace_rays
 from toroidal_ray_tracing_tpu_torch.utils import prng
@@ -93,7 +94,7 @@ def _render_banded(scene, camera, width, height, settings, backend, spp,
         jitter = None
         if s > 0:
             key, sub = prng.split(key)
-            jitter = prng.uniform(sub, (n, 2), device)
+            jitter = threefry_kernel.uniform(sub, (n, 2), device)
         o_full, d_full = generate_rays(camera, width, height, settings,
                                        jitter=jitter, device=device)
         if s == 0:
@@ -147,8 +148,9 @@ def _spp_frame(scene, settings, camera, width, height, backend, spp,
                sample_key, device):
     """One frame's spp samples, the centered one first (it also provides
     the hit/ray dumps); sample s >= 1 adds the jitter
-    `prng.uniform(sample_key(s), (n, 2))`, drawn on `device` and taken
-    by the rays in their trace order, as the JAX package's. Returns
+    `prng.uniform(sample_key(s), (n, 2))`, drawn on `device` (the threefry
+    kernel on the card, `ops.threefry_kernel`) and taken by the rays in
+    their trace order, as the JAX package's. Returns
     (image, hit_position, ray_origin, ray_dir) as (H, W, 3) and the exact
     ray count."""
     params = camera.ray_params(width, height, settings)
@@ -157,7 +159,7 @@ def _spp_frame(scene, settings, camera, width, height, backend, spp,
     nrays = 0
     for s in range(max(spp, 1)):
         jitter = (None if s == 0 else
-                  prng.uniform(sample_key(s), (n, 2), device))
+                  threefry_kernel.uniform(sample_key(s), (n, 2), device))
         c, hp, o, d, nr = _frame(scene, settings, camera, params, width,
                                  height, backend, jitter, device)
         acc = c if acc is None else acc + c
@@ -179,7 +181,8 @@ def render(scene: Scene, camera, width: int, height: int,
     spp: samples per pixel; > 1 adds jittered samples after the centered
          one, sample s drawn as the JAX package's `render` draws it:
          `jax.random.uniform(fold_in(PRNGKey(seed), s), (W*H, 2))`
-         (`utils.prng`), on `device`. With tile_rows, the samples step
+         (`utils.prng`), on `device` (on the card by the threefry kernel,
+         `ops.threefry_kernel`). With tile_rows, the samples step
          the reference's banded split chain instead.
     tile_rows: render in horizontal bands of this many rows.
     device: where to render, the CUDA device by default. Without a GPU

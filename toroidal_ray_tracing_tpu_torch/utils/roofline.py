@@ -37,6 +37,12 @@ from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import _tables
 
 PEAK_F32 = 67e12          # f32 operations / s
 PEAK_BYTES = 3.35e12      # HBM bytes / s
+# 32-bit integer operations / s: 132 SMs x 128 lanes x 1.98 GHz boost,
+# what the SM's four schedulers issue a clock (its 64 int32 lanes, and
+# integer adds issued to the f32 lanes as IMAD). The data sheet lists no
+# int32 rate; the 64 int32 lanes alone are no bound: csrc/threefry.cu ran
+# in 0.69x of that figure on an H100.
+PEAK_INT32 = 132 * 128 * 1.98e9
 
 TRI_FLOPS_PER_PAIR = 6 * 8 + 25      # Woop dots + hit test/argmin
 TORUS_FLOPS_PER_PAIR = 25 + 600      # slab refine + quartic solve

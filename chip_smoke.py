@@ -155,7 +155,33 @@ Phases, each printed on its own lines with its wall seconds:
      (config 3's scene, 64x64 rays, depth 3, K3) on the card, its launches
      counted (launch counts set to 0 just before it and read just after):
      finite, its ray count equal to the CPU twin's, its image within
-     phase 4's backend rule of the CPU twin's.
+     phase 4's backend rule of the CPU twin's;
+ 13. the segment kernels against their twins: S1 (`ops.loose_kernel`,
+     csrc/loose_hit.cu: closest and any-hit), S2 and S3
+     (`ops.shade_kernel`, csrc/shade.cu) on the arguments the main path
+     gave them in the first whole-frame segment of config 6 (1920x1080,
+     2,073,600 rays), config 5 (3840x2160, 8,294,400 rays) and config 7
+     (textured), recorded from a `render`: the lanes whose every output
+     is bit-equal, the lanes parted only where a libm function (powf,
+     log2f, sqrtf) rounds otherwise, within 1e-6 of max(1, |value|), and
+     no lane with a discrete output off; S3's ray count, live spans and
+     their count equal. Configs 6 and 5 also time each kernel: the
+     wrapper, the bare launch, its device time (20 bare launches in a
+     CUDA graph; S3, in place, less the restore of its state each run
+     needs) and the twin, beside the byte bound (each input read once and
+     each output written once, as this run's data needs them: a miss
+     moves its flags and tmax, a lane its position rows only where it
+     goes on).
+
+Phases 4 and 7-11 also check every kernel-backend segment that a counted
+path traces on the card (`SegmentGuard`): from its closest-hit query to
+its S3, it launched the shading kernels S2 and S3 once each and the
+loose hoist S1 twice where it tests a scene's loose rows (its closest
+and any-hit queries), and nothing called `trace.shade.shade` or a
+segment kernel's twin; each phase traces at least one. Phase 9's two
+gloo ranks report their segments and launches: S2 and S3 once a
+segment, S1 twice on a loose scene's whole table (one prims shard), none
+on a prims slice.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -456,7 +482,7 @@ def phase_kernels(torch, results):
         launch, round_up, tree_rank, visit_order)
     from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import _material_rows
     from toroidal_ray_tracing_tpu_torch.scene import RenderSettings
-    from toroidal_ray_tracing_tpu_torch.trace import shade
+    from toroidal_ray_tracing_tpu_torch.trace import wavefront
 
     dev = torch.device(DEVICE)
     st = RenderSettings.default(max_depth=3)
@@ -809,7 +835,7 @@ def phase_kernels(torch, results):
     # path makes them
     sc7, s7 = config(7)
     k3_calls, k4_calls = [], []
-    real_k3, real_k4 = tk.torus_closest_hit_small, shade.quad_gather
+    real_k3, real_k4 = tk.torus_closest_hit_small, wavefront.quad_gather
 
     def record_k3(o_, d_, tm, tables, want_attrs=False, occlusion=False):
         k3_calls.append((tables, o_.clone(), d_.clone(), tm.clone(),
@@ -821,12 +847,13 @@ def phase_kernels(torch, results):
         k4_calls.append(tuple(a.clone() for a in args))
         return real_k4(*args)
 
-    tk.torus_closest_hit_small, shade.quad_gather = record_k3, record_k4
+    tk.torus_closest_hit_small, wavefront.quad_gather = (record_k3,
+                                                         record_k4)
     try:
         render(s7, sc7.camera, *FULL, sc7.settings(), backend="kernel",
                device=DEVICE)
     finally:
-        tk.torus_closest_hit_small, shade.quad_gather = real_k3, real_k4
+        tk.torus_closest_hit_small, wavefront.quad_gather = real_k3, real_k4
     print(f"K3 on config 7's 1080p calls ({len(k3_calls)} per frame, K = "
           f"{k3_calls[0][0].K})", flush=True)
     k7 = {}
@@ -1250,9 +1277,14 @@ def main_cells():
 
 def counted(LAUNCHES, reset, fn):
     """Run one path with the launch counts set to 0 just before it; return
-    (its result, the counts read just after)."""
-    reset()
-    out = fn()
+    (its result, the counts read just after). Each kernel-backend segment
+    it traces on the card is checked (`SegmentGuard`, tallied in
+    `SEGMENTS`)."""
+    with SegmentGuard(LAUNCHES) as guard:
+        reset()
+        out = fn()
+    SEGMENTS["checked"] += guard.segments
+    SEGMENTS["bad"] += guard.bad
     return out, dict(LAUNCHES)
 
 
@@ -2324,6 +2356,20 @@ def phase_gradients_multidevice(torch, totals):
         want = {"config6": "tri_closest_hit", "config4": "torus_closest_hit",
                 "config8": "tri_closest_hit_stream"}[row["case"][:7]]
         check(launched.get(want, 0) > 0, f"{row['case']}: {want} launched")
+        # each rank's segments: S2 and S3 once, S1 twice where the rank
+        # tests the whole triangle table of a scene with loose rows (one
+        # prims shard); a prims slice tests them as K1 clusters
+        loose = config(int(row["case"][6]))[1].loose_tris > 0
+        for r, rw in enumerate(rows):
+            segs, got = rw["segments"], rw["launches"]
+            s1 = 2 * segs if loose and rw["mesh"][1] == 1 else 0
+            check(segs > 0 and got.get("shade_hit", 0) == segs
+                  and got.get("shade_finish", 0) == segs
+                  and got.get("loose_hit", 0) == s1,
+                  f"{row['case']} rank {r}: {segs} segments, S2 "
+                  f"x{got.get('shade_hit', 0)}, S3 "
+                  f"x{got.get('shade_finish', 0)}, S1 "
+                  f"x{got.get('loose_hit', 0)} (want {s1})")
         summary["sharded"].append(dict(
             cell=row["case"], mesh=row["mesh"], backend="gloo", ranks=2,
             ms=[rw["ms"] for rw in rows],
@@ -2728,6 +2774,443 @@ def phase_streams_entry(torch, totals):
     return summary
 
 
+SEGMENT_CELLS = ((6, FULL, True), (5, (3840, 2160), True), (7, FULL, False))
+SEGMENT_TOL = 1e-6        # libm-parted values: |diff| <= tol * max(1, |ref|)
+
+
+class SegmentGuard:
+    """While entered, checks each kernel-backend segment that
+    `trace.wavefront.trace_rays` traces on the card, from its closest-hit
+    query to the return of its S3: S2 and S3 launched once, S1 twice where
+    the query tests the scene's loose rows (the closest and the any-hit
+    query: a scene with loose rows, its whole triangle table), and no call
+    of `trace.shade.shade` inside it or of a segment kernel's plain twin
+    on card tensors. `segments` counts them, `bad` describes the ones that
+    were off."""
+
+    def __init__(self, launches):
+        from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
+        from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+        from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
+
+        self.launches = launches
+        self.spots = [(wf, "closest_hit", self._closest_hit),
+                      (wf, "shade_finish", self._shade_finish),
+                      (wf, "shade", self._stray(lambda a: self.open)),
+                      *((m, n, self._stray(lambda a: a[0].is_cuda))
+                        for m, n in ((lk, "loose_hit_plain"),
+                                     (sk, "shade_hit_plain"),
+                                     (sk, "shade_finish_plain")))]
+        self.segments, self.bad = 0, []
+        self.open = None      # (launches at its start, lanes, S1 to make)
+        self.stray = 0        # calls of shade() in a segment or of a twin
+        self.seen = 0         # ... that a segment or the exit reported
+
+    def _closest_hit(self, real):
+        def call(scene, o, *a, **k):
+            self._close("did not reach S3")
+            if k.get("backend") == "kernel" and o.is_cuda:
+                g = k.get("geom")
+                T = g.woop_o.shape[2] if g is not None else None
+                whole = g is None or (
+                    T == scene.triangles.count
+                    and g.cluster_lo.shape[0] * scene.cluster_size == T)
+                n = o.shape[1]
+                self.open = (dict(self.launches), n, 2 * (
+                    n > 0 and scene.loose_tris > 0 and whole))
+            return real(scene, o, *a, **k)
+        return call
+
+    def _shade_finish(self, real):
+        def call(*a, **k):
+            out = real(*a, **k)
+            self._close(None)
+            return out
+        return call
+
+    def _stray(self, on_card):
+        def wrap(real):
+            def call(*a, **k):
+                self.stray += bool(on_card(a))
+                return real(*a, **k)
+            return call
+        return wrap
+
+    def _close(self, why):
+        if self.open is None:
+            return
+        start, n, s1 = self.open
+        self.open = None
+        self.segments += 1
+        got = {k: self.launches[k] - start[k]
+               for k in ("loose_hit", "shade_hit", "shade_finish")}
+        want = dict(loose_hit=s1, shade_hit=int(n > 0),
+                    shade_finish=int(n > 0))
+        stray, self.seen = self.stray - self.seen, self.stray
+        if why or got != want or stray:
+            self.bad.append(f"segment of {n} lanes: launched {got}, want "
+                            f"{want}; {stray} calls of shade() or a twin"
+                            f"{'; ' + why if why else ''}")
+
+    def __enter__(self):
+        self.real = [getattr(m, n) for m, n, _ in self.spots]
+        for (m, n, wrap), fn in zip(self.spots, self.real):
+            setattr(m, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in zip(self.spots, self.real):
+            setattr(m, n, fn)
+        self._close("did not reach S3")
+        if self.stray > self.seen:
+            self.bad.append(f"{self.stray - self.seen} calls of a segment "
+                            "kernel's twin on card tensors")
+
+
+SEGMENTS = {"checked": 0, "bad": []}   # a phase's segments, `counted`'s
+
+
+def segments_checked(name):
+    """The phase's kernel-backend segments on the card (every `counted`
+    path's): at least one, and none off (`SegmentGuard`). Resets the
+    tally."""
+    n, bad = SEGMENTS["checked"], SEGMENTS["bad"]
+    for b in bad[:5]:
+        print(f"  {name}: {b}", flush=True)
+    check(n > 0 and not bad,
+          f"{name}: {n} kernel-backend segments on the card, {len(bad)} "
+          "off: each launched S2 and S3 once, S1 twice where it tests the "
+          "scene's loose rows, and reached neither shade() nor a twin")
+    SEGMENTS.update(checked=0, bad=[])
+
+
+def _cloned(x):
+    import dataclasses
+
+    import torch
+
+    if isinstance(x, torch.Tensor):
+        return x.clone()
+    if isinstance(x, (tuple, list)):
+        return type(x)(_cloned(v) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _cloned(getattr(x, f.name))
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+def segment_calls(torch, num, w, h):
+    """The first whole-frame segment's S1 (closest and any-hit), S2 and S3
+    calls of config `num`'s `render` at w x h, their arguments cloned as
+    the main path passes them."""
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
+    from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
+
+    sc, scene = config(num)
+    cam = sc.camera_at(0) if num == 5 else sc.camera
+    calls: dict = {}
+    spots = [(tk, "loose_hit"), (wf, "shade_hit"), (wf, "shade_finish")]
+    real = [getattr(m, n) for m, n in spots]
+
+    def spy(key_of, fn):
+        def call(*a):
+            calls.setdefault(key_of(a), _cloned(a))
+            return fn(*a)
+        return call
+
+    tk.loose_hit = spy(lambda a: "s1_any" if a[8] else "s1", real[0])
+    wf.shade_hit = spy(lambda a: "s2", real[1])
+    wf.shade_finish = spy(lambda a: "s3", real[2])
+    try:
+        render(scene, cam, w, h, sc.settings(), backend="kernel",
+               device=DEVICE)
+        sync(torch)
+    finally:
+        for (m, n), fn in zip(spots, real):
+            setattr(m, n, fn)
+    return calls
+
+
+def outputs_agree(torch, got, ref):
+    """(lanes, bit-equal lanes, lanes parted only within SEGMENT_TOL, worst
+    |diff| / max(1, |ref|), lanes whose discrete outputs differ) over
+    outputs laid out (rows, n) or (n,): floats may part by the tolerance,
+    ints and bools must be equal."""
+    n = ref[0].shape[-1]
+    same = torch.ones(n, dtype=torch.bool, device=ref[0].device)
+    near = torch.ones_like(same)
+    discrete = torch.zeros_like(same)
+    worst = 0.0
+    for a, b in zip(got, ref):
+        a2, b2 = a.reshape(-1, n), b.reshape(-1, n)
+        eq = (a2 == b2) | (torch.isnan(a2) & torch.isnan(b2)
+                           if a2.is_floating_point() else False)
+        same &= eq.all(dim=0)
+        if a2.is_floating_point():
+            rel = (a2 - b2).abs() / b2.abs().clamp(min=1.0)
+            rel = torch.where(eq, 0.0, rel)
+            worst = max(worst, float(rel.max()))
+            near &= (rel <= SEGMENT_TOL).all(dim=0)
+        else:
+            discrete |= ~eq.all(dim=0)
+    return (n, int(same.sum()), int((near & ~same & ~discrete).sum()),
+            worst, int(discrete.sum()))
+
+
+def segment_row(results, key, name, src, agree_out, times, nbytes_,
+                extra):
+    """Print and check one kernel's agreement, keep its row."""
+    n, same, parted, worst, discrete = agree_out
+    ok = discrete == 0 and same + parted == n
+    print(f"{name}: {n} lanes, {same} bit-equal, {parted} parted only by "
+          f"libm (max |diff| {worst:.2e} of max(1, |ref|)), {discrete} with "
+          f"discrete outputs off" + extra, flush=True)
+    check(ok, f"{name} agrees with its twin (bit-equal, or within "
+          f"{SEGMENT_TOL:g} where libm parts them)")
+    row = results.setdefault(key, dict(
+        source=f"{KERNEL_DIR}/{src[0]}", replaces=src[1], library_ms=None,
+        max_abs_err=0.0, shapes={}))
+    row["max_abs_err"] = max(row["max_abs_err"], worst)
+    if times is None:
+        return
+    wrapped, bare, device, plain = times
+    b, by = bound(nbytes_, 0.0)
+    print(f"  {name}: wrapper {wrapped:.4f} ms, bare {bare:.4f} ms "
+          f"({device:.4f} ms on the device, 20 launches in a CUDA graph), "
+          f"twin {plain:.3f} ms; bound {b:.4f} ms ({by}: "
+          f"{nbytes_ / 1e6:.1f} MB); device / bound {device / b:.2f}",
+          flush=True)
+    row["shapes"][str(n)] = dict(ms=wrapped, bare_ms=bare,
+                                 device_ms=device, plain_ms=plain,
+                                 bound_ms=b, bound_by=by, bytes=nbytes_,
+                                 bit_equal_lanes=same, parted_lanes=parted)
+    # the line's numbers: the largest shape's (config 5's segment)
+    row.update(ms=wrapped, bare_ms=bare, device_ms=device, plain_ms=plain,
+               bound_ms=b, bound_by=by)
+
+
+def bare_launch(fn):
+    """(name, args) of the one `launch` that the wrapper call fn() makes."""
+    from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
+    from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+
+    seen = []
+    real = kc.launch
+
+    def rec(name, *args):
+        seen.append((name, args))
+        return real(name, *args)
+
+    lk.launch = sk.launch = rec
+    try:
+        fn()
+    finally:
+        lk.launch = sk.launch = real
+    return seen[0]
+
+
+def s2_bytes(hit, rows, flags, textured) -> int:
+    """The bytes S2 must move for this segment's data: every lane reads t
+    and kind and writes the shadow tmax and its flags (and K4's valid
+    flag); a hit reads the ray and its winner's rows (a torus 60 B, a
+    triangle 72 B, a loose row's u, v and its table columns, once, in L2)
+    and writes the shadow ray and 14 block rows; with loose rows, a
+    triangle hit reads its prim to tell them apart; a textured hit reads
+    uv and the texel density (K1's rows or the table's) and writes 5 more
+    block rows and K4's two indices."""
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+
+    def count(m):
+        return int(m.sum())
+
+    tor, tri = hit.kind == 1, hit.kind == 0
+    loose = tri & False
+    if rows.loose is not None:
+        c = rows.tri_prim
+        loose = tri & (c >= rows.loose_base) & (
+            c < rows.loose_base + rows.n_loose)
+    tex = (tor | tri) & ((flags & sk.TEXTURED) > 0)
+    b = hit.t.shape[0] * (8 + 4 + 1 + int(textured))
+    b += count(tor | tri) * (24 + 24 + 4 * 14)
+    b += count(tor) * 60 + count(tri & ~loose) * 72 + count(loose) * 8
+    if rows.loose is not None:
+        b += count(tri) * 4 + rows.n_loose * (21 + 8 + 8) * 4
+    return b + count(tex & ~loose) * 12 + count(tex) * (20 + 8)
+
+
+def s3_bytes(active, nb, flags, occluded, going_on, textured, depth) -> int:
+    """The bytes S3 must move for this segment's data: every lane reads its
+    active flag and each 128-lane span writes its live flag; a live lane
+    reads its flags, color and attenuation and writes its color, active
+    flag and, at depth 0, its first hit (a miss 0, a hit the shadow
+    origin it reads); a hit also reads its diffuse color and light
+    intensity, its occluded flag where it cast a shadow ray, its
+    direction, normal and specular color where the specular term or a
+    reflection needs them, the light direction and shininess where the
+    specular term does, writes its attenuation where it reflects, reads
+    its position and writes its next ray where it goes on, and reads the
+    texel fractions and K4's words where it is textured."""
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+
+    def count(m):
+        return int(m.sum())
+
+    act, fl = active[:nb], flags
+
+    def has(bit):
+        return act & ((fl & bit) > 0)
+
+    missed = has(sk.MISSED)
+    hit = act & ~missed
+    shadowed = has(sk.NEED_SHADOW) & occluded
+    spec = has(sk.SPEC_ON) & has(sk.FACING) & ~missed & ~shadowed
+    refl = has(sk.REFLECT)
+    first = 12 if depth == 0 else 0
+    b = nb + -(-nb // sk.SPAN)
+    b += count(missed) * (1 + 24 + 12 + 1 + first)
+    b += count(hit) * (1 + 12 + 4 + 24 + 12 + 1 + 2 * first)
+    b += count(has(sk.NEED_SHADOW)) + count(spec | refl) * 36
+    b += count(spec) * 16 + count(refl) * 12 + count(going_on) * 36
+    return b + (count(hit & has(sk.TEXTURED)) * 44 if textured else 0)
+
+
+def phase_segment_kernels(torch, results):
+    """Phase 13: S1, S2 and S3 against their twins on the card, on the
+    inputs of the first whole-frame segment of config 6 and config 5
+    (2,073,600 and 8,294,400 rays) and config 7 (textured), with their
+    times (wrapper, bare launch, device time of 20 bare launches in a CUDA
+    graph, the twin) and byte bounds."""
+    from toroidal_ray_tracing_tpu_torch.experiments.k3_turns import graph_ms
+    from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import launch
+
+    S1 = ("loose_hit.cu", "toroidal_ray_tracing_tpu/ops/trace_kernel.py:207")
+    S2 = ("shade.cu", "toroidal_ray_tracing_tpu/trace/shade.py:226")
+    S3 = ("shade.cu", "toroidal_ray_tracing_tpu/trace/wavefront.py:167")
+    for num, (w, h), timed in SEGMENT_CELLS:
+        calls = segment_calls(torch, num, w, h)
+        tag = f"config {num} {w}x{h} segment 0"
+
+        # --- S1, both queries
+        for key in ("s1", "s1_any"):
+            if not config(num)[1].loose_tris:
+                continue                          # no loose rows: no S1
+            if not check(key in calls, f"{tag}: S1 ran ({key})"):
+                continue
+            a = calls[key]
+            got = lk.loose_hit(*a)
+            ref = lk.loose_hit_plain(*a)
+            n, L = a[0].shape[1], a[6]
+            nb = n * (28 + 24) + L * 84
+            times = None
+            if timed and key == "s1":
+                name, args = bare_launch(lambda: lk.loose_hit(*a))
+                times = (cuda_ms(lambda: lk.loose_hit(*a), reps=10),
+                         cuda_ms(lambda: launch(name, *args), reps=10),
+                         graph_ms(lambda: launch(name, *args)),
+                         cuda_ms(lambda: lk.loose_hit_plain(*a), reps=3))
+            segment_row(results, "loose_hit", f"S1 loose_hit {tag} "
+                        f"({'any-hit' if a[8] else 'closest'}, L = {L})",
+                        S1, outputs_agree(torch, got, ref), times, nb, "")
+
+        # --- S2
+        o, d, hit, rows, params = calls["s2"]
+        got = sk.shade_hit(o, d, hit, rows, params)
+        ref = sk.shade_hit_plain(o, d, hit, rows, params)
+        textured = params.atlas is not None
+        nrow = sk.N_BLOCK if textured else sk.FX0
+
+        def s2_out(r):
+            out = [r.shadow_o, r.shadow_d, r.shadow_tmax, r.block[:nrow],
+                   r.flags]
+            return out + (list(r.tex) if textured else [])
+
+        nb = s2_bytes(hit, rows, ref.flags, textured)
+        times = None
+        if timed:
+            name, args = bare_launch(
+                lambda: sk.shade_hit(o, d, hit, rows, params))
+            times = (cuda_ms(lambda: sk.shade_hit(o, d, hit, rows, params),
+                             reps=10),
+                     cuda_ms(lambda: launch(name, *args), reps=10),
+                     graph_ms(lambda: launch(name, *args)),
+                     cuda_ms(lambda: sk.shade_hit_plain(o, d, hit, rows,
+                                                        params), reps=3))
+        segment_row(results, "shade_hit", f"S2 shade_hit {tag}"
+                    + (" (textured)" if textured else ""), S2,
+                    outputs_agree(torch, s2_out(got), s2_out(ref)), times,
+                    nb, "")
+
+        # --- S3, in place: each run starts from the recorded state
+        a3 = calls["s3"]
+        state0, active0, nb_, sr, occ, quads, prm, depth, mx = a3[:9]
+
+        def fresh():
+            return _cloned(a3)
+
+        ka, ta = fresh(), fresh()
+        sk.shade_finish(*ka)
+        sk.shade_finish_plain(*ta)
+
+        def s3_out(x):
+            return [x[0], x[1][None, :].to(torch.uint8)]
+
+        n3 = nb_
+        agree_s3 = outputs_agree(torch, s3_out(ka), s3_out(ta))
+        counts_eq = (int(ka[9]) == int(ta[9]) and int(ka[11]) == int(ta[11])
+                     and torch.equal(ka[10][:-(-n3 // 128)],
+                                     ta[10][:-(-n3 // 128)]))
+        n_live = int(active0[:n3].sum())
+        n_next = int(ka[1][:n3].sum())
+        nb = s3_bytes(active0, n3, sr.flags, occ, ka[1][:n3], textured,
+                      depth)
+        times = None
+        if timed:
+            st_run = fresh()
+            saved = (st_run[0].clone(), st_run[1].clone())
+
+            def restore():
+                st_run[0].copy_(saved[0])
+                st_run[1].copy_(saved[1])
+                st_run[11].zero_()
+
+            name, args = bare_launch(lambda: (
+                restore(), sk.shade_finish(*st_run)))
+
+            def wrapped():
+                restore()
+                sk.shade_finish(*st_run)
+
+            def plain():
+                restore()
+                sk.shade_finish_plain(*st_run)
+
+            def bare():
+                restore()
+                launch(name, *args)
+
+            base_ms = cuda_ms(restore, reps=10)
+            base_dev = graph_ms(restore)
+            times = (cuda_ms(wrapped, reps=10) - base_ms,
+                     cuda_ms(bare, reps=10) - base_ms,
+                     graph_ms(bare) - base_dev,
+                     cuda_ms(plain, reps=3) - base_ms)
+        segment_row(results, "shade_finish", f"S3 shade_finish {tag}"
+                    + (" (textured)" if textured else ""), S3, agree_s3,
+                    times, nb, f"; ray count, live spans and their count "
+                    f"{'equal' if counts_eq else 'DIFFER'} ({n_live} live "
+                    f"lanes in, {n_next} out)")
+        check(counts_eq, f"S3 {tag}: ray count and live spans equal the "
+              "twin's")
+    for k in ("loose_hit", "shade_hit", "shade_finish"):
+        check(k in results and "ms" in results[k], f"{k}: timed")
+
+
+
 def main() -> int:
     import torch
 
@@ -2778,7 +3261,9 @@ def main() -> int:
     phase("4. main path: render / render_frames / render_sequence "
           "(backend='kernel', device='cuda')")
     launches: dict = {}
+    SEGMENTS.update(checked=0, bad=[])
     stats, cells = phase_main_path(torch, launches)
+    segments_checked("phase 4")
     done("4. main path: render / render_frames / render_sequence "
          "(backend='kernel', device='cuda')")
 
@@ -2791,7 +3276,10 @@ def main() -> int:
     done("6. profile: one frame per cell")
 
     phase("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
+    before = dict(launches)
+    SEGMENTS.update(checked=0, bad=[])
     experiment = phase_experiment(torch, launches, smi.stdout.strip())
+    segments_checked("phase 7")
     done("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
 
     phase("8. measurement front doors")
@@ -2800,6 +3288,7 @@ def main() -> int:
     print("launches, phases 4 and 7: " + json.dumps(before)
           + "; phase 8: " + json.dumps({k: launches[k] - before.get(k, 0)
                                         for k in launches}), flush=True)
+    segments_checked("phase 8")
     done("8. measurement front doors")
 
     phase("9. gradients and multi-device")
@@ -2807,6 +3296,7 @@ def main() -> int:
     phase9 = phase_gradients_multidevice(torch, launches)
     print("launches, phase 9: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    segments_checked("phase 9")
     done("9. gradients and multi-device")
 
     phase("10. oracle on the card")
@@ -2814,6 +3304,7 @@ def main() -> int:
     oracle_rows = phase_oracle(torch, launches)
     print("launches, phase 10: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    segments_checked("phase 10")
     done("10. oracle on the card")
 
     phase("11. compaction")
@@ -2821,6 +3312,7 @@ def main() -> int:
     compaction_rows = phase_compaction(torch, launches)
     print("launches, phase 11: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+    segments_checked("phase 11")
     done("11. compaction")
 
     phase("12. random streams and the graft entry")
@@ -2829,6 +3321,10 @@ def main() -> int:
     print("launches, phase 12: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     done("12. random streams and the graft entry")
+
+    phase("13. segment kernels S1-S3 against their twins")
+    phase_segment_kernels(torch, results)
+    done("13. segment kernels S1-S3 against their twins")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -24,6 +24,7 @@ from toroidal_ray_tracing_tpu.trace import intersect as jax_isect
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as port_tk
 from toroidal_ray_tracing_tpu_torch.ops import tri_stream as port_ts
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
+from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import shade_attrs
 from toroidal_ray_tracing_tpu_torch.scene import scene_from_numpy
 from toroidal_ray_tracing_tpu_torch.trace.intersect import closest_hit
 
@@ -144,9 +145,10 @@ def test_orchestration_takes_stream_route(mesh, monkeypatch):
                                rtol=1e-5, atol=1e-4)
     hit = got.kind.numpy() >= 0
     assert hit.sum() > 100
+    attrs = shade_attrs(got, got.attrs)
     for field in ("pos", "nrm", "uv", "diffuse", "tex_density"):
         np.testing.assert_allclose(
-            getattr(got.attrs, field).numpy()[..., hit],
+            getattr(attrs, field).numpy()[..., hit],
             np.asarray(getattr(ref.attrs, field))[..., hit], atol=1e-4,
             err_msg=field)
     occ = closest_hit(port, torch.from_numpy(o), torch.from_numpy(d),

@@ -21,6 +21,7 @@ from toroidal_ray_tracing_tpu.trace import intersect as jax_isect
 from toroidal_ray_tracing_tpu.utils import math3d
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
+from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import shade_attrs
 from toroidal_ray_tracing_tpu_torch.scene import scene_from_numpy
 from toroidal_ray_tracing_tpu_torch.trace.intersect import closest_hit
 
@@ -76,9 +77,10 @@ def test_kernel_backend_matches_pallas(name, monkeypatch):
                                rtol=1e-5, atol=1e-4)
     hit = got.kind.numpy() >= 0
     assert hit.sum() > 100
+    attrs = shade_attrs(got, got.attrs)
     for field in ("pos", "nrm", "uv", "ambient", "diffuse", "specular",
                   "shininess", "illum", "texture_id", "tex_density"):
-        a = getattr(got.attrs, field).numpy()
+        a = getattr(attrs, field).numpy()
         b = np.asarray(getattr(ref.attrs, field))
         assert a.dtype == b.dtype, field
         np.testing.assert_allclose(a[..., hit], b[..., hit], atol=1e-4,
@@ -131,7 +133,8 @@ def test_streamed_size_mesh_raises_naming_k5(monkeypatch):
     np.testing.assert_array_equal(hit.prim.numpy(), np.asarray(ref.prim))
     np.testing.assert_allclose(hit.t.numpy(), np.asarray(ref.t), rtol=1e-5,
                                atol=1e-4)
+    attrs = shade_attrs(hit, hit.attrs)
     for field in ("pos", "nrm", "uv", "diffuse"):
-        np.testing.assert_allclose(getattr(hit.attrs, field).numpy(),
+        np.testing.assert_allclose(getattr(attrs, field).numpy(),
                                    np.asarray(getattr(ref.attrs, field)),
                                    atol=1e-4, err_msg=field)

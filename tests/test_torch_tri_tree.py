@@ -25,6 +25,7 @@ from test_torch_stream_tree import K_STACK, Walker, _rays, _same, walk_packets
 from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as port_tk
 from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
+from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import shade_attrs
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (tree_rank,
                                                               visit_order)
 from toroidal_ray_tracing_tpu_torch.scene import (SceneDef, build_scene,
@@ -187,6 +188,7 @@ def test_orchestrator_keeps_k1_tables_per_scene(scenes, monkeypatch):
     copied = closest_hit(moved, o, d, tmax, backend="kernel", occlusion=True)
     assert moved.kernel_tables is scene.kernel_tables
     for a, b in ((first.t, again.t), (first.prim, again.prim),
-                 (first.attrs.nrm, again.attrs.nrm)):
+                 (shade_attrs(first, first.attrs).nrm,
+                  shade_attrs(again, again.attrs).nrm)):
         assert torch.equal(a, b)
     assert torch.equal(copied.kind >= 0, first.kind >= 0)

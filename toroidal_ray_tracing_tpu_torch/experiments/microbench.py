@@ -78,6 +78,7 @@ def run(scene_num: int = 3, rays: int = 2 * 1024 * 1024, k: int = 8,
     kernels' plain twins."""
     from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
     from toroidal_ray_tracing_tpu_torch.ops import torus_kernel, tri_kernel
+    from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import shade_attrs
     from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
         closest_hit_kernel)
     from toroidal_ray_tracing_tpu_torch.scene.types import _to
@@ -120,7 +121,9 @@ def run(scene_num: int = 3, rays: int = 2 * 1024 * 1024, k: int = 8,
         return closest_hit_kernel(scene, geom, o, d, tmax, want_attrs=True)
 
     def shade_pass():
-        return shade(scene, st, o, d, full_hit(), backend="kernel")
+        hit = full_hit()
+        hit.attrs = shade_attrs(hit, hit.attrs)
+        return shade(scene, st, o, d, hit, backend="kernel")
 
     # the shadow query shade() issues, isolated (raytrace.rchit:89-120):
     # primary hit points toward the light

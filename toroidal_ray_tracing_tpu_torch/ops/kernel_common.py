@@ -46,7 +46,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LAUNCHES = {"tri_closest_hit": 0, "torus_closest_hit": 0,
             "torus_closest_hit_small": 0, "quad_gather": 0,
             "tri_closest_hit_stream": 0,
-            "tri_closest_hit_stream_grouped": 0, "threefry_uniform": 0}
+            "tri_closest_hit_stream_grouped": 0, "threefry_uniform": 0,
+            "loose_hit": 0, "shade_hit": 0, "shade_finish": 0}
 
 
 def reset_launches() -> None:
@@ -251,6 +252,7 @@ BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
     # n_nodes, depth, rank, cluster, box_test, a0, a1, a2, occlusion, t,
@@ -281,6 +283,21 @@ _SIGNATURES = {
     # out, n, k1, k2, stream
     "trt_threefry_uniform": [_P, ctypes.c_int64, ctypes.c_uint32,
                              ctypes.c_uint32, _P],
+    # origins, dirs, tmax, n, woop_o, woop_d, n_tris, base, n_rows,
+    # prim_base, occlusion, t, kind, prim, u, v, tri_tmax, stream
+    "trt_loose_hit": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
+                      _P, _P, _P, _P, _P],
+    # origins, dirs, n, t, kind, u, v, tri, tor, tri_kind, tri_prim, la0,
+    # la1, la2, n_cols, loose_base, n_loose, consts, light_point, intensity,
+    # pixel_spread, tex_off, tex_sizes, tex_levels, n_lv, shadow_o,
+    # shadow_d, shadow_tmax, block, flags, tex_i0, tex_i1, tex_valid, stream
+    "trt_shade_hit": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P, _I, _I, _I, _P, _I, _F, _F, _P, _P, _P, _I, _P,
+                      _P, _P, _P, _P, _P, _P, _P, _P],
+    # state, lanes, active, nb, block, flags, shadow_o, shadow_d, occluded,
+    # q0, q1, srgb, consts, first, more, rays, spans, count, stream
+    "trt_shade_finish": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _P, _I, _I, _P, _P, _P, _P],
 }
 
 

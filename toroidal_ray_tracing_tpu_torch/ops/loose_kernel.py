@@ -1,0 +1,75 @@
+"""S1: the loose-triangle hoist.
+
+`loose_hit` is the wrapper: on CUDA tensors it launches the hand-written
+kernel `csrc/loose_hit.cu::loose_hit` (one thread per ray, the rows in
+shared memory); on CPU tensors it runs `loose_hit_plain`, the plain PyTorch
+twin with the same inputs and outputs. It is the port's counterpart of
+what XLA fuses of the JAX package's `ops/trace_kernel.py:207`
+(`_loose_tri_hit`) and the merge after it (:325-333); no Pallas kernel.
+
+Contract: per ray, the Woop unit-triangle test (K1's arithmetic,
+`geom.triangle.woop_dots` / `woop_hit`) against the scene's L <= 16 loose
+tail rows [base, base + L) of its Woop tables, the lowest row winning
+ties; the winner comes out merged, as the triangle kernels' starting
+point: t (BIG on a miss), kind (0 / -1), prim (prim_base + row, 0 on a
+miss), u, v (0 on a miss), and the triangle kernels' tmax, min(tmax, t)
+or, in occlusion mode, 0 where the ray hit. The kernel reads the rows from
+the scene's (3, 4, T) / (3, 3, T) tables as they are, so nothing is kept
+per scene for it.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from toroidal_ray_tracing_tpu_torch.geom.triangle import woop_dots, woop_hit
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+    BIG, F32, I32, TMIN, check_args, check_rays, launch)
+
+LOOSE_MAX = 16      # scene/build.py LOOSE_TOTAL_MAX, the kernel's row cap
+
+
+def loose_hit_plain(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
+                    prim_base: int, occlusion: bool = False):
+    """Plain PyTorch twin: (t, kind, prim, u, v, tri_tmax), each (N,)."""
+    rows = slice(base, base + L)
+    comps = woop_dots(woop_o[:, :, rows, None], woop_d[:, :, rows, None],
+                      *origins, *dirs)                     # each (L, N)
+    t, u, v, _ = woop_hit(*comps, TMIN, tmax)
+    best, row = torch.min(t, dim=0)
+    hit = best < BIG
+    r = row[None, :]
+    tri_tmax = (torch.where(hit, 0.0, tmax) if occlusion
+                else torch.minimum(tmax, best))
+    return (best, torch.where(hit, 0, -1).to(I32),
+            torch.where(hit, prim_base + row, 0).to(I32),
+            torch.where(hit, u.gather(0, r)[0], 0.0),
+            torch.where(hit, v.gather(0, r)[0], 0.0), tri_tmax)
+
+
+def loose_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
+              prim_base: int, occlusion: bool = False):
+    """S1 wrapper. origins/dirs: (3, N) rows; tmax (N,); woop_o (3, 4, T)
+    and woop_d (3, 3, T): the Woop tables, whose rows [base, base + L) are
+    the loose tail, 1 <= L <= 16; prim_base: the global index of row base.
+    Returns (t, kind, prim, u, v, tri_tmax), each (N,): kind and prim
+    int32."""
+    check_rays(origins, dirs, tmax)
+    n, T = origins.shape[1], woop_o.shape[2]
+    check_args(origins.device, woop_o=(woop_o, (3, 4, T), F32),
+               woop_d=(woop_d, (3, 3, T), F32))
+    if not (1 <= L <= LOOSE_MAX and 0 <= base and base + L <= T):
+        raise ValueError(f"loose rows [{base}, {base + L}) of {T}: the "
+                         f"kernel takes 1 to {LOOSE_MAX} rows of the table")
+    if not origins.is_cuda:
+        return loose_hit_plain(origins, dirs, tmax, woop_o, woop_d, base, L,
+                               prim_base, occlusion)
+    f32 = dict(dtype=F32, device=origins.device)
+    i32 = dict(dtype=I32, device=origins.device)
+    out = (torch.empty((n,), **f32), torch.empty((n,), **i32),
+           torch.empty((n,), **i32), torch.empty((n,), **f32),
+           torch.empty((n,), **f32), torch.empty((n,), **f32))
+    if n:
+        launch("trt_loose_hit", origins, dirs, tmax, n, woop_o, woop_d, T,
+               int(base), L, int(prim_base), int(occlusion), *out)
+    return out

@@ -4,9 +4,9 @@ counterpart, the JAX package's ops/trace_kernel.py:258).
 Per query:
   1. loose-triangle hoist: the scene's few spatially fat rows (a ground
      plane; `Scene.loose_tris`, compacted to the table tail by the build)
-     are tested densely in plain torch, their clusters get far boxes, and
-     their hits tighten the triangle kernel's tmax. A plane-only triangle
-     set launches no triangle kernel at all;
+     are tested by S1 (`ops.loose_kernel.loose_hit`), their clusters get
+     far boxes, and their hits tighten the triangle kernel's tmax. A
+     plane-only triangle set launches no triangle kernel at all;
   2. K1 (`tri_closest_hit`) over the remaining clusters, or K5/K6
      (`tri_stream.tri_closest_hit_stream`) for meshes above
      `TRI_STREAM_MIN` triangles cut into whole 128-multiple clusters (the
@@ -14,7 +14,9 @@ Per query:
   3. triangle hits fold into the torus query's tmax, then K2/K3
      (`torus_closest_hit`, routed as the TPU launcher routes);
   4. with want_attrs, the kernels' 21-row (triangle) and 15-row (torus)
-     attribute outputs assemble into `ShadeAttrs`.
+     attribute outputs (and the loose tail's tables) come out as they are
+     (`AttrRows`, which the shading kernel S2 reads;
+     `ops.shade_kernel.shade_attrs` assembles them into `ShadeAttrs`).
 
 The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
 `StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
@@ -38,7 +40,8 @@ from __future__ import annotations
 
 import torch
 
-from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, TMIN, round_up
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, round_up
+from toroidal_ray_tracing_tpu_torch.ops.loose_kernel import loose_hit
 from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import (
     torus_closest_hit, torus_tables)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (tri_closest_hit,
@@ -121,53 +124,21 @@ def _walked_boxes(geom, aligned: bool, n_tail: int):
             torch.cat([geom.cluster_hi[:n_cl - n_tail], far]).contiguous())
 
 
-def _loose_tri_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int):
-    """Dense closest hit over the loose tail rows [base, base+L): the Woop
-    test as (L, N) tensors, the lowest row winning ties."""
-    n = origins.shape[1]
-    oh = torch.cat([origins, origins.new_ones((1, n))], dim=0)       # (4, N)
-    wo = woop_o[:, :, base:base + L]
-    wd = woop_d[:, :, base:base + L]
-    hp = torch.einsum("kal,an->kln", wo, oh)                        # (3, L, N)
-    dp = torch.einsum("kal,an->kln", wd, dirs)
-    dz = dp[2]
-    dz_ok = dz.abs() > 1e-12
-    inv = torch.where(dz_ok, 1.0, 0.0) / torch.where(dz_ok, dz, 1.0)
-    t = -hp[2] * inv
-    uu = hp[0] + t * dp[0]
-    vv = hp[1] + t * dp[1]
-    ok = dz_ok & (uu >= 0.0) & (vv >= 0.0) & (uu + vv <= 1.0) \
-        & (t >= TMIN) & (t <= tmax[None, :])
-    t = torch.where(ok, t, BIG)
-    tb = t.amin(dim=0)
-    rows = torch.arange(L, dtype=torch.int32, device=origins.device)[:, None]
-    idx = torch.where(t <= tb[None, :], rows, L).amin(dim=0)
-    idx = torch.clamp(idx, max=L - 1)
-    pick = rows == idx[None, :]
-    miss = tb >= BIG
-    ub = torch.where(miss, 0.0, torch.where(pick, uu, 0.0).sum(dim=0))
-    vb = torch.where(miss, 0.0, torch.where(pick, vv, 0.0).sum(dim=0))
-    return tb, idx, ub, vb
-
-
-def _loose_attr(tables, base: int, L: int, idx, u_, v_, hit):
-    """(21, N) interpolated attrs of the loose-prepass winners, as one-hot
-    products (the JAX package's formulation, full float32)."""
-    a0, a1, a2 = (a[:, base:base + L] for a in tables)
-    rows = torch.arange(L, dtype=torch.int32, device=idx.device)[:, None]
-    onehot = ((idx[None, :] == rows) & hit[None, :]).float()         # (L, N)
-    A0 = torch.einsum("al,ln->an", a0, onehot)
-    A1 = torch.einsum("al,ln->an", a1, onehot)
-    A2 = torch.einsum("al,ln->an", a2, onehot)
-    top = A0[:8] + u_[None, :] * A1 + v_[None, :] * A2
-    return torch.cat([top, A0[8:]], dim=0)
+def _no_hit(n: int, dev):
+    """The merged hit before any query: (t BIG, kind -1, prim 0, u 0, v 0)."""
+    return (torch.full((n,), BIG, dtype=torch.float32, device=dev),
+            torch.full((n,), -1, dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.int32, device=dev),
+            torch.zeros((n,), dtype=torch.float32, device=dev),
+            torch.zeros((n,), dtype=torch.float32, device=dev))
 
 
 def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                        want_attrs: bool = False, occlusion: bool = False,
                        anchor=None):
     """Closest hit through the kernels. origins/dirs: (3, N) rows; tmax
-    (N,). want_attrs: emit Hit.attrs. occlusion: any-hit (only
+    (N,). want_attrs: emit Hit.attrs, the kernels' raw `AttrRows` (what
+    S2 reads). occlusion: any-hit (only
     Hit.kind >= 0 is meaningful). anchor: the (3,) point the tree kernels'
     visit orders start from (default: the batch's mean origin)."""
     if want_attrs and occlusion:
@@ -179,12 +150,9 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
     dev = origins.device
     has_tris, has_tori = _isect.has_prims(scene)
 
-    t_best = torch.full((n,), BIG, dtype=torch.float32, device=dev)
-    kind = torch.full((n,), -1, dtype=torch.int32, device=dev)
-    prim = torch.zeros((n,), dtype=torch.int32, device=dev)
-    u = torch.zeros((n,), dtype=torch.float32, device=dev)
-    v = torch.zeros((n,), dtype=torch.float32, device=dev)
-    tri_attr = tor_attr = None
+    rows = _isect.AttrRows()
+    hit = None        # the merged (t, kind, prim, u, v) so far
+    s1_only = False   # S1 was the only triangle query
 
     if has_tris:
         T = geom.woop_o.shape[2]
@@ -209,31 +177,22 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                               for a in _tri_attr_tables(scene)))
 
         # the loose tail is the whole table's: a slice tests it like any
-        # other cluster (its real boxes)
+        # other cluster (its real boxes). S1 writes the merged hit the
+        # triangle kernels start from and their tmax
         L = scene.loose_tris
         n_tail = (L + cs - 1) // cs if L > 0 and aligned and whole else 0
         tri_tmax = tmax
-        loose_attr = None
         if n_tail:
             base = T - n_tail * cs
-            lt, lidx, lu, lv = _loose_tri_hit(origins, dirs, tmax,
-                                              geom.woop_o, geom.woop_d,
-                                              base, L)
-            lhit = lt < BIG
-            t_best = torch.where(lhit, lt, t_best)
-            kind = torch.where(lhit, 0, kind)
-            prim = torch.where(lhit, base + lidx + off, prim)
-            u = torch.where(lhit, lu, u)
-            v = torch.where(lhit, lv, v)
+            *hit, tri_tmax = loose_hit(origins, dirs, tmax, geom.woop_o,
+                                       geom.woop_d, base, L, base + off,
+                                       occlusion)
             if want_attrs:
-                loose_attr = _loose_attr(tables, base, L, lidx, lu, lv, lhit)
-            tri_tmax = (torch.where(lhit, 0.0, tmax) if occlusion
-                        else torch.minimum(tmax, lt))
+                rows.loose, rows.loose_base, rows.n_loose = tables, base, L
 
-        if n_tail and n_tail == n_cl:
-            # the hoist covered every live triangle: no K1 launch at all
-            tri_attr = loose_attr
-        else:
+        s1_only = n_tail == n_cl
+        if not s1_only:
+            # (the hoist may cover every live triangle: no K1 launch)
             kw = dict(attr_tables=tables, occlusion=occlusion,
                       n_batch=n_batch, anchor=anchor)
             stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
@@ -247,18 +206,18 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
             hit_fn = tri_closest_hit_stream if stream else tri_closest_hit
             out = hit_fn(origins, dirs, tri_tmax, mesh, **kw)
             tt, ti, tu, tv = out[:4]
-            better = tt < t_best
             if want_attrs:
-                tri_attr = out[4]
-                if loose_attr is not None:
-                    tri_attr = torch.where(better[None, :], tri_attr,
-                                           loose_attr)
-            t_best = torch.where(better, tt, t_best)
-            kind = torch.where(better, 0, kind)
-            prim = torch.where(better, ti + off, prim)
-            u = torch.where(better, tu, u)
-            v = torch.where(better, tv, v)
+                rows.tri = out[4]
+            t_best, kind, prim, u, v = hit or _no_hit(n, dev)
+            better = tt < t_best
+            hit = (torch.where(better, tt, t_best),
+                   torch.where(better, 0, kind),
+                   torch.where(better, ti + off, prim),
+                   torch.where(better, tu, u), torch.where(better, tv, v))
 
+    if rows.loose is not None:
+        rows.tri_kind, rows.tri_prim = hit[1], hit[2]
+    t_best, kind, prim, u, v = hit or _no_hit(n, dev)
     if has_tori:
         off, K = geom.tor_offset, geom.tor_major.shape[0]
         tor = _kept(scene, "torus",
@@ -269,8 +228,11 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                         geom.tor_w2o, geom.tor_major, geom.tor_minor,
                         _material_rows(scene, scene.tori.mat_id[off:off + K])
                         .contiguous()))
-        # fold triangle hits into the torus query's tmax
-        if has_tris and occlusion:
+        # fold triangle hits into the torus query's tmax (S1's own, where
+        # it was the only triangle query)
+        if s1_only:
+            tor_tmax = tri_tmax
+        elif has_tris and occlusion:
             tor_tmax = torch.where(t_best < BIG, 0.0, tmax)
         elif has_tris:
             tor_tmax = torch.minimum(tmax, t_best)
@@ -281,33 +243,11 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                                 n_batch=n_batch, anchor=anchor)
         kt, ki = out[:2]
         if want_attrs:
-            tor_attr = out[2]
+            rows.tor = out[2]
         better = kt < t_best
         t_best = torch.where(better, kt, t_best)
         kind = torch.where(better, 1, kind)
         prim = torch.where(better, ki + off, prim)
 
-    attrs = None
-    if want_attrs:
-        is_tor = kind == 1
-        if tri_attr is None:
-            tri_attr = torch.zeros((21, n), dtype=torch.float32, device=dev)
-        if tor_attr is None:
-            tor_attr = torch.zeros((15, n), dtype=torch.float32, device=dev)
-        # torus world positions are o + t d (shade computes them); the pos
-        # rows carry the triangle's barycentric-exact position only
-        nrm = torch.where(is_tor, tor_attr[0:3], tri_attr[3:6])
-        mat = torch.where(is_tor, tor_attr[3:15], tri_attr[8:20])
-        attrs = _isect.ShadeAttrs(
-            pos=tri_attr[0:3],
-            nrm=nrm,
-            uv=tri_attr[6:8],
-            ambient=mat[0:3],
-            diffuse=mat[3:6],
-            specular=mat[6:9],
-            shininess=mat[9],
-            illum=torch.round(mat[10]).to(torch.int32),
-            texture_id=torch.round(mat[11]).to(torch.int32),
-            tex_density=torch.where(is_tor, 0.0, tri_attr[20]),
-        )
-    return _isect.Hit(t=t_best, kind=kind, prim=prim, u=u, v=v, attrs=attrs)
+    return _isect.Hit(t=t_best, kind=kind, prim=prim, u=u, v=v,
+                      attrs=rows if want_attrs else None)

@@ -260,11 +260,9 @@ def _render_case(case, mesh, res, device, cache) -> dict:
 def _tie_case(mesh, device) -> dict:
     """Per-rank hits with equal t on many rays, merged over the mesh's
     prims group: the lowest prim*2+kind must win on every rank, with its
-    u, v and attrs."""
-    import dataclasses
-
+    u, v and attribute rows (`AttrRows`: 21 triangle and 15 torus rows)."""
     from toroidal_ray_tracing_tpu_torch.trace.intersect import (
-        BIG, Hit, ShadeAttrs, combine_hits_over_axis)
+        BIG, AttrRows, Hit, combine_hits_over_axis)
 
     prims = mesh["prims"]
     P, p = prims.size(), prims.get_local_rank()
@@ -279,26 +277,15 @@ def _tie_case(mesh, device) -> dict:
     prim = np.where(miss, 0, prim).astype(np.int32)
     u = rng.random((P, n), np.float32)
     v = rng.random((P, n), np.float32)
-    width = {f.name: 3 for f in dataclasses.fields(ShadeAttrs)}
-    width.update(uv=2, shininess=0, illum=0, texture_id=0, tex_density=0)
-    attr = {k: rng.random(((w or 1), P, n), np.float32) * 10
-            for k, w in width.items()}
+    attr = {k: rng.random((P, rows, n), np.float32) * 10
+            for k, rows in (("tri", 21), ("tor", 15))}
 
     def mine(a):
         return torch.from_numpy(np.ascontiguousarray(a[p])).to(device)
 
-    def attr_of(q):
-        out = {}
-        for k, w in width.items():
-            a = attr[k][:, q]
-            if k in ("illum", "texture_id"):
-                a = np.round(a).astype(np.int32)
-            out[k] = torch.from_numpy(np.ascontiguousarray(
-                a if w else a[0])).to(device)
-        return out
-
     hit = Hit(t=mine(t), kind=mine(kind), prim=mine(prim), u=mine(u),
-              v=mine(v), attrs=ShadeAttrs(**attr_of(p)))
+              v=mine(v), attrs=AttrRows(tri=mine(attr["tri"]),
+                                        tor=mine(attr["tor"])))
     got = combine_hits_over_axis(hit, prims.get_group())
     # the expected winner of each ray, over every rank's draws
     key = np.where(kind >= 0, prim * 2 + kind, np.iinfo(np.int32).max)
@@ -314,10 +301,8 @@ def _tie_case(mesh, device) -> dict:
     bad = sum(int((getattr(got, k).cpu().numpy() != want[k]).sum())
               for k in want)
     ties = int((((t == tmin) & (kind >= 0)).sum(axis=0) >= 2).sum())
-    for k in width:
-        a = getattr(got.attrs, k).cpu().numpy().reshape(-1, n)
-        full = np.stack([attr_of(q)[k].cpu().numpy().reshape(-1, n)
-                         for q in range(P)])
+    for k, full in attr.items():
+        a = getattr(got.attrs, k).cpu().numpy()
         exp = np.where(missed[None], 0, full[win, :, cols].T)
         bad += int((a != exp).sum())
     return dict(mismatches=bad, tied_rays=ties, rays=n)

@@ -351,15 +351,22 @@ _SRGB_DECODE = (np.arange(256, dtype=F32) * F32(1.0 / 255.0)) ** F32(2.2)
 _srgb_tables: dict = {}
 
 
+def srgb_table(device) -> torch.Tensor:
+    """The (256,) f32 sRGB decode table on `device`, made once a device."""
+    device = torch.device(device)
+    table = _srgb_tables.get(device)
+    if table is None:
+        table = _srgb_tables[device] = torch.from_numpy(_SRGB_DECODE).to(
+            device)
+    return table
+
+
 def tex_dequant(words: torch.Tensor, tap: int) -> torch.Tensor:
     """Byte `tap` of packed channel words -> linear f32 in [0, 1]: the
     sampler's sRGB decode (gamma 2.2), a 256-entry table lookup. Arithmetic
     right shift of the int32 bits is harmless: the mask keeps only the
     byte."""
-    table = _srgb_tables.get(words.device)
-    if table is None:
-        table = _srgb_tables[words.device] = torch.from_numpy(
-            _SRGB_DECODE).to(words.device)
+    table = srgb_table(words.device)
     b = (words >> (8 * tap)) & 0xFF
     return table.index_select(0, b.reshape(-1)).view(b.shape)
 

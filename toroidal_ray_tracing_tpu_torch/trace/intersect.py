@@ -60,13 +60,36 @@ class ShadeAttrs:
 
 
 @dataclasses.dataclass
+class AttrRows:
+    """A kernel-backend closest-hit query's raw attribute rows, what the
+    shading kernel S2 (`ops.shade_kernel.shade_hit`) reads in place of
+    `ShadeAttrs`: the triangle kernels' 21 rows (pos, nrm, uv, the 12
+    material values, the uv texel density) and the torus kernels' 15 rows
+    (nrm, material) of each ray's winner of that kind, None where the query
+    ran no such kernel; and where the loose-triangle hoist ran (only on
+    the whole table, never on a slice of the primitives), the triangle
+    interpolation tables (a0 (21, T), a1 (8, T), a2 (8, T)), the index
+    of the first of the n_loose tail rows, and the triangle side's winner
+    (kind 0 / -1, prim) before the tori merged: where that winner is a
+    tail row, the triangle rows come from the tables at (prim, u, v)."""
+
+    tri: Optional[torch.Tensor] = None
+    tor: Optional[torch.Tensor] = None
+    loose: Optional[tuple] = None
+    loose_base: int = 0
+    n_loose: int = 0
+    tri_kind: Optional[torch.Tensor] = None
+    tri_prim: Optional[torch.Tensor] = None
+
+
+@dataclasses.dataclass
 class Hit:
     t: torch.Tensor      # (N,) f32, BIG on miss
     kind: torch.Tensor   # (N,) i32: 0 tri, 1 torus, -1 miss
     prim: torch.Tensor   # (N,) i32 index into triangles or tori
     u: torch.Tensor      # (N,) f32 triangle barycentric
     v: torch.Tensor      # (N,) f32
-    attrs: Optional[ShadeAttrs] = None
+    attrs: Optional[ShadeAttrs | AttrRows] = None
 
 
 @dataclasses.dataclass
@@ -126,8 +149,9 @@ def combine_hits_over_axis(hit: Hit, group) -> Hit:
     """Merge the per-rank winners of `group` into the global nearest hit:
     the min of t, then among the ranks on that t the min of the key
     prim*2+kind (so ties resolve alike on every rank), then the winner's
-    u and v. Exactly one rank holds the winner's attrs: the others' are
-    zeroed and the rows summed over the group."""
+    u and v. Exactly one rank holds the winner's `AttrRows`: the others'
+    kernel rows are zeroed and the rows summed over the group (the loose
+    tables are every rank's own)."""
     t = all_reduce(hit.t, MIN, group)
     on_min = (hit.t == t) & (hit.kind >= 0)
     own = hit.prim * 2 + hit.kind
@@ -138,19 +162,14 @@ def combine_hits_over_axis(hit: Hit, group) -> Hit:
     missed = key == _INT_MAX
     attrs = hit.attrs
     if attrs is not None:
-        # one SUM over every attribute row (the int rows travel as exact
-        # small float32 integers)
-        fields = [getattr(attrs, f.name) for f in dataclasses.fields(attrs)]
-        rows = [a.float().reshape(-1, a.shape[-1]) for a in fields]
-        summed = all_reduce(torch.where(pick[None, :], torch.cat(rows), 0.0),
-                            SUM, group)
-        parts, r = [], 0
-        for a, rw in zip(fields, rows):
-            b = summed[r:r + rw.shape[0]].reshape(a.shape)
-            parts.append(b if a.dtype == torch.float32
-                         else torch.round(b).to(a.dtype))
-            r += rw.shape[0]
-        attrs = ShadeAttrs(*parts)
+        blocks = [b for b in (attrs.tri, attrs.tor) if b is not None]
+        if blocks:
+            summed = all_reduce(torch.where(pick[None, :], torch.cat(blocks),
+                                            0.0), SUM, group)
+            blocks = list(summed.split([b.shape[0] for b in blocks]))
+        attrs = dataclasses.replace(
+            attrs, tri=blocks.pop(0) if attrs.tri is not None else None,
+            tor=blocks.pop(0) if attrs.tor is not None else None)
     return Hit(
         t=t,
         kind=torch.where(missed, -1, key & 1).to(torch.int32),
@@ -169,13 +188,14 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
 
     geom: the geometry to test (default: the whole scene). prim_group: the
     `torch.distributed` group whose ranks hold the other slices; their
-    winners merge (`combine_hits_over_axis`). want_attrs: emit
-    interpolated ShadeAttrs (kernel backend only; the torch path shades
-    via gathers). occlusion: any-hit semantics — only Hit.kind >= 0 is
-    meaningful then. anchor: kernel backend, the (3,) point the kernels'
-    visit orders start from, which decides exact ties between boxes
-    (default: the batch's mean origin; `trace_rays` passes the whole
-    wavefront's)."""
+    winners merge (`combine_hits_over_axis`). want_attrs: emit the
+    kernels' raw `AttrRows`, which the shading kernel S2 reads and
+    `ops.shade_kernel.shade_attrs` assembles into ShadeAttrs (kernel
+    backend only; the torch path shades via gathers). occlusion: any-hit
+    semantics — only Hit.kind >= 0 is meaningful then. anchor: kernel
+    backend, the (3,) point the kernels' visit orders start from, which
+    decides exact ties between boxes (default: the batch's mean origin;
+    `trace_rays` passes the whole wavefront's)."""
     tmax = _tmax(tmax, origins)
     if geom is None:
         geom = geom_from_scene(scene)

@@ -17,6 +17,14 @@ screen patch, so the kernels' warps stay coherent. The outputs are
 unpermuted once at the end. `backend="torch"` traces every segment whole,
 as the JAX package's jnp path does.
 
+A kernel-backend segment is S1 (the loose hoist) -> K1/K5 -> K2/K3 (the
+closest hit, its raw attribute rows), S2 (`ops.shade_kernel.shade_hit`:
+shading up to the shadow ray) -> K4 (textured scenes) -> S1 -> the any-hit
+kernels, then S3 (`shade_finish`: the rest of the shading and the state
+update in place, the ray count and the live spans), and the compaction
+gather when the bucket shrinks. The torch backend shades with
+`trace.shade.shade` and updates the state with tensor ops (`_advance`).
+
 `trace_rays_fixed` is the differentiable variant: a fixed number of
 segments, autograd through shading and (on the kernel backend)
 `closest_hit_diff`'s recompute.
@@ -31,9 +39,15 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (batch_anchor,
                                                               round_up)
+# live_spans: the 128-lane spans that hold a live ray (S3 writes them on
+# the kernel backend; kept here beside span_order and span_lanes)
+from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import (  # noqa: F401
+    live_spans, shade_finish, shade_hit, shade_params)
+from toroidal_ray_tracing_tpu_torch.ops.tex_kernel import quad_gather
 from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import RAY_TILE
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
-from toroidal_ray_tracing_tpu_torch.trace.intersect import (closest_hit,
+from toroidal_ray_tracing_tpu_torch.trace.intersect import (any_hit,
+                                                            closest_hit,
                                                             closest_hit_diff)
 from toroidal_ray_tracing_tpu_torch.trace.shade import shade
 from toroidal_ray_tracing_tpu_torch.utils.collectives import MAX, all_reduce
@@ -66,12 +80,6 @@ def bucket_sizes(n: int, factors=None) -> tuple:
                if n // f >= COMPACT_MIN}
     smaller = sorted((s for s in smaller if s < lanes), reverse=True)
     return (lanes, *smaller) if smaller else (n,)
-
-
-def live_spans(active):
-    """(S,) bool: the spans of `active` (a whole number of spans) that hold
-    a live ray."""
-    return active.view(-1, COMPACT_SPAN).any(dim=1)
 
 
 def span_order(live):
@@ -124,7 +132,8 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
     n = origins.shape[1]
     dev = origins.device
     max_depth = int(settings.max_depth)
-    sizes = bucket_sizes(n) if backend == "kernel" else (n,)
+    kernel = backend == "kernel"
+    sizes = bucket_sizes(n) if kernel else (n,)
     compact = len(sizes) > 1
     lanes = sizes[0]
     state = torch.empty((15, lanes), dtype=torch.float32, device=dev)
@@ -143,44 +152,45 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
     any_active = True
     depth = 0
     rays = torch.zeros((), dtype=torch.int64, device=dev)
+    if kernel:
+        params = shade_params(scene, settings)
+        spans = torch.empty((-(-lanes // COMPACT_SPAN),), dtype=torch.bool,
+                            device=dev)
+        counts = torch.zeros((max(max_depth, 1),), dtype=torch.int32,
+                             device=dev)
 
     # do-while (rgen:75-108): the primary segment is traced even when
     # max_depth <= 0
     while any_active and (depth < max_depth or depth == 0):
         s = state[:, :nb]
         act = active[:nb]
-        o, d, att, hv = s[_O], s[_D], s[_AT], s[_HV]
+        # (rows of a compacted prefix are strided: the kernels take them
+        # contiguous)
+        o, d = s[_O].contiguous(), s[_D].contiguous()
         # dead rays trace with tmax = 0: every kernel skips them
         seg_tmax = torch.where(act, SEG_TMAX, 0.0)
-        anchor = (batch_anchor(state[_O], n_batch) if backend == "kernel"
-                  else None)
+        anchor = batch_anchor(state[_O], n_batch) if kernel else None
         hit = closest_hit(scene, o, d, tmax=seg_tmax, backend=backend,
                           geom=geom, prim_group=prim_group,
-                          want_attrs=backend == "kernel", anchor=anchor)
-        sh = shade(scene, settings, o, d, hit, backend=backend, geom=geom,
-                   prim_group=prim_group)
-
-        live = act[None, :]
-        # rchit multiplies prd.attenuation before rgen accumulates
-        # (rchit:127 runs inside traceRayEXT, before rgen:92)
-        torch.where(live, att * sh.atten_factor, att, out=att)
-        torch.where(live, hv + sh.hit_value * att, hv, out=hv)
-        if depth == 0:
-            torch.where(live, sh.hit_position, s[_HP], out=s[_HP])
-
-        rays = rays + act.sum() + (act & sh.shadow_rays).sum()
-        act = act & ~sh.done & (depth + 1 < max_depth)
-        active[:nb] = act
-        torch.where(act[None, :], sh.next_origin, o, out=o)
-        torch.where(act[None, :], sh.next_dir, d, out=d)
+                          want_attrs=kernel, anchor=anchor)
+        if kernel:
+            # S2 -> K4 (textured) -> the shadow any-hit -> S3, which
+            # updates the state, the ray count and the live spans in place
+            sr = shade_hit(o, d, hit, hit.attrs, params)
+            quads = (quad_gather(scene.textures.data4q, *sr.tex)
+                     if sr.tex is not None else None)
+            occluded = any_hit(scene, sr.shadow_o, sr.shadow_d,
+                               sr.shadow_tmax, backend=backend, geom=geom,
+                               prim_group=prim_group)
+            count = counts[depth]
+            shade_finish(state, active, nb, sr, occluded, quads, params,
+                         depth, max_depth, rays, spans, count)
+        else:
+            count = _advance(scene, settings, s, active, nb, hit, depth,
+                             max_depth, rays, geom, prim_group)
 
         # the stop test and the next bucket: the live spans (the most of
         # any rank's, which every rank's bucket then holds), read once
-        if compact:
-            spans = live_spans(act)
-            count = spans.sum()
-        else:
-            count = act.any()
         if group is not None:
             count = all_reduce(count, MAX, group)
         count = int(count)
@@ -189,10 +199,10 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
                if compact else nb)
         if any_active and fit < nb:
             # pack the prefix's live spans first (the suffix is dead)
-            order = span_order(spans)
+            order = span_order(spans[:nb // COMPACT_SPAN])
             idx = span_lanes(order)
             state[:, :nb] = s.index_select(1, idx)
-            active[:nb] = act.index_select(0, idx)
+            active[:nb] = active[:nb].index_select(0, idx)
             if span_orig is None:
                 span_orig = torch.arange(lanes // COMPACT_SPAN, device=dev)
             span_orig[:order.shape[0]] = span_orig[order]
@@ -204,6 +214,30 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
         state = torch.empty_like(state).index_copy_(
             1, span_lanes(span_orig), state)
     return state[_HV, :n], state[_HP, :n], int(rays)
+
+
+def _advance(scene, settings, s, active, nb, hit, depth, max_depth, rays,
+             geom, prim_group):
+    """One segment's shading and state update on the torch backend, in
+    place (the kernel backend's S2 / S3 twins restate it). Returns whether
+    a ray is still live (0-d)."""
+    o, d, att, hv = s[_O], s[_D], s[_AT], s[_HV]
+    act = active[:nb]
+    sh = shade(scene, settings, o, d, hit, backend="torch", geom=geom,
+               prim_group=prim_group)
+    live = act[None, :]
+    # rchit multiplies prd.attenuation before rgen accumulates
+    # (rchit:127 runs inside traceRayEXT, before rgen:92)
+    torch.where(live, att * sh.atten_factor, att, out=att)
+    torch.where(live, hv + sh.hit_value * att, hv, out=hv)
+    if depth == 0:
+        torch.where(live, sh.hit_position, s[_HP], out=s[_HP])
+    rays += act.sum() + (act & sh.shadow_rays).sum()
+    act = act & ~sh.done & (depth + 1 < max_depth)
+    active[:nb] = act
+    torch.where(act[None, :], sh.next_origin, o, out=o)
+    torch.where(act[None, :], sh.next_dir, d, out=d)
+    return act.any()
 
 
 def trace_rays_fixed(scene: Scene, settings: RenderSettings, origins, dirs,

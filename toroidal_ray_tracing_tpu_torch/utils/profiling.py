@@ -102,12 +102,10 @@ def record_segments(out: list):
     from toroidal_ray_tracing_tpu_torch.trace import wavefront
 
     real = wavefront.closest_hit
-    span = wavefront.COMPACT_SPAN
 
     def recorded(*a, **k):
-        lanes = k["tmax"].shape[0]
-        live = torch.nn.functional.pad(k["tmax"] > 0, (0, (-lanes) % span))
-        out.append([int(lanes), int(live.view(-1, span).any(dim=1).sum())])
+        live = wavefront.live_spans(k["tmax"] > 0)
+        out.append([int(k["tmax"].shape[0]), int(live.sum())])
         return real(*a, **k)
 
     wavefront.closest_hit = recorded

@@ -165,13 +165,19 @@ Phases, each printed on its own lines with its wall seconds:
      is bit-equal, the lanes parted only where a libm function (powf,
      log2f, sqrtf) rounds otherwise, within 1e-6 of max(1, |value|), and
      no lane with a discrete output off; S3's ray count, live spans and
-     their count equal. Configs 6 and 5 also time each kernel: the
-     wrapper, the bare launch, its device time (20 bare launches in a
-     CUDA graph; S3, in place, less the restore of its state each run
-     needs) and the twin, beside the byte bound (each input read once and
-     each output written once, as this run's data needs them: a miss
-     moves its flags and tmax, a lane its position rows only where it
-     goes on).
+     their count equal. S2 takes the query's parts and is compared on
+     the entries its contract defines (`shade_kernel.defined_entries`),
+     also on the merged hit as its base (the route it replaces); S3 fed
+     by S2 on parts, by S2 on the merged hit, and by S2 on parts with
+     every undefined entry set to NaN, equals the twins end to end on
+     every lane. Configs 6 and 5 also time each kernel: the wrapper, the
+     bare launch, its device time (20 bare launches in a CUDA graph; S3,
+     in place, less the restore of its state each run needs) and the
+     twin, beside the byte bound (each input read once and each output
+     written once, as this run's data needs them: a miss moves its flags
+     and tmax, a lane its position rows only where it goes on); S2 also
+     beside merge_parts + S2 on the merged hit, wrapper and CUDA-graph
+     device time in the same process, which it must not exceed.
 
 Phases 4 and 7-11 also check every kernel-backend segment that a counted
 path traces on the card (`SegmentGuard`): from its closest-hit query to
@@ -884,8 +890,10 @@ def phase_kernels(torch, results):
         check(eq, f"K4 {label} bit-equal to its plain twin")
 
         def library():
-            return tuple(torch.where(valid[None, :], data4q[f.long()].T, 0)
-                         for f in (f0, f1))
+            # (S2 leaves an invalid lane's indices undefined: masked)
+            return tuple(torch.where(valid[None, :],
+                                     data4q[torch.where(valid, f, 0).long()].T,
+                                     0) for f in (f0, f1))
 
         check(bit_equal(library(), ref),
               f"K4 {label}: library gather computes the same")
@@ -3012,33 +3020,58 @@ def bare_launch(fn):
     return seen[0]
 
 
-def s2_bytes(hit, rows, flags, textured) -> int:
-    """The bytes S2 must move for this segment's data: every lane reads t
-    and kind and writes the shadow tmax and its flags (and K4's valid
-    flag); a hit reads the ray and its winner's rows (a torus 60 B, a
-    triangle 72 B, a loose row's u, v and its table columns, once, in L2)
-    and writes the shadow ray and 14 block rows; with loose rows, a
-    triangle hit reads its prim to tell them apart; a textured hit reads
-    uv and the texel density (K1's rows or the table's) and writes 5 more
-    block rows and K4's two indices."""
+def s2_bytes(rows, flags, params) -> int:
+    """The bytes S2 must move for this segment's data under its contract
+    (`ops.shade_kernel`'s docstring): every lane reads each part's t (and
+    the base's kind) and writes its flags and shadow tmax (and K4's valid
+    flag); a hit reads its ray and writes its first-hit point, diffuse and
+    specular colors and light intensity; a lit hit writes the shadow
+    direction, one with Phong or a reflection its normal, a reflection its
+    position, one with Phong its shininess, a textured hit the five texel
+    rows and K4's two indices; a hit reads of its winner's rows the normal,
+    illum, diffuse and specular colors, the ambient where illum >= 1, the
+    shininess with Phong, and a triangle its texture id, its position for
+    a point light or a reflection, its uv and texel density where
+    textured; with loose rows a triangle hit reads its prim, a loose one
+    its u and v and the tail's table columns once (in L2)."""
     from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+    from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import merge_parts
+    from toroidal_ray_tracing_tpu_torch.scene.types import LIGHT_POINT
 
     def count(m):
         return int(m.sum())
 
+    n = flags.shape[0]
+    hit = merge_parts(rows, n, flags.device)
+    illum = sk.shade_attrs(hit, hit.attrs).illum
     tor, tri = hit.kind == 1, hit.kind == 0
+    hits = tor | tri
     loose = tri & False
     if rows.loose is not None:
-        c = rows.tri_prim
-        loose = tri & (c >= rows.loose_base) & (
-            c < rows.loose_base + rows.n_loose)
-    tex = (tor | tri) & ((flags & sk.TEXTURED) > 0)
-    b = hit.t.shape[0] * (8 + 4 + 1 + int(textured))
-    b += count(tor | tri) * (24 + 24 + 4 * 14)
-    b += count(tor) * 60 + count(tri & ~loose) * 72 + count(loose) * 8
+        loose = tri & (hit.prim >= rows.loose_base) & (
+            hit.prim < rows.loose_base + rows.n_loose)
+
+    def bit(b):
+        return hits & ((flags & b) > 0)
+
+    spec = bit(sk.SPEC_ON) & bit(sk.FACING)
+    refl, tex = bit(sk.REFLECT), bit(sk.TEXTURED)
+    textured = params.atlas is not None
+    b = n * (8 * (rows.base is not None) + 4 * (rows.tri_hit is not None)
+             + 4 * (rows.tor_hit is not None) + 4 + 1 + int(textured))
+    b += count(hits) * (24 + 40) + count(bit(sk.NEED_SHADOW)) * 12
+    b += count(spec | refl) * 12 + count(refl) * 12 + count(spec) * 4
+    if textured:
+        b += count(tex) * 28
+    own = hits & ~loose                   # rows from the kernels' outputs
+    b += count(own) * (12 + 4 + 12 + 12) + count(own & (illum >= 1)) * 12
+    b += count(own & spec) * 4 + count(tri & ~loose) * 4
+    pos = tri & ~loose & (refl | (params.light_type == LIGHT_POINT))
+    b += count(pos) * 12 + count(tex & ~loose) * 12
     if rows.loose is not None:
-        b += count(tri) * 4 + rows.n_loose * (21 + 8 + 8) * 4
-    return b + count(tex & ~loose) * 12 + count(tex) * (20 + 8)
+        b += count(tri) * 4 + count(loose) * 8
+        b += rows.n_loose * (21 + 8 + 8) * 4
+    return b
 
 
 def s3_bytes(active, nb, flags, occluded, going_on, textured, depth) -> int:
@@ -3083,9 +3116,12 @@ def phase_segment_kernels(torch, results):
     (2,073,600 and 8,294,400 rays) and config 7 (textured), with their
     times (wrapper, bare launch, device time of 20 bare launches in a CUDA
     graph, the twin) and byte bounds."""
+    import dataclasses
+
     from toroidal_ray_tracing_tpu_torch.experiments.k3_turns import graph_ms
     from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
     from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+    from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import launch
 
     S1 = ("loose_hit.cu", "toroidal_ray_tracing_tpu/ops/trace_kernel.py:207")
@@ -3117,33 +3153,62 @@ def phase_segment_kernels(torch, results):
                         f"({'any-hit' if a[8] else 'closest'}, L = {L})",
                         S1, outputs_agree(torch, got, ref), times, nb, "")
 
-        # --- S2
-        o, d, hit, rows, params = calls["s2"]
-        got = sk.shade_hit(o, d, hit, rows, params)
-        ref = sk.shade_hit_plain(o, d, hit, rows, params)
+        # --- S2 on the query's parts, and on the merged hit as its base
+        # (the route it replaces, which a primitive-sharded query keeps)
+        o, d, rows, params = calls["s2"]
+        n = o.shape[1]
+
+        def merged():
+            return sk.base_rows(tk.merge_parts(rows, n, o.device))
+
+        got = sk.shade_hit(o, d, rows, params)
+        got_m = sk.shade_hit(o, d, merged(), params)
+        ref = sk.shade_hit_plain(o, d, rows, params)
         textured = params.atlas is not None
-        nrow = sk.N_BLOCK if textured else sk.FX0
 
         def s2_out(r):
-            out = [r.shadow_o, r.shadow_d, r.shadow_tmax, r.block[:nrow],
-                   r.flags]
-            return out + (list(r.tex) if textured else [])
+            # each output on the lanes the contract defines it (the twin's
+            # flags; every entry else is left undefined)
+            return [torch.where(lanes, x, torch.zeros_like(x))
+                    for _, x, lanes in sk.defined_entries(
+                        dataclasses.replace(r, flags=ref.flags), textured)]
 
-        nb = s2_bytes(hit, rows, ref.flags, textured)
+        nb = s2_bytes(rows, ref.flags, params)
         times = None
         if timed:
-            name, args = bare_launch(
-                lambda: sk.shade_hit(o, d, hit, rows, params))
-            times = (cuda_ms(lambda: sk.shade_hit(o, d, hit, rows, params),
+            name, args = bare_launch(lambda: sk.shade_hit(o, d, rows, params))
+            times = (cuda_ms(lambda: sk.shade_hit(o, d, rows, params),
                              reps=10),
                      cuda_ms(lambda: launch(name, *args), reps=10),
                      graph_ms(lambda: launch(name, *args)),
-                     cuda_ms(lambda: sk.shade_hit_plain(o, d, hit, rows,
-                                                        params), reps=3))
+                     cuda_ms(lambda: sk.shade_hit_plain(o, d, rows, params),
+                             reps=3))
+            old = dict(
+                ms=cuda_ms(lambda: sk.shade_hit(o, d, merged(), params),
+                           reps=10),
+                device_ms=graph_ms(lambda: sk.shade_hit(o, d, merged(),
+                                                        params)),
+                parts_device_ms=graph_ms(lambda: sk.shade_hit(o, d, rows,
+                                                              params)))
+            print(f"  S2 {tag}: on parts, wrapper and outputs in a CUDA graph "
+                  f"{old['parts_device_ms']:.4f} ms on the device; the route "
+                  f"it replaces, merge_parts + S2 on the merged hit: wrapper "
+                  f"{old['ms']:.4f} ms, {old['device_ms']:.4f} ms on the "
+                  f"device", flush=True)
+            check(old["parts_device_ms"] <= old["device_ms"] * 1.02,
+                  f"S2 {tag}: on parts no slower than merge_parts + S2 on "
+                  "the merged hit (device, 2% for noise)")
         segment_row(results, "shade_hit", f"S2 shade_hit {tag}"
                     + (" (textured)" if textured else ""), S2,
                     outputs_agree(torch, s2_out(got), s2_out(ref)), times,
                     nb, "")
+        segment_row(results, "shade_hit_merged", f"S2 shade_hit on the "
+                    f"merged hit {tag}", S2,
+                    outputs_agree(torch, s2_out(got_m), s2_out(ref)), None,
+                    nb, "")
+        if times is not None:
+            results["shade_hit"]["shapes"][str(n)].update(
+                merged_route=old)
 
         # --- S3, in place: each run starts from the recorded state
         a3 = calls["s3"]
@@ -3206,9 +3271,41 @@ def phase_segment_kernels(torch, results):
                     f"lanes in, {n_next} out)")
         check(counts_eq, f"S3 {tag}: ray count and live spans equal the "
               "twin's")
+        # S3 fed by each S2 output, with S2's undefined entries poisoned in
+        # one, against the twins end to end: every lane bit-equal
+        tw = list(fresh())
+        tw[3] = ref
+        sk.shade_finish_plain(*tw)
+        for what, sr_v in (("S2 on parts", got), ("S2 on the merged hit",
+                                                  got_m),
+                           ("S2 on parts, undefined entries poisoned",
+                            poisoned(got, textured))):
+            kv = list(fresh())
+            kv[3] = sr_v
+            sk.shade_finish(*kv)
+            same = (torch.equal(kv[0], tw[0]) and torch.equal(kv[1], tw[1])
+                    and int(kv[9]) == int(tw[9])
+                    and int(kv[11]) == int(tw[11])
+                    and torch.equal(kv[10][:-(-n3 // 128)],
+                                    tw[10][:-(-n3 // 128)]))
+            check(same, f"S3 {tag} fed by {what}: state, active, ray count, "
+                  "spans and count bit-equal to the twins' on every lane")
     for k in ("loose_hit", "shade_hit", "shade_finish"):
         check(k in results and "ms" in results[k], f"{k}: timed")
+    # the merged route's agreement, kept in the shade_hit row
+    results["shade_hit"]["merged_route_max_abs_err"] = results.pop(
+        "shade_hit_merged")["max_abs_err"]
 
+
+def poisoned(sr, textured):
+    """A copy of S2's outputs with every entry its contract leaves
+    undefined set to NaN (floats) or -7 (K4's indices)."""
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+
+    out = _cloned(sr)
+    for _, x, lanes in sk.defined_entries(out, textured):
+        x[..., ~lanes] = float("nan") if x.is_floating_point() else -7
+    return out
 
 
 def main() -> int:

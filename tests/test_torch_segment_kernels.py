@@ -322,8 +322,10 @@ def test_segment_twins_equal_shade(cam, light):
                  attrs=sk.shade_attrs(hit, hit.attrs))
         sh = shade(scene, st, oo, dd, sa, backend="kernel")
         _old_update(ref_state, ref_active, n, sh, depth, 3, ref_rays)
-        # the twins through the wrappers
-        sr = sk.shade_hit(oo, dd, hit, hit.attrs, params)
+        # the twins through the wrappers, S2 on the query's parts
+        parts = closest_hit(scene, oo, dd, tmax=tmax, backend="kernel",
+                            want_attrs=True, merge=False)
+        sr = sk.shade_hit(oo, dd, parts.attrs, params)
         quads = quad_gather(scene.textures.data4q, *sr.tex)
         occ = any_hit(scene, sr.shadow_o, sr.shadow_d, sr.shadow_tmax,
                       backend="kernel")
@@ -356,9 +358,9 @@ def test_segment_wrappers_check_their_inputs():
     hit = closest_hit(scene, oo, dd, backend="kernel", want_attrs=True)
     params = sk.shade_params(scene, st)
     with pytest.raises(ValueError):        # strided rays
-        sk.shade_hit(torch.cat([oo, oo], 1)[:, ::2], dd, hit, hit.attrs,
+        sk.shade_hit(torch.cat([oo, oo], 1)[:, ::2], dd, sk.base_rows(hit),
                      params)
-    sr = sk.shade_hit(oo, dd, hit, hit.attrs, params)
+    sr = sk.shade_hit(oo, dd, sk.base_rows(hit), params)
     state, active = _start(o, d, 1)
     occ = torch.zeros((64,), dtype=torch.bool)
     with pytest.raises(ValueError):        # a textured scene needs K4's words
@@ -403,10 +405,11 @@ def test_segment_twins_match_jax_shade(cam, light):
                                   want_attrs=True)
     ref = jax_shade(jscene, jst, jo, jd, jhit, backend="pallas")
     hit = Hit(*(torch.from_numpy(np.array(getattr(jhit, k)))
-                for k in ("t", "kind", "prim", "u", "v")))
+                for k in ("t", "kind", "prim", "u", "v")),
+              attrs=_rows_of(jhit.attrs, n))
     params = sk.shade_params(scene, st)
     oo, dd = state[_O].contiguous(), state[_D].contiguous()
-    sr = sk.shade_hit(oo, dd, hit, _rows_of(jhit.attrs, n), params)
+    sr = sk.shade_hit(oo, dd, sk.base_rows(hit), params)
     quads = quad_gather(scene.textures.data4q, *sr.tex)
     occ = any_hit(scene, sr.shadow_o, sr.shadow_d, sr.shadow_tmax,
                   backend="kernel")

@@ -287,13 +287,14 @@ _SIGNATURES = {
     # prim_base, occlusion, t, kind, prim, u, v, tri_tmax, stream
     "trt_loose_hit": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
                       _P, _P, _P, _P, _P],
-    # origins, dirs, n, t, kind, u, v, tri, tor, tri_kind, tri_prim, la0,
-    # la1, la2, n_cols, loose_base, n_loose, consts, light_point, intensity,
-    # pixel_spread, tex_off, tex_sizes, tex_levels, n_lv, shadow_o,
-    # shadow_d, shadow_tmax, block, flags, tex_i0, tex_i1, tex_valid, stream
-    "trt_shade_hit": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                      _P, _I, _I, _I, _P, _I, _F, _F, _P, _P, _P, _I, _P,
-                      _P, _P, _P, _P, _P, _P, _P, _P],
+    # origins, dirs, n, base t, kind, prim, u, v, tri t, idx, u, v,
+    # tri_off, tor t, tri, tor, la0, la1, la2, n_cols, loose_base, n_loose,
+    # consts, light_point, intensity, pixel_spread, tex_off, tex_sizes,
+    # tex_levels, n_lv, shadow_o, shadow_d, shadow_tmax, block, flags,
+    # tex_i0, tex_i1, tex_valid, stream
+    "trt_shade_hit": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                      _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F,
+                      _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
     # state, lanes, active, nb, block, flags, shadow_o, shadow_d, occluded,
     # q0, q1, srgb, consts, first, more, rays, spans, count, stream
     "trt_shade_finish": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,

@@ -6,13 +6,14 @@ jitted `lax.while_loop` body, and XLA fuses it (`trace/shade.py:226-414`,
 `trace/wavefront.py:167-195`); no Pallas kernel. Here it is two
 hand-written CUDA kernels, `csrc/shade.cu`:
 
-* S2 `shade_hit`: from a query's merged hit and its kernels' raw attribute
-  rows (`intersect.AttrRows`) to the shadow query: the `ShadeAttrs`
-  assembly (`shade_attrs`), the hit point, the normal, the point or
-  infinite light, Lambert plus ambient, the mip LOD and K4's two quad
-  indices and fractions, and the shadow ray. Its outputs (`ShadeRays`)
-  carry what S3 needs: a (19, N) block of per-ray values and one flag
-  byte a ray.
+* S2 `shade_hit`: from a closest-hit query's parts and its kernels' raw
+  attribute rows (`intersect.AttrRows`) to the shadow query: the merges of
+  `ops.trace_kernel.merge_parts` (strict t comparisons, in registers), the
+  `ShadeAttrs` assembly (`shade_attrs`), the hit point, the normal, the
+  point or infinite light, Lambert plus ambient, the mip LOD and K4's two
+  quad indices and fractions, and the shadow ray. Its outputs
+  (`ShadeRays`) carry what S3 needs: a (19, N) block of per-ray values and
+  one flag byte a ray.
 * S3 `shade_finish`: after the shadow query (and K4's fetch on textured
   scenes): the texel blend, Phong with its energy factor, the 0.3 shadow
   attenuation, the miss color, the reflection request, the next ray, and
@@ -21,12 +22,31 @@ hand-written CUDA kernels, `csrc/shade.cu`:
   and each 128-ray span's live flag with their count, which the host reads
   once a segment.
 
+S2 writes each output only on the lanes where a reader reads it, as masks
+over its flag bits (`defined_entries`; hit = not MISSED):
+
+  every lane:     flags (a missed lane: MISSED alone), shadow_tmax (0 where
+                  not NEED_SHADOW), K4's valid flag (textured scenes)
+  hit:            shadow_o (the first-hit position), block DIFF, SPEC, LINT
+  NEED_SHADOW:    shadow_d
+  SPEC_ON & FACING, or REFLECT:  block NRM
+  REFLECT:        block POS
+  SPEC_ON & FACING:  block SHIN
+  hit & TEXTURED: block FX0-FLOD and K4's two indices (textured scenes)
+
+Everything else is left as `torch.empty` made it. S3 reads only these
+entries; the shadow query reads every lane's rays but tests none where
+shadow_tmax is 0; K4 loads every lane's indices and uses them only where
+valid. S2 reads a winner's attribute rows only for what these outputs
+need (a triangle's pos only for a point light or a reflection; ambient
+only where illum >= 1; uv and texel density only where textured).
+
 Each wrapper launches its kernel on CUDA tensors and runs its plain
 PyTorch twin (`shade_hit_plain`, `shade_finish_plain`) on CPU tensors;
 there is no fallback from one to the other. The twins are `trace/shade.py`
 `shade()`'s arithmetic (which stays the `backend="torch"` and gradient
 path) and the loop update, split where the kernels split, so on the CPU
-they give shade()'s bits.
+they give shade()'s bits; S2's twin writes every entry.
 """
 
 from __future__ import annotations
@@ -39,8 +59,8 @@ import torch.nn.functional as F_
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (F32, I32,
                                                               check_args,
-                                                              check_rays,
                                                               launch)
+from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import merge_parts
 from toroidal_ray_tracing_tpu_torch.scene.types import (LIGHT_POINT,
                                                         RenderSettings, Scene,
                                                         srgb_table)
@@ -96,7 +116,8 @@ def shade_params(scene: Scene, settings: RenderSettings) -> ShadeParams:
 
 @dataclasses.dataclass
 class ShadeRays:
-    """S2's outputs: the shadow query's rays and what S3 reads."""
+    """S2's outputs: the shadow query's rays and what S3 reads (each
+    defined on the lanes of `defined_entries`)."""
 
     shadow_o: torch.Tensor      # (3, N) the hit point o + min(t, 1e8) d
     shadow_d: torch.Tensor      # (3, N) toward the light
@@ -145,11 +166,49 @@ def shade_attrs(hit: Hit, rows: AttrRows) -> ShadeAttrs:
         tex_density=torch.where(is_tor, 0.0, tri[20]))
 
 
-def shade_hit_plain(origins, dirs, hit: Hit, rows: AttrRows,
+def base_rows(hit: Hit) -> AttrRows:
+    """S2's input for a hit merged already (a primitive-sharded query's,
+    `intersect.combine_hits_over_axis`): its rows with the hit as the base
+    and no other part."""
+    return dataclasses.replace(
+        hit.attrs if hit.attrs is not None else AttrRows(),
+        base=(hit.t, hit.kind, hit.prim, hit.u, hit.v), tri_hit=None,
+        tor_hit=None)
+
+
+def defined_entries(s2: ShadeRays, textured: bool):
+    """[(name, values (rows, N) or (N,), lanes)]: each of S2's outputs with
+    the (N,) bool lanes on which the contract defines it, from s2's own
+    flags (the module's docstring; views, so a caller may overwrite the
+    undefined entries in place)."""
+    fl, b = s2.flags, s2.block
+    hit = (fl & MISSED) == 0
+    every = torch.ones_like(hit)
+
+    def bit(x):
+        return (fl & x) > 0
+
+    spec = bit(SPEC_ON) & bit(FACING)
+    out = [("flags", fl, every), ("shadow_tmax", s2.shadow_tmax, every),
+           ("shadow_o", s2.shadow_o, hit),
+           ("shadow_d", s2.shadow_d, bit(NEED_SHADOW)),
+           ("nrm", b[NRM], spec | bit(REFLECT)), ("pos", b[POS], bit(REFLECT)),
+           ("diff", b[DIFF], hit), ("spec", b[SPEC], hit),
+           ("shin", b[SHIN], spec), ("lint", b[LINT], hit)]
+    if textured:
+        tex = hit & bit(TEXTURED)
+        out += [("tex_rows", b[FX0:], tex), ("tex_i0", s2.tex[0], tex),
+                ("tex_i1", s2.tex[1], tex), ("tex_valid", s2.tex[2], every)]
+    return out
+
+
+def shade_hit_plain(origins, dirs, rows: AttrRows,
                     params: ShadeParams) -> ShadeRays:
-    """Plain PyTorch twin of S2: shade()'s arithmetic up to its shadow
-    query (`trace/shade.py:127-144, 203-248`)."""
+    """Plain PyTorch twin of S2: `merge_parts`, then shade()'s arithmetic
+    up to its shadow query (`trace/shade.py:127-144, 203-248`)."""
     n = origins.shape[1]
+    hit = merge_parts(rows, n, origins.device)
+    rows = hit.attrs
     missed = hit.kind < 0
     is_tor = hit.kind == 1
     ray_hit_pos = origins + torch.clamp(hit.t, max=1.0e8)[None, :] * dirs
@@ -197,9 +256,11 @@ def shade_hit_plain(origins, dirs, hit: Hit, rows: AttrRows,
     need_shadow = facing & ~missed
     block[NRM], block[POS], block[DIFF] = nrm, world_pos, diffuse
     block[SPEC], block[SHIN], block[LINT] = a.specular, a.shininess, lint
-    flags = (missed * MISSED + need_shadow * NEED_SHADOW + facing * FACING
-             + (a.illum >= 2) * SPEC_ON + ((a.illum == 3) & ~missed) * REFLECT
-             + (tex_id >= 0) * TEXTURED).to(torch.uint8)
+    # a missed lane's flags are MISSED alone (S2 reads no rows for it)
+    flags = torch.where(missed, MISSED, need_shadow * NEED_SHADOW
+                        + facing * FACING + (a.illum >= 2) * SPEC_ON
+                        + (a.illum == 3) * REFLECT
+                        + (tex_id >= 0) * TEXTURED).to(torch.uint8)
     return ShadeRays(shadow_o=ray_hit_pos.contiguous(),
                      shadow_d=L.contiguous(),
                      shadow_tmax=torch.where(need_shadow, ldist, 0.0),
@@ -273,28 +334,35 @@ def shade_finish_plain(state, active, nb: int, s2: ShadeRays, occluded,
 # ---------------------------------------------------------------------------
 
 
-def shade_hit(origins, dirs, hit: Hit, rows: AttrRows,
+def shade_hit(origins, dirs, rows: AttrRows,
               params: ShadeParams) -> ShadeRays:
-    """S2 wrapper. origins/dirs: (3, N) rows; hit: the query's merged (t,
-    kind, prim, u, v); rows: its `AttrRows`; params: `shade_params`."""
-    check_rays(origins, dirs, hit.t)
+    """S2 wrapper. origins/dirs: (3, N) rows; rows: a closest-hit query's
+    `AttrRows` with its hit parts (`closest_hit(..., merge=False)`, or
+    `base_rows` of a merged hit); params: `shade_params`. The outputs are
+    defined on the lanes the module's contract gives (`defined_entries`)."""
     n, dev = origins.shape[1], origins.device
+    base, tri_hit, tor_hit = rows.base, rows.tri_hit, rows.tor_hit
+    b = base if base is not None else (None,) * 5
+    k = tri_hit if tri_hit is not None else (None,) * 4
+    q = tor_hit if tor_hit is not None else (None,) * 2
     T = rows.loose[0].shape[1] if rows.loose is not None else 0
     la = rows.loose if rows.loose is not None else (None,) * 3
-    check_args(dev, kind=(hit.kind, (n,), I32), prim=(hit.prim, (n,), I32),
-               u=(hit.u, (n,), F32), v=(hit.v, (n,), F32),
+    check_args(dev, origins=(origins, (3, n), F32),
+               dirs=(dirs, (3, n), F32), t=(b[0], (n,), F32),
+               kind=(b[1], (n,), I32), prim=(b[2], (n,), I32),
+               u=(b[3], (n,), F32), v=(b[4], (n,), F32),
+               tri_t=(k[0], (n,), F32),
+               tri_idx=(k[1], (n,), I32), tri_u=(k[2], (n,), F32),
+               tri_v=(k[3], (n,), F32), tor_t=(q[0], (n,), F32),
+               tor_idx=(q[1], (n,), I32),
                tri=(rows.tri, (21, n), F32), tor=(rows.tor, (15, n), F32),
                a0=(la[0], (21, T), F32), a1=(la[1], (8, T), F32),
-               a2=(la[2], (8, T), F32), consts=(params.consts, (9,), F32),
-               tri_kind=(rows.tri_kind, (n,), I32),
-               tri_prim=(rows.tri_prim, (n,), I32))
-    if rows.loose is not None and (
-            rows.tri_kind is None
-            or not 0 <= rows.loose_base <= T - rows.n_loose):
-        raise ValueError("loose rows need the triangle side's winner and "
-                         "rows inside the tables")
+               a2=(la[2], (8, T), F32), consts=(params.consts, (9,), F32))
+    if rows.loose is not None and not (
+            0 <= rows.loose_base <= T - rows.n_loose):
+        raise ValueError("loose rows lie outside the tables")
     if not origins.is_cuda:
-        return shade_hit_plain(origins, dirs, hit, rows, params)
+        return shade_hit_plain(origins, dirs, rows, params)
     f32 = dict(dtype=F32, device=dev)
     out = ShadeRays(
         shadow_o=torch.empty((3, n), **f32),
@@ -312,9 +380,9 @@ def shade_hit(origins, dirs, hit: Hit, rows: AttrRows,
                    torch.empty((n,), dtype=I32, device=dev),
                    torch.empty((n,), dtype=torch.bool, device=dev))
     if n:
-        launch("trt_shade_hit", origins, dirs, n, hit.t, hit.kind, hit.u,
-               hit.v, rows.tri, rows.tor, rows.tri_kind, rows.tri_prim, *la,
-               T, int(rows.loose_base), int(rows.n_loose), params.consts,
+        launch("trt_shade_hit", origins, dirs, n, *b, *k,
+               int(rows.tri_offset), q[0], rows.tri, rows.tor, *la, T,
+               int(rows.loose_base), int(rows.n_loose), params.consts,
                int(params.light_type == LIGHT_POINT), params.intensity,
                params.pixel_spread,
                *((at.offsets, at.sizes, at.n_levels, at.offsets.shape[1])

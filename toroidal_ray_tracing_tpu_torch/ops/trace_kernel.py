@@ -11,12 +11,17 @@ Per query:
      (`tri_stream.tri_closest_hit_stream`) for meshes above
      `TRI_STREAM_MIN` triangles cut into whole 128-multiple clusters (the
      TPU route, trace_kernel.py:345-352);
-  3. triangle hits fold into the torus query's tmax, then K2/K3
-     (`torus_closest_hit`, routed as the TPU launcher routes);
-  4. with want_attrs, the kernels' 21-row (triangle) and 15-row (torus)
-     attribute outputs (and the loose tail's tables) come out as they are
-     (`AttrRows`, which the shading kernel S2 reads;
-     `ops.shade_kernel.shade_attrs` assembles them into `ShadeAttrs`).
+  3. triangle hits fold into the torus query's tmax (one
+     `torch.minimum`; in any-hit mode 0 where a triangle occludes), then
+     K2/K3 (`torus_closest_hit`, routed as the TPU launcher routes);
+  4. the kernels' hits come out as parts (`AttrRows.base` from S1,
+     `.tri_hit`, `.tor_hit`), with want_attrs beside their 21-row
+     (triangle) and 15-row (torus) attribute outputs and the loose tail's
+     tables. `merge_parts` merges them into a `Hit` for every caller but
+     the bounce loop, whose shading kernel S2 merges them in registers
+     (`closest_hit_kernel(..., merge=False)`); `ops.shade_kernel.
+     shade_attrs` assembles the rows into `ShadeAttrs`. The shadow query
+     (`occluded_kernel`) forms its mask from the parts without merging.
 
 The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
 `StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
@@ -37,6 +42,8 @@ it meets on the TPU.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -133,26 +140,51 @@ def _no_hit(n: int, dev):
             torch.zeros((n,), dtype=torch.float32, device=dev))
 
 
-def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
-                       want_attrs: bool = False, occlusion: bool = False,
-                       anchor=None):
-    """Closest hit through the kernels. origins/dirs: (3, N) rows; tmax
-    (N,). want_attrs: emit Hit.attrs, the kernels' raw `AttrRows` (what
-    S2 reads). occlusion: any-hit (only
-    Hit.kind >= 0 is meaningful). anchor: the (3,) point the tree kernels'
-    visit orders start from (default: the batch's mean origin)."""
-    if want_attrs and occlusion:
-        raise ValueError("want_attrs and occlusion are exclusive")
+def merge_parts(rows: _isect.AttrRows, n: int, dev) -> _isect.Hit:
+    """The merged `Hit` of a query's parts (`AttrRows.base`, `.tri_hit`,
+    `.tor_hit`): the triangle kernel's hit where its t is strictly below
+    the base's, then the torus kernel's where its t is strictly below that.
+    Hit.attrs: the rows without the parts, with the triangle side's winner
+    (`tri_kind` / `tri_prim`) where the loose tables are and no earlier
+    merge set it. S2 (`csrc/shade.cu`) makes the same comparisons in
+    registers."""
+    t, kind, prim, u, v = (rows.base if rows.base is not None
+                           else _no_hit(n, dev))
+    if rows.tri_hit is not None:
+        tt, ti, tu, tv = rows.tri_hit
+        better = tt < t
+        t, kind, prim, u, v = (torch.where(better, tt, t),
+                               torch.where(better, 0, kind),
+                               torch.where(better, ti + rows.tri_offset, prim),
+                               torch.where(better, tu, u),
+                               torch.where(better, tv, v))
+    attrs = dataclasses.replace(rows, base=None, tri_hit=None, tor_hit=None)
+    if rows.loose is not None and rows.tri_kind is None:
+        attrs.tri_kind, attrs.tri_prim = kind, prim
+    if rows.tor_hit is not None:
+        kt, ki = rows.tor_hit
+        better = kt < t
+        t = torch.where(better, kt, t)
+        kind = torch.where(better, 1, kind)
+        prim = torch.where(better, ki + rows.tor_offset, prim)
+    return _isect.Hit(t=t, kind=kind, prim=prim, u=u, v=v, attrs=attrs)
+
+
+def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
+           occlusion: bool, anchor):
+    """Run a query's kernels, each on the tmax the earlier ones left: S1
+    (the loose hoist), K1/K5, K2/K3. Returns (rows, tri_occ): the parts
+    unmerged in an `AttrRows` (with the kernels' attribute rows and the
+    loose tables where want_attrs), and in occlusion mode the (N,) mask of
+    the rays a triangle occludes (else None)."""
     origins = origins.contiguous()
     dirs = dirs.contiguous()
     n = origins.shape[1]
     n_batch = round_up(max(n, 1), RAY_TILE)
-    dev = origins.device
     has_tris, has_tori = _isect.has_prims(scene)
-
     rows = _isect.AttrRows()
-    hit = None        # the merged (t, kind, prim, u, v) so far
-    s1_only = False   # S1 was the only triangle query
+    tri_tmax = tmax   # the next kernel's tmax: below every hit so far
+    tri_occ = None
 
     if has_tris:
         T = geom.woop_o.shape[2]
@@ -177,21 +209,22 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                               for a in _tri_attr_tables(scene)))
 
         # the loose tail is the whole table's: a slice tests it like any
-        # other cluster (its real boxes). S1 writes the merged hit the
-        # triangle kernels start from and their tmax
+        # other cluster (its real boxes). S1 writes the base hit the
+        # triangle kernels start from and their tmax (0 where it occludes)
         L = scene.loose_tris
         n_tail = (L + cs - 1) // cs if L > 0 and aligned and whole else 0
-        tri_tmax = tmax
         if n_tail:
             base = T - n_tail * cs
             *hit, tri_tmax = loose_hit(origins, dirs, tmax, geom.woop_o,
                                        geom.woop_d, base, L, base + off,
                                        occlusion)
+            rows.base = tuple(hit)
+            if occlusion:
+                tri_occ = hit[1] >= 0
             if want_attrs:
                 rows.loose, rows.loose_base, rows.n_loose = tables, base, L
 
-        s1_only = n_tail == n_cl
-        if not s1_only:
+        if n_tail != n_cl:
             # (the hoist may cover every live triangle: no K1 launch)
             kw = dict(attr_tables=tables, occlusion=occlusion,
                       n_batch=n_batch, anchor=anchor)
@@ -205,19 +238,19 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                                       cs))
             hit_fn = tri_closest_hit_stream if stream else tri_closest_hit
             out = hit_fn(origins, dirs, tri_tmax, mesh, **kw)
-            tt, ti, tu, tv = out[:4]
+            tt = out[0]
+            rows.tri_hit, rows.tri_offset = tuple(out[:4]), off
             if want_attrs:
                 rows.tri = out[4]
-            t_best, kind, prim, u, v = hit or _no_hit(n, dev)
-            better = tt < t_best
-            hit = (torch.where(better, tt, t_best),
-                   torch.where(better, 0, kind),
-                   torch.where(better, ti + off, prim),
-                   torch.where(better, tu, u), torch.where(better, tv, v))
+            if occlusion:
+                # K1 found nothing where S1 occluded (tmax 0 there)
+                hit_k1 = tt < BIG
+                tri_occ = hit_k1 if tri_occ is None else tri_occ | hit_k1
+            if has_tori:
+                # the torus query's tmax: S1's tmax already holds S1's hit
+                tri_tmax = (torch.where(tri_occ, 0.0, tmax) if occlusion
+                            else torch.minimum(tri_tmax, tt))
 
-    if rows.loose is not None:
-        rows.tri_kind, rows.tri_prim = hit[1], hit[2]
-    t_best, kind, prim, u, v = hit or _no_hit(n, dev)
     if has_tori:
         off, K = geom.tor_offset, geom.tor_major.shape[0]
         tor = _kept(scene, "torus",
@@ -228,26 +261,48 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                         geom.tor_w2o, geom.tor_major, geom.tor_minor,
                         _material_rows(scene, scene.tori.mat_id[off:off + K])
                         .contiguous()))
-        # fold triangle hits into the torus query's tmax (S1's own, where
-        # it was the only triangle query)
-        if s1_only:
-            tor_tmax = tri_tmax
-        elif has_tris and occlusion:
-            tor_tmax = torch.where(t_best < BIG, 0.0, tmax)
-        elif has_tris:
-            tor_tmax = torch.minimum(tmax, t_best)
-        else:
-            tor_tmax = tmax
-        out = torus_closest_hit(origins, dirs, tor_tmax.contiguous(), tor,
+        out = torus_closest_hit(origins, dirs, tri_tmax.contiguous(), tor,
                                 want_attrs=want_attrs, occlusion=occlusion,
                                 n_batch=n_batch, anchor=anchor)
-        kt, ki = out[:2]
+        rows.tor_hit, rows.tor_offset = tuple(out[:2]), off
         if want_attrs:
             rows.tor = out[2]
-        better = kt < t_best
-        t_best = torch.where(better, kt, t_best)
-        kind = torch.where(better, 1, kind)
-        prim = torch.where(better, ki + off, prim)
+    return rows, tri_occ
 
-    return _isect.Hit(t=t_best, kind=kind, prim=prim, u=u, v=v,
-                      attrs=rows if want_attrs else None)
+
+def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
+                       want_attrs: bool = False, occlusion: bool = False,
+                       anchor=None, merge: bool = True):
+    """Closest hit through the kernels. origins/dirs: (3, N) rows; tmax
+    (N,). want_attrs: emit Hit.attrs, the kernels' raw `AttrRows`.
+    occlusion: any-hit (only Hit.kind >= 0 is meaningful). anchor: the
+    (3,) point the tree kernels' visit orders start from (default: the
+    batch's mean origin). merge=False (with want_attrs): the parts
+    unmerged in Hit.attrs, what S2 reads, and Hit's own fields None;
+    `merge_parts` merges them."""
+    if want_attrs and occlusion:
+        raise ValueError("want_attrs and occlusion are exclusive")
+    if not merge and not want_attrs:
+        raise ValueError("merge=False hands the parts to S2: want_attrs")
+    rows, _ = _query(scene, geom, origins, dirs, tmax, want_attrs,
+                     occlusion, anchor)
+    if not merge:
+        return _isect.Hit(t=None, kind=None, prim=None, u=None, v=None,
+                          attrs=rows)
+    hit = merge_parts(rows, origins.shape[1], origins.device)
+    if not want_attrs:
+        hit.attrs = None
+    return hit
+
+
+def occluded_kernel(scene: Scene, geom, origins, dirs, tmax, anchor=None):
+    """The any-hit query through the kernels: the (N,) bool mask of the rays
+    a primitive occludes, formed from the parts (equal to
+    `closest_hit_kernel(..., occlusion=True).kind >= 0` on every lane)."""
+    rows, tri_occ = _query(scene, geom, origins, dirs, tmax, False, True,
+                           anchor)
+    if rows.tor_hit is None:
+        return (tri_occ if tri_occ is not None
+                else torch.zeros_like(tmax, dtype=torch.bool))
+    occ = rows.tor_hit[0] < BIG
+    return occ if tri_occ is None else tri_occ | occ

@@ -61,17 +61,27 @@ class ShadeAttrs:
 
 @dataclasses.dataclass
 class AttrRows:
-    """A kernel-backend closest-hit query's raw attribute rows, what the
-    shading kernel S2 (`ops.shade_kernel.shade_hit`) reads in place of
-    `ShadeAttrs`: the triangle kernels' 21 rows (pos, nrm, uv, the 12
-    material values, the uv texel density) and the torus kernels' 15 rows
-    (nrm, material) of each ray's winner of that kind, None where the query
-    ran no such kernel; and where the loose-triangle hoist ran (only on
-    the whole table, never on a slice of the primitives), the triangle
-    interpolation tables (a0 (21, T), a1 (8, T), a2 (8, T)), the index
-    of the first of the n_loose tail rows, and the triangle side's winner
-    (kind 0 / -1, prim) before the tori merged: where that winner is a
-    tail row, the triangle rows come from the tables at (prim, u, v)."""
+    """A kernel-backend closest-hit query's raw attribute rows and hit
+    parts, what the shading kernel S2 (`ops.shade_kernel.shade_hit`) reads
+    in place of `ShadeAttrs` and a merged `Hit`: the triangle kernels' 21
+    rows (pos, nrm, uv, the 12 material values, the uv texel density) and
+    the torus kernels' 15 rows (nrm, material) of each ray's winner of that
+    kind, None where the query ran no such kernel; and where the
+    loose-triangle hoist ran (only on the whole table, never on a slice of
+    the primitives), the triangle interpolation tables (a0 (21, T), a1 (8,
+    T), a2 (8, T)) and the index of the first of the n_loose tail rows:
+    where the triangle side's winner is a tail row, the triangle rows come
+    from the tables at (prim, u, v).
+
+    The hit parts, each (N,) per ray, merged in this order with strict
+    comparisons (`ops.trace_kernel.merge_parts`): `base`, the (t, kind,
+    prim, u, v) the query starts from (the hoist's hit, or a hit merged
+    already), None for no hit (t BIG, kind -1, prim 0, u = v = 0);
+    `tri_hit`, the triangle kernel's (t, idx, u, v), idx local to the
+    slice starting at `tri_offset`; `tor_hit`, the torus kernel's (t, idx)
+    from `tor_offset`. tri_kind / tri_prim: the triangle side's winner
+    (kind 0 / -1, prim) before the tori merged, which `merge_parts` sets
+    where the loose tables are (`shade_attrs` reads it)."""
 
     tri: Optional[torch.Tensor] = None
     tor: Optional[torch.Tensor] = None
@@ -80,6 +90,11 @@ class AttrRows:
     n_loose: int = 0
     tri_kind: Optional[torch.Tensor] = None
     tri_prim: Optional[torch.Tensor] = None
+    base: Optional[tuple] = None
+    tri_hit: Optional[tuple] = None
+    tri_offset: int = 0
+    tor_hit: Optional[tuple] = None
+    tor_offset: int = 0
 
 
 @dataclasses.dataclass
@@ -183,7 +198,7 @@ def combine_hits_over_axis(hit: Hit, group) -> Hit:
 def closest_hit(scene: Scene, origins, dirs, tmax=None,
                 backend: str = "torch", geom: Optional[GeomSlice] = None,
                 want_attrs: bool = False, occlusion: bool = False,
-                prim_group=None, anchor=None) -> Hit:
+                prim_group=None, anchor=None, merge: bool = True) -> Hit:
     """Nearest hit for every ray. origins/dirs: (3, N) f32 rows.
 
     geom: the geometry to test (default: the whole scene). prim_group: the
@@ -195,7 +210,12 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
     semantics — only Hit.kind >= 0 is meaningful then. anchor: kernel
     backend, the (3,) point the kernels' visit orders start from, which
     decides exact ties between boxes (default: the batch's mean origin;
-    `trace_rays` passes the whole wavefront's)."""
+    `trace_rays` passes the whole wavefront's). merge=False (kernel
+    backend, want_attrs, no prim_group): Hit.attrs holds the query's hit
+    parts unmerged, what S2 merges, and Hit's own fields are None."""
+    if not merge and (backend != "kernel" or prim_group is not None):
+        raise ValueError("merge=False: the kernel backend's unsharded "
+                         "query (the ranks' merge needs the merged hit)")
     tmax = _tmax(tmax, origins)
     if geom is None:
         geom = geom_from_scene(scene)
@@ -206,7 +226,7 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
 
         hit = closest_hit_kernel(scene, geom, origins, dirs, tmax,
                                  want_attrs=want_attrs, occlusion=occlusion,
-                                 anchor=anchor)
+                                 anchor=anchor, merge=merge)
     elif backend == "torch":
         hit = _closest_hit_torch(scene, geom, origins, dirs, tmax)
     else:
@@ -372,15 +392,25 @@ def closest_hit_diff(scene: Scene, origins, dirs, tmax=None) -> Hit:
 
 
 def any_hit(scene: Scene, origins, dirs, tmax, backend: str = "torch",
-            geom: Optional[GeomSlice] = None, prim_group=None):
+            geom: Optional[GeomSlice] = None, prim_group=None, anchor=None):
     """Occlusion query (shadow rays: TerminateOnFirstHit | SkipClosestHit,
     raytrace.rchit:96-109). The kernel backend runs its kernels in any-hit
-    mode. Returns a bool mask; with prim_group, a ray is occluded when any
-    rank's slice occludes it (a MAX over the group: a hit is t < BIG on
-    every path, so this equals the full combine's kind >= 0)."""
-    hit = closest_hit(scene, origins, dirs, tmax=tmax, backend=backend,
-                      geom=geom, occlusion=backend == "kernel")
-    mask = hit.kind >= 0
+    mode and forms the mask from their parts (`ops.trace_kernel.
+    occluded_kernel`; anchor: their visit orders' start, as in
+    `closest_hit`). Returns a bool mask; with prim_group, a ray is
+    occluded when any rank's slice occludes it (a MAX over the group: a
+    hit is t < BIG on every path, so this equals the full combine's
+    kind >= 0)."""
+    if backend == "kernel":
+        from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
+            occluded_kernel)
+
+        mask = occluded_kernel(scene, geom or geom_from_scene(scene),
+                               origins, dirs, _tmax(tmax, origins),
+                               anchor=anchor)
+    else:
+        mask = closest_hit(scene, origins, dirs, tmax=tmax, backend=backend,
+                           geom=geom).kind >= 0
     if prim_group is not None:
         mask = all_reduce(mask, MAX, prim_group)
     return mask

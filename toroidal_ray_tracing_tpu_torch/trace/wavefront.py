@@ -18,11 +18,12 @@ unpermuted once at the end. `backend="torch"` traces every segment whole,
 as the JAX package's jnp path does.
 
 A kernel-backend segment is S1 (the loose hoist) -> K1/K5 -> K2/K3 (the
-closest hit, its raw attribute rows), S2 (`ops.shade_kernel.shade_hit`:
-shading up to the shadow ray) -> K4 (textured scenes) -> S1 -> the any-hit
-kernels, then S3 (`shade_finish`: the rest of the shading and the state
-update in place, the ray count and the live spans), and the compaction
-gather when the bucket shrinks. The torch backend shades with
+closest hit's parts unmerged, its raw attribute rows), S2
+(`ops.shade_kernel.shade_hit`: the merges, shading up to the shadow ray)
+-> K4 (textured scenes) -> S1 -> the any-hit kernels (their mask formed
+from the parts), then S3 (`shade_finish`: the rest of the shading and the
+state update in place, the ray count and the live spans), and the
+compaction gather when the bucket shrinks. The torch backend shades with
 `trace.shade.shade` and updates the state with tensor ops (`_advance`).
 
 `trace_rays_fixed` is the differentiable variant: a fixed number of
@@ -42,7 +43,7 @@ from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (batch_anchor,
 # live_spans: the 128-lane spans that hold a live ray (S3 writes them on
 # the kernel backend; kept here beside span_order and span_lanes)
 from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import (  # noqa: F401
-    live_spans, shade_finish, shade_hit, shade_params)
+    base_rows, live_spans, shade_finish, shade_hit, shade_params)
 from toroidal_ray_tracing_tpu_torch.ops.tex_kernel import quad_gather
 from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import RAY_TILE
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
@@ -170,18 +171,24 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
         # dead rays trace with tmax = 0: every kernel skips them
         seg_tmax = torch.where(act, SEG_TMAX, 0.0)
         anchor = batch_anchor(state[_O], n_batch) if kernel else None
+        # the kernel backend's unsharded query hands S2 its parts
+        # unmerged; a sharded one merges over the ranks first
         hit = closest_hit(scene, o, d, tmax=seg_tmax, backend=backend,
                           geom=geom, prim_group=prim_group,
-                          want_attrs=kernel, anchor=anchor)
+                          want_attrs=kernel, anchor=anchor,
+                          merge=not kernel or prim_group is not None)
         if kernel:
             # S2 -> K4 (textured) -> the shadow any-hit -> S3, which
             # updates the state, the ray count and the live spans in place
-            sr = shade_hit(o, d, hit, hit.attrs, params)
+            sr = shade_hit(o, d, hit.attrs if hit.t is None
+                           else base_rows(hit), params)
             quads = (quad_gather(scene.textures.data4q, *sr.tex)
                      if sr.tex is not None else None)
+            # (a missed lane's shadow ray is undefined, its tmax 0: the
+            # visit orders start from the segment's anchor)
             occluded = any_hit(scene, sr.shadow_o, sr.shadow_d,
                                sr.shadow_tmax, backend=backend, geom=geom,
-                               prim_group=prim_group)
+                               prim_group=prim_group, anchor=anchor)
             count = counts[depth]
             shade_finish(state, active, nb, sr, occluded, quads, params,
                          depth, max_depth, rays, spans, count)

@@ -177,7 +177,26 @@ Phases, each printed on its own lines with its wall seconds:
      written once, as this run's data needs them: a miss moves its flags
      and tmax, a lane its position rows only where it goes on); S2 also
      beside merge_parts + S2 on the merged hit, wrapper and CUDA-graph
-     device time in the same process, which it must not exceed.
+     device time in the same process, which it must not exceed;
+ 14. the front-door kernels against their twins
+     (`ops.front_kernel`): R1 (csrc/raygen.cu) into the bounce loop's
+     state at config 5's jittered sample (3840x2160, block 24, the
+     threefry draw), config 6's 1080p frame and the capture's toroidal
+     1080p frame, and in both row layouts, and a toroidal eye at its
+     center (NaN rays), its first-hit rows left as they were; G1
+     (csrc/frame.cu span_gather) on the first bucket shrink of config 3's
+     and config 5's frames and the second shrink of the experiment's
+     depth-10 capture frame (spans past the old prefix, span maps composed,
+     the first buffer as the spare), recorded from a `render`; F1
+     (csrc/frame.cu frame_finish) on the traced states of config 5's two
+     samples (the second adds and divides), config 6's and the capture's
+     frames with dumps, row-major and channel-major. Each kernel and its
+     twin start from the same buffers and end bit-equal on every entry
+     (NaN equal to NaN), those their contract leaves unwritten too, with the
+     wrapper, the bare launch, its device time (20 bare launches in a
+     CUDA graph), the twin, the byte bound, and for G1 and F1 the one
+     PyTorch call for the same data movement (`index_select` of the
+     prefix's rows; the permuted `.contiguous()` copy of the color rows).
 
 Phases 4 and 7-11 also check every kernel-backend segment that a counted
 path traces on the card (`SegmentGuard`): from its closest-hit query to
@@ -187,7 +206,12 @@ and any-hit queries), and nothing called `trace.shade.shade` or a
 segment kernel's twin; each phase traces at least one. Phase 9's two
 gloo ranks report their segments and launches: S2 and S3 once a
 segment, S1 twice on a loose scene's whole table (one prims shard), none
-on a prims slice.
+on a prims slice. Every counted path's front-door launches are checked too
+(`FrontGuard`, phases 4 and 7-11): R1 once a frame of each batch a front
+door traces (once a sample) and once a `device_rays` call on the card, F1
+once a frame of each batch, G1 once a kernel-backend bucket shrink, no
+twin of the three on card tensors; phase 4 also asserts R1 and F1 once a
+sample of every render it counts.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -1287,12 +1311,16 @@ def counted(LAUNCHES, reset, fn):
     """Run one path with the launch counts set to 0 just before it; return
     (its result, the counts read just after). Each kernel-backend segment
     it traces on the card is checked (`SegmentGuard`, tallied in
-    `SEGMENTS`)."""
-    with SegmentGuard(LAUNCHES) as guard:
+    `SEGMENTS`), and its front-door launches (`FrontGuard`: R1 and F1 once
+    a sample, G1 once a shrink, tallied in `FRONT`)."""
+    with SegmentGuard(LAUNCHES) as guard, FrontGuard(LAUNCHES) as front:
         reset()
         out = fn()
     SEGMENTS["checked"] += guard.segments
     SEGMENTS["bad"] += guard.bad
+    FRONT["samples"] += front.samples
+    FRONT["shrinks"] += front.shrinks
+    FRONT["bad"] += front.bad
     return out, dict(LAUNCHES)
 
 
@@ -1344,6 +1372,10 @@ def phase_main_path(torch, totals):
               and bool(torch.isfinite(img).all()), f"{name}: image finite")
         for k in needs:
             check(launched[k] > 0, f"{name}: {k} launched")
+        check(launched["raygen"] == launched["frame_finish"] == 4,
+              f"{name}: R1 and F1 once a sample (4 frames: "
+              f"{launched['raygen']}, {launched['frame_finish']}), G1 "
+              f"{launched['span_gather']} times (once a shrink, FrontGuard)")
         stats.append(dict(cell=name, width=w, height=h, ms_per_frame=ms,
                           rays_per_frame=rays,
                           mrays_per_s=rays / ms / 1e3, launches=launched))
@@ -1374,6 +1406,9 @@ def phase_main_path(torch, totals):
               f"{launched}", flush=True)
         for k in needs:
             check(launched[k] > 0, f"{front} {sc.name}: {k} launched")
+        check(launched["raygen"] == launched["frame_finish"] == n_frames,
+              f"{front} {sc.name}: R1 and F1 once a frame "
+              f"({launched['raygen']}, {launched['frame_finish']})")
         worst, total = 0.0, 0
         for f, cam in enumerate(cams):
             one = render(scene, cam, *FULL, st, backend="kernel",
@@ -1453,6 +1488,12 @@ def config5_renders(torch, counted, add):
                                                 "torus_closest_hit_small")),
               f"{name}: {sc.spp - 1} threefry_uniform launch, K2 and K3 "
               "launched")
+        check(launched["raygen"] == sc.spp and launched["frame_finish"] == (
+            sc.spp if tile_rows is None else 0),
+              f"{name}: R1 once a sample ({launched['raygen']}), F1 once a "
+              f"sample unbanded ({launched['frame_finish']}; the banded "
+              f"path accumulates its bands eagerly), G1 "
+              f"{launched['span_gather']} times")
         check(bool(torch.isfinite(out["image"]).all())
               and torch.equal(out["image"], twin["image"])
               and out["rays_traced"] == twin["rays_traced"],
@@ -1519,7 +1560,9 @@ def profile_frame(torch, fn):
 
     from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
 
-    ours = re.compile(r"(\w+)(?:<[^>]*>)?\(")   # name, template args
+    # the first name called: a kernel's, before its template and argument
+    # lists (whose by-value structs, such as trt::Cam, hold `::` too)
+    ours = re.compile(r"(\w+)(?:<[^>]*>)?\(")
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         fn()
@@ -1528,7 +1571,7 @@ def profile_frame(torch, fn):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     mine: dict = {}
     for e in dev:
-        m = ours.search(e.name.split("::")[-1])
+        m = ours.search(e.name.replace("(anonymous namespace)", ""))
         if m and m.group(1) in LAUNCHES:
             row = mine.setdefault(m.group(1), [0.0, 0])
             row[0] += e.time_range.elapsed_us() / 1e3
@@ -3297,6 +3340,395 @@ def phase_segment_kernels(torch, results):
         "shade_hit_merged")["max_abs_err"]
 
 
+class FrontGuard:
+    """While entered, counts what the front doors must launch on the card
+    and checks it against the launch counts at exit: R1 once a frame of
+    each batch `render.renderer._trace_frames` fills and once a
+    `front_kernel.raygen` call on a CUDA device (the cameras'
+    `device_rays`), F1 once a frame of each such batch (once a sample),
+    G1 once a bucket shrink of a kernel-backend bounce loop on the card
+    (`trace.wavefront.trace_state`: its segments' lanes fall); and no twin
+    of the three called on card tensors. `samples`, `shrinks` and `bad`
+    report it."""
+
+    def __init__(self, launches):
+        from toroidal_ray_tracing_tpu_torch.ops import front_kernel as fk
+        from toroidal_ray_tracing_tpu_torch.render import renderer as rd
+        from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
+
+        self.launches = launches
+        self.want = dict(raygen=0, frame_finish=0, span_gather=0)
+        self.samples = self.shrinks = self.stray = 0
+        self.loop = None          # the open bounce loop's segment lanes
+        self.bad = []
+        self.spots = [
+            (rd, "_trace_frames", self._frames),
+            (fk, "raygen", self._raygen),
+            (wf, "trace_state", self._trace_state),
+            (rd, "trace_state", self._trace_state),
+            (wf, "closest_hit", self._closest_hit),
+            (fk, "raygen_plain", self._stray(
+                lambda a: torch_device(a[7] if len(a) > 7 else "cpu"))),
+            (fk, "raygen_state_plain", self._stray(lambda a: a[6].is_cuda)),
+            (fk, "span_gather_plain", self._stray(lambda a: a[0].is_cuda)),
+            (fk, "frame_finish_plain", self._stray(lambda a: a[5].is_cuda))]
+
+    def _frames(self, real):
+        def call(scene, settings, cams, *a, **k):
+            if torch_device(a[-1]):
+                self.samples += len(cams)
+                self.want["raygen"] += len(cams)
+                self.want["frame_finish"] += len(cams)
+            return real(scene, settings, cams, *a, **k)
+        return call
+
+    def _raygen(self, real):
+        def call(*a, **k):
+            if torch_device(k.get("device", a[7] if len(a) > 7 else "cpu")):
+                self.want["raygen"] += 1
+            return real(*a, **k)
+        return call
+
+    def _trace_state(self, real):
+        def call(scene, settings, state, *a, **k):
+            outer, self.loop = self.loop, []
+            try:
+                return real(scene, settings, state, *a, **k)
+            finally:
+                lanes, self.loop = self.loop, outer
+                backend = k.get("backend", a[2] if len(a) > 2 else "torch")
+                if state.is_cuda and backend == "kernel":
+                    n = sum(b < a_ for a_, b in zip(lanes, lanes[1:]))
+                    self.shrinks += n
+                    self.want["span_gather"] += n
+        return call
+
+    def _closest_hit(self, real):
+        def call(scene, o, *a, **k):
+            if self.loop is not None:
+                self.loop.append(o.shape[1])
+            return real(scene, o, *a, **k)
+        return call
+
+    def _stray(self, on_card):
+        def wrap(real):
+            def call(*a, **k):
+                self.stray += bool(on_card(a))
+                return real(*a, **k)
+            return call
+        return wrap
+
+    def __enter__(self):
+        self.real = [getattr(m, n) for m, n, _ in self.spots]
+        for (m, n, wrap), fn in zip(self.spots, self.real):
+            setattr(m, n, wrap(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for (m, n, _), fn in reversed(list(zip(self.spots, self.real))):
+            setattr(m, n, fn)
+        got = {k: self.launches[k] for k in self.want}
+        if got != self.want or self.stray:
+            self.bad.append(f"launched {got}, want {self.want}; "
+                            f"{self.stray} twin calls on card tensors")
+
+
+def torch_device(device) -> bool:
+    """Whether `device` (a torch.device or a string) is a CUDA device."""
+    import torch
+
+    return torch.device(device).type == "cuda"
+
+
+FRONT = {"samples": 0, "shrinks": 0, "bad": []}   # a phase's, `counted`'s
+
+
+def front_checked(name, need_shrink: bool, need_samples: bool = True):
+    """The phase's front-door launches on the card (every `counted` path's,
+    `FrontGuard`): R1 and F1 once a sample, G1 once a shrink, no twin on
+    the card; at least one sample (and shrink) where asked. Resets the
+    tally."""
+    n, shrinks, bad = FRONT["samples"], FRONT["shrinks"], FRONT["bad"]
+    for b in bad[:5]:
+        print(f"  {name}: {b}", flush=True)
+    check((n > 0 or not need_samples) and not bad
+          and (shrinks > 0 or not need_shrink),
+          f"{name}: {n} front-door samples and {shrinks} bucket shrinks on "
+          f"the card, {len(bad)} paths off: R1 and F1 launched once a "
+          "sample (and R1 once a device_rays call), G1 once a shrink, no "
+          "twin on card tensors")
+    FRONT.update(samples=0, shrinks=0, bad=[])
+
+
+def front_bare(fn):
+    """(name, args) of the one `launch` that the front_kernel wrapper call
+    fn() makes."""
+    from toroidal_ray_tracing_tpu_torch.ops import front_kernel as fk
+
+    seen = []
+    real = fk.launch
+
+    def rec(name, *args):
+        seen.append((name, args))
+        return real(name, *args)
+
+    fk.launch = rec
+    try:
+        fn()
+    finally:
+        fk.launch = real
+    return seen[0]
+
+
+def nan_equal(torch, a, b) -> bool:
+    """Equal on every entry, NaN equal to NaN, the same dtype and shape."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b))
+    return bool(((a == b) | (torch.isnan(a) & torch.isnan(b))).all())
+
+
+def front_row(results, key, src, name, same, timing, nbytes_, library):
+    """Print and check one kernel's agreement; keep its times (the last
+    timed shape's, the main path's largest, in the line)."""
+    from toroidal_ray_tracing_tpu_torch.experiments.k3_turns import graph_ms
+
+    check(same, f"{name}: bit-equal to its twin on every lane (NaN equal "
+          "to NaN)")
+    row = results.setdefault(key, dict(
+        source=f"{KERNEL_DIR}/{src[0]}", replaces=src[1], library_ms=None,
+        max_abs_err=0.0, shapes={}))
+    if not same:
+        row["max_abs_err"] = float("nan")
+    if timing is None:
+        return
+    wrapper, bare_call, twin = timing
+    times = (cuda_ms(wrapper, reps=10), cuda_ms(bare_call, reps=10),
+             graph_ms(bare_call), cuda_ms(twin, reps=3))
+    lib = cuda_ms(library, reps=10) if library is not None else None
+    b, by = bound(nbytes_, 0.0)
+    print(f"  {name}: wrapper {times[0]:.4f} ms, bare {times[1]:.4f} ms "
+          f"({times[2]:.4f} ms on the device, 20 launches in a CUDA graph), "
+          f"twin {times[3]:.3f} ms, library call "
+          + (f"{lib:.4f} ms" if lib is not None else "none")
+          + f"; bound {b:.4f} ms ({by}: {nbytes_ / 1e6:.1f} MB); device / "
+          f"bound {times[2] / b:.2f}", flush=True)
+    shape = dict(ms=times[0], bare_ms=times[1], device_ms=times[2],
+                 plain_ms=times[3], library_ms=lib, bound_ms=b, bound_by=by,
+                 bytes=nbytes_)
+    row["shapes"][name] = shape
+    row.update(shape)
+
+
+def phase_front_kernels(torch, results):
+    """Phase 14: R1, G1 and F1 against their twins on the card, bit-equal
+    on every lane (NaN equal to NaN), at the main path's shapes: R1 into
+    the state at config 5's jittered sample (3840x2160, block 24), config
+    6's 1080p frame and the capture's toroidal 1080p frame (and in both
+    row layouts, and a toroidal eye at its center: NaN rays); G1 on the
+    first bucket shrink of config 5's and config 3's frames and the second
+    of the experiment's depth-10 capture frame, recorded from a `render`;
+    F1 on the traced states of config 5's two samples (the
+    second adds and divides), config 6's frame with its dumps, the
+    capture's, and channel-major (`render_frames`). Times: the wrapper, the
+    bare launch, its device time (20 bare launches in a CUDA graph), the
+    twin, the byte bound, and for G1 and F1 the one PyTorch call for the
+    same data movement (`index_select` of the prefix's rows; the permuted
+    `.contiguous()` copy of the color rows)."""
+    from toroidal_ray_tracing_tpu_torch.cameras import ToroidalCamera
+    from toroidal_ray_tracing_tpu_torch.cameras.pinhole import pick_block
+    from toroidal_ray_tracing_tpu_torch.ops import front_kernel as fk
+    from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel as tfk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import launch
+    from toroidal_ray_tracing_tpu_torch.render import renderer as rd
+    from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
+                                                      build_scene, procedural)
+    from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
+    from toroidal_ray_tracing_tpu_torch.utils import prng
+
+    R1 = ("raygen.cu", "toroidal_ray_tracing_tpu/cameras/pinhole.py:107")
+    G1 = ("frame.cu", "toroidal_ray_tracing_tpu/trace/wavefront.py:218")
+    F1 = ("frame.cu", "toroidal_ray_tracing_tpu/trace/wavefront.py:250")
+    dev = rd.check_device(DEVICE)
+    W, H = FULL
+    sc5, scene5 = config(5)
+    sc6, scene6 = config(6)
+    sc3, scene3 = config(3)
+    cap_cam = ToroidalCamera(eye=(0.0, 1.0, 0.0), center=(8.0, 0.0, 0.0))
+    cap_st = RenderSettings.default(rho=4.0)
+    cap_scene = scene_of("cornellish",
+                         lambda: build_scene(procedural.scene_cornellish()))
+    jitter5 = tfk.uniform(prng.fold_in(prng.prng_key(0), 1),
+                          (sc5.width * sc5.height, 2), DEVICE)
+    # (name, camera, settings, width, height, jitter, timed)
+    frames = [
+        (f"config 6 {W}x{H}", sc6.camera, sc6.settings(), W, H, None, True),
+        (f"capture {W}x{H} (toroidal)", cap_cam, cap_st, W, H, None, True),
+        (f"config 5 {sc5.width}x{sc5.height} sample 1 (jittered)",
+         sc5.camera_at(0), sc5.settings(), sc5.width, sc5.height, jitter5,
+         True)]
+
+    # --- R1 into the state, and in both row layouts
+    for name, cam, st, w, h, jit, timed in frames:
+        params = cam.ray_params(w, h, st)
+        n, block = w * h, pick_block(w, h)
+        lanes = wf.lane_count(n, "kernel")
+        args = (cam.KIND, params, w, h, jit, block)
+        ks, ka = wf.new_state(lanes, dev)
+        ks.fill_(float("nan"))              # the first hit stays NaN
+        ts, ta = ks.clone(), ka.clone()
+        fk.raygen_state(*args, ks, ka, 0, lanes - n)
+        fk.raygen_state_plain(*args, ts, ta, 0, lanes - n)
+        same = nan_equal(torch, ks, ts) and nan_equal(torch, ka, ta)
+        timing = None
+        if timed:
+            lname, largs = front_bare(
+                lambda: fk.raygen_state(*args, ks, ka, 0, lanes - n))
+            timing = (lambda: fk.raygen_state(*args, ks, ka, 0, lanes - n),
+                      lambda: launch(lname, *largs),
+                      lambda: fk.raygen_state_plain(*args, ts, ta, 0,
+                                                    lanes - n))
+        # origin, direction, color, attenuation and active written (the
+        # first hit is segment 0's), the jitter read
+        nb_ = n * (49 + (8 if jit is not None else 0)) + (lanes - n) * 49
+        front_row(results, "raygen", R1, f"R1 raygen into the state, {name}",
+                  same, timing, nb_, None)
+        for rows in (True, False):
+            got = fk.raygen(cam.KIND, params, w, h, jit, block, rows, dev)
+            ref = fk.raygen_plain(cam.KIND, params, w, h, jit, block, rows,
+                                  dev)
+            front_row(results, "raygen", R1, f"R1 raygen {name}, "
+                      f"{'(3, N)' if rows else '(N, 3)'}",
+                      all(nan_equal(torch, a, b) for a, b in zip(got, ref)),
+                      None, 0, None)
+    nan_cam = ToroidalCamera(eye=(0.0, 1.0, 0.0), center=(0.0, 1.0, 0.0))
+    params = nan_cam.ray_params(64, 32, cap_st)
+    got = fk.raygen(nan_cam.KIND, params, 64, 32, None, 32, True, dev)
+    ref = fk.raygen_plain(nan_cam.KIND, params, 64, 32, None, 32, True, dev)
+    front_row(results, "raygen", R1, "R1 raygen, toroidal eye at its center "
+              f"({int(torch.isnan(got[1]).sum())} NaN direction entries)",
+              all(nan_equal(torch, a, b) for a, b in zip(got, ref))
+              and bool(torch.isnan(got[1]).any()), None, 0, None)
+
+    # --- G1 on the second shrink of the experiment's depth-10 capture
+    # frame (a suffix, composed span maps, the first buffer as the spare)
+    # and the first shrink of config 3's and config 5's frames
+    exp = next(c for c in compaction_cells() if c[0] == "capture_config6_obj")
+    g1_cases = [
+        ("the experiment's depth-10 capture frame, second shrink",
+         _SCENES[exp[1]], exp[2], exp[3], exp[4], exp[5], 1),
+        (f"config 3 {W}x{H}, first shrink", scene3, sc3.camera_at(0),
+         sc3.settings(), W, H, 0),
+        (f"config 5 {sc5.width}x{sc5.height}, first shrink", scene5,
+         sc5.camera_at(0), sc5.settings(), sc5.width, sc5.height, 0)]
+    for label, scene, cam, st, w, h, want in g1_cases:
+        calls = []
+        real = wf.span_gather
+
+        def spy(*a, want=want):
+            if len(calls) == want:
+                calls.append(_cloned(a))
+            elif len(calls) < want:
+                calls.append(None)
+            return real(*a)
+
+        wf.span_gather = spy
+        try:
+            rd.render(scene, cam, w, h, st, backend="kernel", device=DEVICE)
+            sync(torch)
+        finally:
+            wf.span_gather = real
+        if not check(len(calls) > want, f"{label}: G1 ran on shrink "
+                     f"{want + 1}"):
+            continue
+        a = calls[want]
+        cur, _, act_in, _, spans, count, orig_in, _, _, nb, fit = a
+        lanes = cur.shape[1]
+        # both start from the same buffers: every entry equal, those the
+        # contract leaves unwritten too
+        kern, twin = list(_cloned(a)), list(_cloned(a))
+        fk.span_gather(*kern)
+        fk.span_gather_plain(*twin)
+        same = all(nan_equal(torch, kern[i], twin[i]) for i in (1, 3, 7, 8))
+        live = int(count)
+        s_old, s_total = nb // 128, lanes // 128
+        name = (f"G1 span_gather {label}: the {nb}-lane prefix of {lanes} "
+                f"lanes into {fit}, {live} of its {s_old} spans live"
+                + (", spans moved before" if orig_in is not None else ""))
+        lname, largs = front_bare(lambda: fk.span_gather(*kern))
+        perm = torch.cat([fk.span_order(spans[:s_old]),
+                          torch.arange(s_old, s_total, device=dev)])
+        idx = fk.span_lanes(perm[:s_old])
+        # 12 rows and the active byte of a lane landing in the new prefix,
+        # read and written; origin and color of every other lane; the live
+        # flags; the span maps
+        nb_ = (fit * 98 + (lanes - fit) * 48 + s_old
+               + s_total * (12 if orig_in is not None else 8))
+        front_row(results, "span_gather", G1, name, same,
+                  (lambda: fk.span_gather(*kern),
+                   lambda: launch(lname, *largs),
+                   lambda: fk.span_gather_plain(*twin)),
+                  nb_, lambda: cur[:12].index_select(1, idx))
+
+    # --- F1 on traced states
+    def traced_of(cam, st, w, h, jit, scene):
+        st = rd.autofill_pixel_spread(st, cam, w, h)
+        return rd._trace_frames(scene, st.to(dev),
+                                [(cam, cam.ray_params(w, h, st))], w, h,
+                                "kernel", jit, dev)
+
+    f1_cases = []
+    for name, cam, st, w, h, jit, _ in frames:
+        scene = (scene6 if name.startswith("config 6") else cap_scene
+                 if name.startswith("capture") else scene5)
+        tr = traced_of(cam, st, w, h, None, scene)
+        params = cam.ray_params(w, h, st)
+        if jit is None:
+            f1_cases.append((f"{name}, dumps", cam, params, w, h, tr, 0, 1,
+                             True, False))
+            f1_cases.append((f"{name}, channel-major with dumps "
+                             "(render_frames)", cam, params, w, h, tr, 0, 1,
+                             True, True))
+        else:
+            tr1 = traced_of(cam, st, w, h, jit, scene)
+            f1_cases.append((f"config 5 sample 0 of 2, dumps", cam, params,
+                             w, h, tr, 0, 2, True, False))
+            f1_cases.append((f"config 5 sample 1 of 2 (adds, divides)", cam,
+                             params, w, h, tr1, 1, 2, False, False))
+    for name, cam, params, w, h, tr, s, spp, dumps, chw in f1_cases:
+        n, block = w * h, pick_block(w, h)
+        shape = (3, h, w) if chw else (h, w, 3)
+        seed_img = torch.rand(shape, device=dev)
+        outs = {side: [seed_img.clone()] + (
+            [torch.empty(shape, device=dev) for _ in range(3)] if dumps
+            else []) for side in ("kernel", "twin")}
+        args = (cam.KIND, params, w, h, block, tr.state, tr.first, tr.slot,
+                0)
+        fk.frame_finish(*args, outs["kernel"][0], s, spp,
+                        tuple(outs["kernel"][1:]) or None, chw)
+        fk.frame_finish_plain(*args, outs["twin"][0], s, spp,
+                              tuple(outs["twin"][1:]) or None, chw)
+        same = all(nan_equal(torch, a, b)
+                   for a, b in zip(outs["kernel"], outs["twin"]))
+        ko, to = outs["kernel"], outs["twin"]
+        call = (lambda ko=ko: fk.frame_finish(*args, ko[0], s, spp,
+                                              tuple(ko[1:]) or None, chw))
+        lname, largs = front_bare(call)
+        hv = fk.unpermute_rows(tr.state[6:9], tr.slot)[:, :n]
+        nb_ = n * (24 + (12 if s > 0 else 0) + (48 if dumps else 0))
+        front_row(results, "frame_finish", F1, f"F1 frame_finish {name} "
+                  f"({'compacted' if tr.slot is not None else 'no shrink'})",
+                  same,
+                  (call, lambda: launch(lname, *largs),
+                   lambda to=to: fk.frame_finish_plain(
+                       *args, to[0], s, spp, tuple(to[1:]) or None, chw)),
+                  nb_,
+                  lambda: fk.block_unswizzle(hv.T, w, h, block).contiguous())
+    for k in ("raygen", "span_gather", "frame_finish"):
+        check(k in results and "ms" in results[k], f"{k}: timed")
+
+
 def poisoned(sr, textured):
     """A copy of S2's outputs with every entry its contract leaves
     undefined set to NaN (floats) or -7 (K4's indices)."""
@@ -3359,8 +3791,10 @@ def main() -> int:
           "(backend='kernel', device='cuda')")
     launches: dict = {}
     SEGMENTS.update(checked=0, bad=[])
+    FRONT.update(samples=0, shrinks=0, bad=[])
     stats, cells = phase_main_path(torch, launches)
     segments_checked("phase 4")
+    front_checked("phase 4", need_shrink=True)
     done("4. main path: render / render_frames / render_sequence "
          "(backend='kernel', device='cuda')")
 
@@ -3375,8 +3809,10 @@ def main() -> int:
     phase("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
     before = dict(launches)
     SEGMENTS.update(checked=0, bad=[])
+    FRONT.update(samples=0, shrinks=0, bad=[])
     experiment = phase_experiment(torch, launches, smi.stdout.strip())
     segments_checked("phase 7")
+    front_checked("phase 7", need_shrink=False)
     done("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
 
     phase("8. measurement front doors")
@@ -3386,6 +3822,7 @@ def main() -> int:
           + "; phase 8: " + json.dumps({k: launches[k] - before.get(k, 0)
                                         for k in launches}), flush=True)
     segments_checked("phase 8")
+    front_checked("phase 8", need_shrink=False)
     done("8. measurement front doors")
 
     phase("9. gradients and multi-device")
@@ -3394,6 +3831,7 @@ def main() -> int:
     print("launches, phase 9: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     segments_checked("phase 9")
+    front_checked("phase 9", need_shrink=False, need_samples=False)
     done("9. gradients and multi-device")
 
     phase("10. oracle on the card")
@@ -3402,6 +3840,7 @@ def main() -> int:
     print("launches, phase 10: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     segments_checked("phase 10")
+    front_checked("phase 10", need_shrink=False)
     done("10. oracle on the card")
 
     phase("11. compaction")
@@ -3410,6 +3849,7 @@ def main() -> int:
     print("launches, phase 11: " + json.dumps(
         {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
     segments_checked("phase 11")
+    front_checked("phase 11", need_shrink=True)
     done("11. compaction")
 
     phase("12. random streams and the graft entry")
@@ -3422,6 +3862,10 @@ def main() -> int:
     phase("13. segment kernels S1-S3 against their twins")
     phase_segment_kernels(torch, results)
     done("13. segment kernels S1-S3 against their twins")
+
+    phase("14. front-door kernels R1, G1, F1 against their twins")
+    phase_front_kernels(torch, results)
+    done("14. front-door kernels R1, G1, F1 against their twins")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -23,15 +23,16 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
-import torch
 
-from toroidal_ray_tracing_tpu_torch.cameras.pinhole import pixel_coords
+from toroidal_ray_tracing_tpu_torch.ops import front_kernel
 
 F32 = np.float32
 
 
 @dataclasses.dataclass(frozen=True)
 class ToroidalCamera:
+    KIND = front_kernel.TOROIDAL     # R1's camera kind (not a field)
+
     eye: tuple = (0.0, 0.0, 0.0)
     center: tuple = (10.0, 0.0, 0.0)
     up: tuple = (0.0, 1.0, 0.0)  # unused by the toroidal math; kept for UI parity
@@ -76,32 +77,11 @@ class ToroidalCamera:
     def device_rays(params, width: int, height: int, settings=None,
                     jitter=None, block: int = 1, rows: bool = False,
                     device="cpu"):
-        """Raygen on `device`; rows=True emits (3, N) rays, else (N, 3)."""
-        eye, ang = params
-        eye = torch.as_tensor(eye, device=device)
-        ang = torch.as_tensor(ang, device=device)
-        omega, theta, rho = ang[0], ang[1], ang[2]
-
-        d_alfa = float(F32(360.0) / F32(width))
-        d_beta = float(F32(360.0) / F32(height))
-        px, py = pixel_coords(width, height, block, device)
-        if jitter is not None:
-            px = px + jitter[:, 0]
-            py = py + jitter[:, 1]
-        alfa = d_alfa * px
-        beta = d_beta * py
-
-        a = torch.deg2rad(alfa + omega)
-        b = torch.deg2rad(beta + theta)
-        ca, sa = torch.cos(a), torch.sin(a)
-        cb, sb = torch.cos(b), torch.sin(b)
-
-        dim = 0 if rows else -1
-        origins = torch.stack(
-            [eye[0] + rho * ca, torch.broadcast_to(eye[1], ca.shape),
-             eye[2] + rho * sa], dim=dim)
-        dirs = torch.stack([ca * cb, sb, sa * cb], dim=dim)
-        return origins, dirs
+        """Raygen on `device` (R1, `ops.front_kernel.raygen`: the CUDA
+        kernel on a CUDA device, its plain twin on the CPU); rows=True
+        emits (3, N) rays, else (N, 3)."""
+        return front_kernel.raygen(front_kernel.TOROIDAL, params, width,
+                                   height, jitter, block, rows, device)
 
     def generate_rays(self, width: int, height: int, settings, jitter=None,
                       device="cpu"):

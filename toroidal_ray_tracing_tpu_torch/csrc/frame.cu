@@ -1,0 +1,277 @@
+// G1 (span_gather) and F1 (frame_finish): the front door's work around the
+// bounce loop that the JAX package runs inside its one jit.
+//
+// G1 replaces the XLA fusion of the compaction gather in the JAX package's
+// bounce loop (toroidal_ray_tracing_tpu/trace/wavefront.py:218-231: the
+// stable live-first span order `jnp.argsort(~live, stable=True)` and the
+// `prow` gather of every state row), F1 the fusion of its unpermute
+// (wavefront.py:250-255), the block unswizzle (render/renderer.py:62-64,
+// cameras/pinhole.py:54) and the spp accumulation (renderer.py:94-100);
+// no Pallas kernel. Plain twins: toroidal_ray_tracing_tpu_torch/ops/
+// front_kernel.py::span_gather_plain (argsort, index_select of the prefix's
+// rows, ~15 launches a shrink) and frame_finish_plain (index_select, the
+// permuted copies, add and divide).
+//
+// G1, on a bucket shrink: the prefix's s_old spans [0, s_old) move to the
+// spare state buffer in the stable live-first order, span k to
+//   pos(k) = live(k) ? L(k) : count + k - L(k),  L(k) = live spans before k
+// (the position of k in argsort(~live, stable=True); count = all live spans
+// of the prefix, S3's count). A span that lands in the new prefix (pos <
+// s_fit, the next segments' lanes) moves origin, direction, color,
+// attenuation (12 rows) and its active flags; a span that lands past it is
+// dead, and only its origin and color rows are read again (the visit
+// orders' anchor reads every origin, F1 every color): those 6 rows move.
+// The first-hit rows stay in the first buffer in original lane order (only
+// segment 0 writes them, before any shrink). The spans past the old prefix
+// keep their slots.
+// Each span's original index travels with it (orig_out[pos] = orig_in[k])
+// and its slot is recorded (slot[orig] = pos), F1's gather index. One CTA
+// owns a contiguous chunk of spans: it counts the live flags before the
+// chunk from L2 (at most 64,800 bytes at config 5; a popc of 4 flags a
+// word), scans its chunk 256 spans at a time in shared memory, then moves
+// those spans as float4s (a span's row is 512 B).
+//
+// F1, once a frame and sample: thread p is row-major pixel (x, y); its lane
+// i in the frame's block-major order, gl = the frame's column offset + i,
+// and its slot lane slot[gl / 128] * 128 + gl % 128 (gl when nothing
+// moved). Writes the color to the image, HWC or CHW (render_frames' stacked
+// layout): sample 0 stores it, later samples add it, and the last sample
+// multiplies by 1 / spp, as PyTorch's CUDA division of a tensor by a Python
+// float does. With dumps (sample 0) it also writes the first hit (read in
+// original lane order) and the pixel's ray, recomputed by R1's own device
+// function (raygen.cuh), so nothing stored is read for it.
+//
+// What bounds them on an H100 SXM (80 GB HBM3, 700 W): bytes. G1 moves 12
+// rows and the active byte of a lane that lands in the new prefix (98 B a
+// lane: read and written once) and 6 rows of every other lane (48 B); at
+// config 5's first shrink (8,294,400 lanes into a 1,036,800-lane prefix)
+// 450.6 MB, 0.134 ms. F1 reads 12 B a pixel of
+// color (24 B when it adds) and writes 12 B; with dumps it also reads the
+// 12 B first hit and writes 36 B: at config 6's 1080p frame with dumps
+// 149.3 MB, 0.045 ms; config 5's sample 2 without dumps 298.6 MB, 0.089 ms.
+#include <cuda_runtime.h>
+
+#include <cstdint>
+#include <cstring>
+
+#include "raygen.cuh"
+
+namespace {
+
+constexpr int kSpan = 128;         // wavefront.COMPACT_SPAN
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowQuads = kSpan / 4;          // float4s in a span's row
+constexpr int kMoved = 12;                    // origin, direction, color,
+                                              // attenuation
+constexpr int kSpanQuads = kMoved * kRowQuads;
+
+// The sum of v over the block (every thread gets it).
+__device__ __forceinline__ int block_sum(int v, int* scratch) {
+#pragma unroll
+  for (int s = 16; s > 0; s >>= 1) v += __shfl_xor_sync(0xffffffffu, v, s);
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  __syncthreads();
+  if (lane == 0) scratch[warp] = v;
+  __syncthreads();
+  int total = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) total += scratch[w];
+  return total;
+}
+
+// Exclusive scan of f over the block; *total gets the block's sum.
+__device__ __forceinline__ int block_scan(int f, int* scratch, int* total) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  int incl = f;
+#pragma unroll
+  for (int s = 1; s < 32; s <<= 1) {
+    const int up = __shfl_up_sync(0xffffffffu, incl, s);
+    if (lane >= s) incl += up;
+  }
+  __syncthreads();
+  if (lane == 31) scratch[warp] = incl;
+  __syncthreads();
+  int before = 0, sum = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    before += w < warp ? scratch[w] : 0;
+    sum += scratch[w];
+  }
+  *total = sum;
+  return before + incl - f;
+}
+
+__global__ void __launch_bounds__(kThreads) span_gather(
+    const float* __restrict__ cur, float* __restrict__ spare,
+    const bool* __restrict__ act_in, bool* __restrict__ act_out,
+    const bool* __restrict__ live, const int* __restrict__ count,
+    const int* __restrict__ orig_in, int* __restrict__ orig_out,
+    int* __restrict__ slot, int s_old, int s_fit, int s_total,
+    long long lanes, int per) {
+  __shared__ int scratch[kWarps];
+  __shared__ int pos[kThreads];
+  const int c0 = blockIdx.x * per;
+  const int c1 = min(c0 + per, s_total);
+  if (c0 >= c1) return;
+  const int n_live = *count;
+
+  // live spans of the prefix before this chunk: 4 flags (0/1 bytes) a word
+  const int lim = min(c0, s_old);
+  int before = 0;
+  const uint32_t* words = reinterpret_cast<const uint32_t*>(live);
+  for (int w = threadIdx.x; w < lim / 4; w += kThreads)
+    before += __popc(words[w]);
+  for (int k = (lim / 4) * 4 + threadIdx.x; k < lim; k += kThreads)
+    before += live[k];
+  before = block_sum(before, scratch);
+
+  for (int t0 = c0; t0 < c1; t0 += kThreads) {
+    const int k = t0 + threadIdx.x;
+    const int f = (k < c1 && k < s_old) ? (int)live[k] : 0;
+    int tile;
+    const int excl = block_scan(f, scratch, &tile);
+    if (k < c1) {
+      const int rank = before + excl;         // live spans before k
+      const int p = k >= s_old ? k : (f ? rank : n_live + (k - rank));
+      pos[threadIdx.x] = p;
+      const int o = orig_in != nullptr ? orig_in[k] : k;
+      orig_out[p] = o;
+      slot[o] = p;
+    }
+    before += tile;
+    __syncthreads();
+    const int nt = min(kThreads, c1 - t0);
+    // the tile's spans: 12 rows of 32 float4s each, a warp a row (past
+    // the new prefix: origin and color only)
+#pragma unroll 4
+    for (int w = threadIdx.x; w < nt * kSpanQuads; w += kThreads) {
+      const int sp = w / kSpanQuads, rem = w % kSpanQuads;
+      const int row = rem / kRowQuads, q = rem % kRowQuads;
+      const int src = t0 + sp;
+      if (pos[sp] >= s_fit && ((row >= 3 && row < 6) || row >= 9)) continue;
+      const float4 v = reinterpret_cast<const float4*>(
+          cur + row * lanes + (size_t)src * kSpan)[q];
+      reinterpret_cast<float4*>(
+          spare + row * lanes + (size_t)pos[sp] * kSpan)[q] = v;
+    }
+    // the new prefix's active flags: 8 uint4s a span
+    for (int w = threadIdx.x; w < nt * (kSpan / 16); w += kThreads) {
+      const int sp = w / (kSpan / 16), q = w % (kSpan / 16);
+      const int src = t0 + sp;
+      if (pos[sp] >= s_fit) continue;
+      reinterpret_cast<uint4*>(act_out + (size_t)pos[sp] * kSpan)[q] =
+          reinterpret_cast<const uint4*>(act_in + (size_t)src * kSpan)[q];
+    }
+    __syncthreads();
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) frame_finish(
+    trt::Cam cam, const float* __restrict__ hv, const int* __restrict__ slot,
+    long long lanes, long long off, const float* __restrict__ hp,
+    float* __restrict__ img, int add, int last, float inv_spp,
+    float* __restrict__ hp_out, float* __restrict__ o_out,
+    float* __restrict__ d_out, int chw) {
+  const int W = cam.width, H = cam.height, n = W * H;
+  const int p = blockIdx.x * kThreads + threadIdx.x;
+  if (p >= n) return;
+  const int x = p % W, y = p / W;
+  int i = p;
+  if (cam.block > 1) {
+    const int b = cam.block;
+    i = ((y / b) * (W / b) + x / b) * (b * b) + (y % b) * b + x % b;
+  }
+  const long long gl = off + i;
+  const long long sl =
+      slot != nullptr ? (long long)slot[gl / kSpan] * kSpan + gl % kSpan : gl;
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const size_t at = chw ? (size_t)c * n + p : (size_t)p * 3 + c;
+    float v = hv[c * lanes + sl];
+    if (add) v = img[at] + v;
+    if (last) v = v * inv_spp;
+    img[at] = v;
+  }
+  if (hp_out == nullptr) return;
+  float o[3], d[3];
+  trt::lane_ray(cam, i, nullptr, o, d);
+#pragma unroll
+  for (int c = 0; c < 3; ++c) {
+    const size_t at = chw ? (size_t)c * n + p : (size_t)p * 3 + c;
+    hp_out[at] = hp[c * lanes + gl];
+    o_out[at] = o[c];
+    d_out[at] = d[c];
+  }
+}
+
+bool aligned16(const void* p) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0;
+}
+
+}  // namespace
+
+// cur / spare: (15, lanes) float32 state buffers, act_in / act_out their
+// (lanes,) active masks, live: >= s_old span flags (S3's), count: S3's
+// int32 live-span count of the prefix, orig_in: (s_total,) each slot's
+// original span or NULL (nothing moved yet), orig_out: (s_total,) written,
+// slot: (s_total,) written (original span -> slot); s_old: the prefix's
+// spans, s_fit: the new prefix's (>= count; spare's rows 3-5 and 9-11 and
+// act_out are written only there), s_total = lanes / 128. Launches on
+// `stream`, allocates nothing, does not synchronize.
+extern "C" int trt_span_gather(const float* cur, float* spare,
+                               const bool* act_in, bool* act_out,
+                               const bool* live, const int* count,
+                               const int* orig_in, int* orig_out, int* slot,
+                               int s_old, int s_fit, int s_total,
+                               long long lanes, void* stream) {
+  if (s_total <= 0) return 0;
+  if (lanes != (long long)s_total * kSpan || s_old > s_total || s_old < 0 ||
+      s_fit > s_old || s_fit < 0)
+    return (int)cudaErrorInvalidValue;
+  if (!aligned16(cur) || !aligned16(spare) || !aligned16(act_in) ||
+      !aligned16(act_out) || !aligned16(live))
+    return (int)cudaErrorMisalignedAddress;
+  // 4 CTAs an SM fill the card; each walks a chunk of spans
+  const int grid = s_total < 132 * 4 ? s_total : 132 * 4;
+  const int per = (s_total + grid - 1) / grid;
+  span_gather<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      cur, spare, act_in, act_out, live, count, orig_in, orig_out, slot,
+      s_old, s_fit, s_total, lanes, per);
+  return (int)cudaGetLastError();
+}
+
+// cam / kind / width / height / block: the frame's camera (trt_raygen's);
+// hv: the current state's row 6 (color), hp: the first state's row 12
+// (first hit), both of row stride `lanes`; slot: (lanes / 128,) original
+// span -> slot, or NULL; off: the frame's first lane; img: the image
+// (H, W, 3), or (3, H, W) with chw; sample s of spp; hp_out / o_out /
+// d_out: the dumps in img's layout, or all NULL. Launches on `stream`,
+// allocates nothing, does not synchronize.
+extern "C" int trt_frame_finish(const float* cam, int kind, int width,
+                                int height, int block, const float* hv,
+                                const int* slot, long long lanes,
+                                long long off, const float* hp, float* img,
+                                int s, int spp, float* hp_out, float* o_out,
+                                float* d_out, int chw, void* stream) {
+  const long long n = (long long)width * height;
+  if (n <= 0) return 0;
+  if ((kind != trt::kPinhole && kind != trt::kToroidal) || spp < 1 ||
+      s < 0 || s >= spp || off + n > lanes ||
+      (hp_out != nullptr && (hp == nullptr || o_out == nullptr ||
+                             d_out == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  trt::Cam c;
+  c.kind = kind;
+  c.width = width;
+  c.height = height;
+  c.block = block;
+  std::memcpy(c.p, cam, sizeof(c.p));
+  // PyTorch's CUDA division by a Python float: a multiply by 1 / spp
+  const float inv_spp = 1.0f / (float)spp;
+  const int blocks = (int)((n + kThreads - 1) / kThreads);
+  frame_finish<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      c, hv, slot, lanes, off, hp, img, s > 0, s == spp - 1, inv_spp, hp_out,
+      o_out, d_out, chw);
+  return (int)cudaGetLastError();
+}

@@ -47,7 +47,8 @@ LAUNCHES = {"tri_closest_hit": 0, "torus_closest_hit": 0,
             "torus_closest_hit_small": 0, "quad_gather": 0,
             "tri_closest_hit_stream": 0,
             "tri_closest_hit_stream_grouped": 0, "threefry_uniform": 0,
-            "loose_hit": 0, "shade_hit": 0, "shade_finish": 0}
+            "loose_hit": 0, "shade_hit": 0, "shade_finish": 0,
+            "raygen": 0, "span_gather": 0, "frame_finish": 0}
 
 
 def reset_launches() -> None:
@@ -253,6 +254,7 @@ BUILD_LOG = {"seconds": None, "path": None, "ptxas": ""}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_int64
 _SIGNATURES = {
     # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
     # n_nodes, depth, rank, cluster, box_test, a0, a1, a2, occlusion, t,
@@ -299,6 +301,18 @@ _SIGNATURES = {
     # q0, q1, srgb, consts, first, more, rays, spans, count, stream
     "trt_shade_finish": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                          _P, _I, _I, _P, _P, _P, _P],
+    # cam, kind, width, height, block, jitter, n, tail, o, d, row_stride,
+    # elem_stride, rest, lanes, active, stream
+    "trt_raygen": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _L, _I, _P, _L,
+                   _P, _P],
+    # cur, spare, act_in, act_out, live, count, orig_in, orig_out, slot,
+    # s_old, s_fit, s_total, lanes, stream
+    "trt_span_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
+                        _P],
+    # cam, kind, width, height, block, hv, slot, lanes, off, hp, img, s,
+    # spp, hp_out, o_out, d_out, chw, stream
+    "trt_frame_finish": [_P, _I, _I, _I, _I, _P, _P, _L, _L, _P, _P, _I, _I,
+                         _P, _P, _P, _I, _P],
 }
 
 

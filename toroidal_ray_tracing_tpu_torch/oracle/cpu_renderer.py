@@ -8,8 +8,10 @@ It is written the naive way — a dense Möller–Trumbore test of every ray
 against every triangle row, a float64 quartic per torus, a Python bounce
 loop over the live rays — and shares no code path with the Woop / tree /
 kernel path it checks: only the cameras' raygen (an exact port, tested on
-its own), `geom/`, `scene/types.py` and `autofill_pixel_spread`. It never
-runs `trace/` or `ops/`.
+its own; on the card it is R1, `ops/front_kernel.py`, held bit-equal to
+its plain twin by chip_smoke.py), `geom/`, `scene/types.py` and
+`autofill_pixel_spread`. It never runs `trace/` or any other part of
+`ops/`.
 
 The arithmetic follows the NumPy oracle step for step, in the same order
 (sums of three products in index order, true divisions), so on the CPU the

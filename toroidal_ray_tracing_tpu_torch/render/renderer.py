@@ -21,11 +21,15 @@ import numpy as np
 import torch
 
 from toroidal_ray_tracing_tpu_torch.cameras import generate_rays
-from toroidal_ray_tracing_tpu_torch.cameras.pinhole import (block_unswizzle,
-                                                            pick_block)
+from toroidal_ray_tracing_tpu_torch.cameras.pinhole import pick_block
 from toroidal_ray_tracing_tpu_torch.ops import threefry_kernel
+from toroidal_ray_tracing_tpu_torch.ops.front_kernel import (frame_finish,
+                                                             raygen_state)
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
-from toroidal_ray_tracing_tpu_torch.trace.wavefront import trace_rays
+from toroidal_ray_tracing_tpu_torch.trace.wavefront import (lane_count,
+                                                            new_state,
+                                                            trace_rays,
+                                                            trace_state)
 from toroidal_ray_tracing_tpu_torch.utils import prng
 
 F32 = np.float32
@@ -51,29 +55,35 @@ def autofill_pixel_spread(settings: RenderSettings, camera, width, height):
     return settings
 
 
-def _rays(camera, params, width, height, settings, jitter, device):
-    """Raygen of one frame in block-major pixel order (each warp of a trace
-    kernel covers a compact screen patch): (3, N) origins and dirs."""
-    return camera.device_rays(params, width, height, settings, jitter=jitter,
-                              block=pick_block(width, height), rows=True,
-                              device=device)
+def _trace_frames(scene, settings, cams, width, height, backend, jitter,
+                  device):
+    """R1 + the bounce loop of one wavefront batch: each (camera, params)
+    of `cams` writes its frame's rays, in block-major pixel order (each
+    warp of a trace kernel covers a compact screen patch), straight into
+    its columns of the loop's state (`ops.front_kernel.raygen_state`, the
+    last also the dead tail lanes). Returns the loop's `Traced`."""
+    n = width * height
+    total = n * len(cams)
+    lanes = lane_count(total, backend)
+    state, active = new_state(lanes, device)
+    block = pick_block(width, height)
+    for g, (cam, params) in enumerate(cams):
+        raygen_state(cam.KIND, params, width, height, jitter, block, state,
+                     active, g * n,
+                     lanes - total if g == len(cams) - 1 else 0)
+    return trace_state(scene, settings, state, active, total, backend)
 
 
-def _unswizzle(a, width, height):
-    """(C, N) block-major rows -> (H, W, C) row-major."""
-    return block_unswizzle(a.T, width, height, pick_block(width, height))
-
-
-def _frame(scene, settings, camera, params, width, height, backend, jitter,
-           device):
-    """Raygen + trace + unswizzle of one frame; outputs come back row-major
-    (H, W, 3)."""
-    origins, dirs = _rays(camera, params, width, height, settings, jitter,
-                          device)
-    color, hitpos, nrays = trace_rays(scene, settings, origins, dirs,
-                                      backend=backend)
-    return (*(_unswizzle(a, width, height)
-              for a in (color, hitpos, origins, dirs)), nrays)
+def _finish(traced, cam, params, width, height, off, outs, s, spp,
+            chw=False):
+    """F1 (`ops.front_kernel.frame_finish`): the frame at lanes [off, off +
+    W*H) of the batch into outs[0], sample s of spp, and on sample 0 the
+    dumps into outs[1:] (when there), row-major (H, W, 3), or (3, H, W)
+    with chw."""
+    frame_finish(cam.KIND, params, width, height, pick_block(width, height),
+                 traced.state, traced.first, traced.slot, off, outs[0], s,
+                 spp, tuple(outs[1:]) if s == 0 and len(outs) > 1 else None,
+                 chw)
 
 
 def _render_banded(scene, camera, width, height, settings, backend, spp,
@@ -145,28 +155,31 @@ def _setup(scene, settings, camera, width, height, device):
 
 
 def _spp_frame(scene, settings, camera, width, height, backend, spp,
-               sample_key, device):
+               sample_key, device, outs=None, chw=False):
     """One frame's spp samples, the centered one first (it also provides
     the hit/ray dumps); sample s >= 1 adds the jitter
     `prng.uniform(sample_key(s), (n, 2))`, drawn on `device` (the threefry
     kernel on the card, `ops.threefry_kernel`) and taken by the rays in
-    their trace order, as the JAX package's. Returns
-    (image, hit_position, ray_origin, ray_dir) as (H, W, 3) and the exact
-    ray count."""
+    their trace order, as the JAX package's. Each sample is R1, the bounce
+    loop and F1, which accumulates the image in place. outs: the (image,
+    hit_position, ray_origin, ray_dir) tensors to write, or (image,) with
+    no dumps, each (H, W, 3) or (3, H, W) with chw; None makes the four
+    (H, W, 3). Returns (outs, the exact ray count)."""
     params = camera.ray_params(width, height, settings)
     n = width * height
-    acc = dumps = None
+    if outs is None:
+        outs = tuple(torch.empty((height, width, 3), dtype=torch.float32,
+                                 device=device) for _ in range(4))
     nrays = 0
-    for s in range(max(spp, 1)):
+    spp = max(spp, 1)
+    for s in range(spp):
         jitter = (None if s == 0 else
                   threefry_kernel.uniform(sample_key(s), (n, 2), device))
-        c, hp, o, d, nr = _frame(scene, settings, camera, params, width,
-                                 height, backend, jitter, device)
-        acc = c if acc is None else acc + c
-        nrays += nr
-        if s == 0:
-            dumps = (hp, o, d)
-    return (acc / float(max(spp, 1)), *dumps), nrays
+        traced = _trace_frames(scene, settings, [(camera, params)], width,
+                               height, backend, jitter, device)
+        _finish(traced, camera, params, width, height, 0, outs, s, spp, chw)
+        nrays += traced.rays
+    return outs, nrays
 
 
 def render(scene: Scene, camera, width: int, height: int,
@@ -231,41 +244,51 @@ def _frame_groups(n_frames: int, width: int, height: int, spp: int,
 
 
 def _frames(scene, cameras, width, height, settings, backend, spp, seed,
-            frames_per_batch, device, dumps):
-    """Yield (frame index, (image, hit_position, ray_origin, ray_dir) as
-    (H, W, 3) or (image,) without dumps, ray count) over the cameras.
+            frames_per_batch, device, n_bufs, chw):
+    """Render the cameras' frames into `n_bufs` stacked outputs, (F, H, W,
+    3), or (F, 3, H, W) with chw: the images, then (n_bufs == 4) the
+    hit_position, ray_origin and ray_dir dumps; n_bufs == 0 keeps no image
+    (each frame is finished into one scratch image). Returns (the outputs,
+    the total ray count).
 
     With spp > 1, sample s of frame f draws its jitter from the key
     fold_in(PRNGKey(seed), f * spp + s), as the JAX package's sequence
     front doors do: frame 0 equals render(cameras[0], spp=spp, seed=seed).
     A group of frames (frames_per_batch) is traced as one wavefront batch:
-    their rays concatenate and every per-ray result is the frame's own."""
+    each camera's rays fill its columns of the state (R1) and F1 finishes
+    each frame from its columns; every per-ray result is the frame's own."""
     scene, settings, device = _setup(scene, settings, cameras[0], width,
                                      height, device)
     group = _frame_groups(len(cameras), width, height, spp, frames_per_batch)
+    frame = (3, height, width) if chw else (height, width, 3)
+    f32 = dict(dtype=torch.float32, device=device)
+    bufs = tuple(torch.empty((len(cameras), *frame), **f32)
+                 for _ in range(n_bufs))
+    scratch = (torch.empty(frame, **f32),) if not n_bufs else None
+
+    def outs(f):
+        return scratch or tuple(b[f] for b in bufs)
+
+    total = 0
     if group == 1:
         root = prng.prng_key(seed)
         for f, cam in enumerate(cameras):
-            outs, nrays = _spp_frame(
+            total += _spp_frame(
                 scene, settings, cam, width, height, backend, spp,
-                lambda s, f=f: prng.fold_in(root, f * spp + s), device)
-            yield f, outs if dumps else outs[:1], nrays
-        return
+                lambda s, f=f: prng.fold_in(root, f * spp + s), device,
+                outs(f), chw)[1]
+        return bufs, total
     n = width * height
     for f0 in range(0, len(cameras), group):
-        rays = [_rays(cam, cam.ray_params(width, height, settings), width,
-                      height, settings, None, device)
+        cams = [(cam, cam.ray_params(width, height, settings))
                 for cam in cameras[f0:f0 + group]]
-        origins = torch.cat([o for o, _ in rays], dim=1)
-        dirs = torch.cat([d for _, d in rays], dim=1)
-        color, hitpos, nrays = trace_rays(scene, settings, origins, dirs,
-                                          backend=backend)
-        bufs = (color, hitpos, origins, dirs) if dumps else (color,)
-        for g in range(group):
-            sl = slice(g * n, (g + 1) * n)
-            yield (f0 + g,
-                   tuple(_unswizzle(a[:, sl], width, height) for a in bufs),
-                   nrays if g == 0 else 0)
+        traced = _trace_frames(scene, settings, cams, width, height,
+                               backend, None, device)
+        for g, (cam, params) in enumerate(cams):
+            _finish(traced, cam, params, width, height, g * n, outs(f0 + g),
+                    0, 1, chw)
+        total += traced.rays
+    return bufs, total
 
 
 def render_sequence(scene: Scene, cameras, width: int, height: int,
@@ -288,17 +311,12 @@ def render_sequence(scene: Scene, cameras, width: int, height: int,
     Returns {"images": (F, H, W, 3) linear color (if keep_images),
              "rays_traced": int}.
     """
-    images = []
-    total = 0
-    for _, outs, nrays in _frames(scene, cameras, width, height, settings,
-                                  backend, spp, seed, frames_per_batch,
-                                  device, dumps=False):
-        total += nrays
-        if keep_images:
-            images.append(outs[0])
+    bufs, total = _frames(scene, cameras, width, height, settings, backend,
+                          spp, seed, frames_per_batch, device,
+                          int(keep_images), chw=False)
     out = {"rays_traced": total}
     if keep_images:
-        out["images"] = torch.stack(images)
+        out["images"] = bufs[0]
     return out
 
 
@@ -320,14 +338,9 @@ def render_frames(scene: Scene, cameras, width: int, height: int,
     if not isinstance(cameras, (list, tuple)):
         cameras = [cameras]
     keys = ("images", "hit_positions", "ray_origins", "ray_dirs")
-    bufs: dict = {k: [] for k in keys[:4 if dumps else 1]}
-    total = 0
-    for _, outs, nrays in _frames(scene, cameras, width, height, settings,
-                                  backend, spp, seed, frames_per_batch,
-                                  device, dumps):
-        total += nrays
-        for k, a in zip(bufs, outs):
-            bufs[k].append(a.permute(2, 0, 1))
-    out = {k: torch.stack(v) for k, v in bufs.items()}
+    bufs, total = _frames(scene, cameras, width, height, settings, backend,
+                          spp, seed, frames_per_batch, device,
+                          4 if dumps else 1, chw=True)
+    out = dict(zip(keys, bufs))
     out["rays_traced"] = total
     return out

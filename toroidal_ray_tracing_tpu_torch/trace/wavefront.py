@@ -13,17 +13,20 @@ So once every live `COMPACT_SPAN`-ray span fits in the first n/f lanes (f
 in `COMPACT_FACTORS`), the spans are packed live-first and the segment
 traces and shades only that prefix; the suffix is all dead and stays as
 it is. Spans move whole: raygen's block swizzle makes a span a compact
-screen patch, so the kernels' warps stay coherent. The outputs are
-unpermuted once at the end. `backend="torch"` traces every segment whole,
-as the JAX package's jnp path does.
+screen patch, so the kernels' warps stay coherent. The move is G1
+(`ops.front_kernel.span_gather`), from the state into a second buffer that
+then becomes the state; the first-hit rows never move (segment 0 writes
+them, before any shrink). The color is unpermuted once at the end, by F1
+on the front doors. `backend="torch"` traces every segment whole, as the
+JAX package's jnp path does.
 
 A kernel-backend segment is S1 (the loose hoist) -> K1/K5 -> K2/K3 (the
 closest hit's parts unmerged, its raw attribute rows), S2
 (`ops.shade_kernel.shade_hit`: the merges, shading up to the shadow ray)
 -> K4 (textured scenes) -> S1 -> the any-hit kernels (their mask formed
 from the parts), then S3 (`shade_finish`: the rest of the shading and the
-state update in place, the ray count and the live spans), and the
-compaction gather when the bucket shrinks. The torch backend shades with
+state update in place, the ray count and the live spans), and G1 when
+the bucket shrinks. The torch backend shades with
 `trace.shade.shade` and updates the state with tensor ops (`_advance`).
 
 `trace_rays_fixed` is the differentiable variant: a fixed number of
@@ -33,11 +36,14 @@ segments, autograd through shading and (on the kernel backend)
 
 from __future__ import annotations
 
-import math
+import dataclasses
 import os
+from typing import Optional
 
 import torch
 
+from toroidal_ray_tracing_tpu_torch.ops.front_kernel import (  # noqa: F401
+    fill_state_plain, span_gather, span_lanes, span_order, unpermute_rows)
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (batch_anchor,
                                                               round_up)
 # live_spans: the 128-lane spans that hold a live ray (S3 writes them on
@@ -83,18 +89,6 @@ def bucket_sizes(n: int, factors=None) -> tuple:
     return (lanes, *smaller) if smaller else (n,)
 
 
-def span_order(live):
-    """The span permutation that packs live spans first, each span keeping
-    its place among its kind (stable)."""
-    return torch.argsort(~live, stable=True)
-
-
-def span_lanes(order):
-    """The lane gather index that lays spans out in `order`."""
-    ar = torch.arange(COMPACT_SPAN, device=order.device)
-    return (order[:, None] * COMPACT_SPAN + ar).reshape(-1)
-
-
 def _sync_group(ray_group, prim_group):
     """The group whose ranks must agree on the stop and the bucket: the one
     group given, or the world when both are (a ("rays", "prims") mesh
@@ -102,6 +96,31 @@ def _sync_group(ray_group, prim_group):
     if ray_group is not None and prim_group is not None:
         return torch.distributed.group.WORLD
     return ray_group if ray_group is not None else prim_group
+
+
+def lane_count(n: int, backend: str) -> int:
+    """The lanes of an n-ray batch's state: `bucket_sizes(n)[0]` on the
+    kernel backend, n on the torch backend."""
+    return bucket_sizes(n)[0] if backend == "kernel" else n
+
+
+def new_state(lanes: int, device):
+    """An unfilled (15, lanes) float32 bounce state and its (lanes,) bool
+    active mask (rows origin, direction, color, attenuation, first hit)."""
+    return (torch.empty((15, lanes), dtype=torch.float32, device=device),
+            torch.empty((lanes,), dtype=torch.bool, device=device))
+
+
+@dataclasses.dataclass
+class Traced:
+    """A bounce loop's end (`trace_state`)."""
+
+    state: torch.Tensor      # (15, lanes): each slot's rows now (color)
+    first: torch.Tensor      # (15, lanes): the buffer segment 0 ran on,
+    #                          its first-hit rows in original lane order
+    slot: Optional[torch.Tensor]   # (lanes / 128,) int32 original span ->
+    #                                slot, None when no span moved
+    rays: int                # the exact ray count
 
 
 def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
@@ -115,6 +134,10 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
     traceRayEXT-equivalent count (one closest-hit per live ray plus one
     shadow ray per lit hit, raytrace.rchit:90-109) of this batch as a
     Python int.
+
+    The state is filled here with tensor ops; the front doors fill it with
+    R1 (`ops.front_kernel.raygen_state`) and call `trace_state`, as this
+    does, then F1.
 
     backend="kernel" compacts live spans into the smallest of
     `bucket_sizes(N)` that holds them all (module docstring). Its kernels
@@ -131,24 +154,39 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
     segments on the same prefix size (the queries' merges are
     collectives). The host reads one number a segment."""
     n = origins.shape[1]
-    dev = origins.device
+    lanes = lane_count(n, backend)
+    state, active = new_state(lanes, origins.device)
+    fill_state_plain(state, active, origins, dirs, 0, lanes - n)
+    tr = trace_state(scene, settings, state, active, n, backend, geom,
+                     prim_group, ray_group)
+    # only the color rows moved (G1 leaves the first hit in place)
+    return (unpermute_rows(tr.state[_HV], tr.slot)[:, :n],
+            tr.first[_HP, :n], tr.rays)
+
+
+def trace_state(scene: Scene, settings: RenderSettings, state, active,
+                n: int, backend: str = "torch", geom=None, prim_group=None,
+                ray_group=None) -> Traced:
+    """The bounce loop on a filled (15, lanes) state of n rays and its
+    active mask (`trace_rays`' arguments and module docstring), lanes =
+    `lane_count(n, backend)`. On a bucket shrink G1
+    (`ops.front_kernel.span_gather`) moves the prefix's spans into a spare
+    buffer, which becomes the state: the result names the buffer that
+    holds the color rows and the one that holds the first hit."""
+    dev = state.device
     max_depth = int(settings.max_depth)
     kernel = backend == "kernel"
     sizes = bucket_sizes(n) if kernel else (n,)
     compact = len(sizes) > 1
     lanes = sizes[0]
-    state = torch.empty((15, lanes), dtype=torch.float32, device=dev)
-    state[_O, :n] = origins
-    state[_D, :n] = dirs
-    state[_O, n:] = 0.0
-    state[_D, n:] = 1.0 / math.sqrt(3.0)
-    state[_HV] = 0.0
-    state[_AT] = 1.0
-    state[_HP] = 0.0
-    active = torch.arange(lanes, device=dev) < n
+    if state.shape != (15, lanes):
+        raise ValueError(f"state {tuple(state.shape)} for {n} rays on "
+                         f"{backend}: want (15, {lanes})")
+    first = state
     n_batch = round_up(max(n, 1), RAY_TILE)   # the kernels' anchor divisor
     group = _sync_group(ray_group, prim_group)
-    span_orig = None        # each slot's original span, once spans moved
+    spare = slot = None     # G1's second buffer; original span -> slot
+    orig_in = orig_out = None   # G1's maps slot -> original span
     nb = lanes              # lanes this segment traces
     any_active = True
     depth = 0
@@ -189,9 +227,10 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
             occluded = any_hit(scene, sr.shadow_o, sr.shadow_d,
                                sr.shadow_tmax, backend=backend, geom=geom,
                                prim_group=prim_group, anchor=anchor)
-            count = counts[depth]
+            local = counts[depth]
             shade_finish(state, active, nb, sr, occluded, quads, params,
-                         depth, max_depth, rays, spans, count)
+                         depth, max_depth, rays, spans, local)
+            count = local
         else:
             count = _advance(scene, settings, s, active, nb, hit, depth,
                              max_depth, rays, geom, prim_group)
@@ -205,22 +244,22 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
         fit = (min(z for z in sizes if z >= count * COMPACT_SPAN)
                if compact else nb)
         if any_active and fit < nb:
-            # pack the prefix's live spans first (the suffix is dead)
-            order = span_order(spans[:nb // COMPACT_SPAN])
-            idx = span_lanes(order)
-            state[:, :nb] = s.index_select(1, idx)
-            active[:nb] = active[:nb].index_select(0, idx)
-            if span_orig is None:
-                span_orig = torch.arange(lanes // COMPACT_SPAN, device=dev)
-            span_orig[:order.shape[0]] = span_orig[order]
+            # G1: the prefix's live spans first (the suffix is dead), into
+            # the spare buffer, which becomes the state
+            if spare is None:
+                spare, spare_act = new_state(lanes, dev)
+                orig_out = torch.empty((lanes // COMPACT_SPAN,),
+                                       dtype=torch.int32, device=dev)
+                slot = torch.empty_like(orig_out)
+            span_gather(state, spare, active, spare_act, spans, local,
+                        orig_in, orig_out, slot, nb, fit)
+            state, spare = spare, state
+            active, spare_act = spare_act, active
+            orig_in, orig_out = orig_out, (
+                torch.empty_like(orig_out) if orig_in is None else orig_in)
             nb = fit
         depth += 1
-
-    if span_orig is not None:
-        # every slot's rows back to its original span's lanes
-        state = torch.empty_like(state).index_copy_(
-            1, span_lanes(span_orig), state)
-    return state[_HV, :n], state[_HP, :n], int(rays)
+    return Traced(state, first, slot, int(rays))
 
 
 def _advance(scene, settings, s, active, nb, hit, depth, max_depth, rays,

@@ -196,22 +196,39 @@ Phases, each printed on its own lines with its wall seconds:
      wrapper, the bare launch, its device time (20 bare launches in a
      CUDA graph), the twin, the byte bound, and for G1 and F1 the one
      PyTorch call for the same data movement (`index_select` of the
-     prefix's rows; the permuted `.contiguous()` copy of the color rows).
+     prefix's rows; the permuted `.contiguous()` copy of the color rows);
+ 15. the visit-rank kernel V1 (`ops.visit_kernel`, csrc/visit.cu) against
+     its twin (`batch_anchor`, `visit_order`, `tree_rank`) on every
+     segment of a `render` of configs 3, 4, 6, 7, 8 (through K5, and
+     through K6), 5 (3840x2160, 2 spp) and the capture at their main-path
+     sizes, recorded as `segment_ranks` hands it the state's origin rows:
+     the anchor and every rank bit-equal (an anchor that differs is
+     printed); its per-call route (K1's and K2's wrappers given no rank
+     launch V1 once, and hit as on the twin's rank); on the same renders
+     the folds the query's kernels now write against the torch
+     formulation they replace, on every lane: the torus query's tmax
+     (`torch.minimum(tmax, t)`, `torch.where(occ, 0, tmax)`) and the
+     occlusion byte (S1, K1, K5/K6, K2, K3; `t < BIG` ORed); V1's
+     wrapper, bare, CUDA-graph device and twin times and byte bound on
+     config 8's, config 6's and config 5's first segment, beside the
+     eager route it replaces.
 
 Phases 4 and 7-11 also check every kernel-backend segment that a counted
-path traces on the card (`SegmentGuard`): from its closest-hit query to
-its S3, it launched the shading kernels S2 and S3 once each and the
-loose hoist S1 twice where it tests a scene's loose rows (its closest
-and any-hit queries), and nothing called `trace.shade.shade` or a
-segment kernel's twin; each phase traces at least one. Phase 9's two
-gloo ranks report their segments and launches: S2 and S3 once a
-segment, S1 twice on a loose scene's whole table (one prims shard), none
-on a prims slice. Every counted path's front-door launches are checked too
-(`FrontGuard`, phases 4 and 7-11): R1 once a frame of each batch a front
-door traces (once a sample) and once a `device_rays` call on the card, F1
-once a frame of each batch, G1 once a kernel-backend bucket shrink, no
-twin of the three on card tensors; phase 4 also asserts R1 and F1 once a
-sample of every render it counts.
+path traces on the card (`SegmentGuard`): from its visit ranks to its
+S3, it launched V1 at most once, the shading kernels S2 and S3 once each
+and the loose hoist S1 twice where it tests a scene's loose rows (its
+closest and any-hit queries), and nothing called `trace.shade.shade`, a
+segment kernel's twin or the eager visit order (`batch_anchor`,
+`visit_order`, `tree_rank`) on card tensors; each phase traces at least
+one. Phase 9's two gloo ranks report their segments and launches: S2 and
+S3 once a segment, V1 at most once, S1 twice on a loose scene's whole
+table (one prims shard), none on a prims slice. Every counted path's
+front-door launches are checked too (`FrontGuard`, phases 4 and 7-11):
+R1 once a frame of each batch a front door traces (once a sample) and
+once a `device_rays` call on the card, F1 once a frame of each batch, G1
+once a kernel-backend bucket shrink, no twin of the three on card
+tensors; phase 4 also asserts R1 and F1 once a sample of every render it
+counts.
 
 Any failed check exits 1 without the result lines. On success the line
 before the last is the per-kernel JSON summary and the last line is
@@ -576,7 +593,7 @@ def phase_kernels(torch, results):
             launch("trt_tri_closest_hit", o_, d_, tm, n_, tb.wrows,
                    tb.wrows.shape[0], tb.tree_lo, tb.tree_hi, tb.tree_link,
                    M1, depth, rank, cs, 1, *(tables if attrs else (None,) * 3),
-                   int(occl), *outs, attr, None)
+                   int(occl), *outs, attr, None, None, None, 0)
         return run
 
     def k1_counted(*args, **kw):
@@ -697,7 +714,8 @@ def phase_kernels(torch, results):
             launch("trt_torus_closest_hit", o_, d_, tm, n_, tt.w2o_rows,
                    tt.rad, tt.tree_lo, tt.tree_hi, tt.tree_link,
                    tt.tree_lo.shape[0], depth, rank, tt.chunk,
-                   tt.mat if attrs else None, int(occl), t_, i_, attr, None)
+                   tt.mat if attrs else None, int(occl), t_, i_, attr, None,
+                   None, 0)
         return run
 
     def k2_counted(*args, **kw):
@@ -799,7 +817,8 @@ def phase_kernels(torch, results):
         i_ = torch.empty((n_,), dtype=torch.int32, device=dev)
         a_ = torch.empty((15, n_), device=dev) if attrs else None
         return lambda: launch("trt_torus_closest_hit_small", o_, d_, tm, n_,
-                              tt.par, tt.K, int(occl), t_, i_, a_, None)
+                              tt.par, tt.K, int(occl), t_, i_, a_, None,
+                              None, 0)
 
     def k3_cell(label, tt, o_, d_, tm, attrs, occl):
         """K3 on one ray set against its twin (any-hit: masks, and idx 0 on
@@ -867,11 +886,12 @@ def phase_kernels(torch, results):
     k3_calls, k4_calls = [], []
     real_k3, real_k4 = tk.torus_closest_hit_small, wavefront.quad_gather
 
-    def record_k3(o_, d_, tm, tables, want_attrs=False, occlusion=False):
+    def record_k3(o_, d_, tm, tables, want_attrs=False, occlusion=False,
+                  **kw):
         k3_calls.append((tables, o_.clone(), d_.clone(), tm.clone(),
                          want_attrs, occlusion))
         return real_k3(o_, d_, tm, tables, want_attrs=want_attrs,
-                       occlusion=occlusion)
+                       occlusion=occlusion, **kw)
 
     def record_k4(*args):
         k4_calls.append(tuple(a.clone() for a in args))
@@ -1185,7 +1205,7 @@ def phase_stream(torch, results, rays, light):
         launch("trt_tri_closest_hit_stream" + entry, o8, d8, tm8, n8,
                st.wrows, st.wrows.shape[0], st.tree_lo, st.tree_hi,
                st.tree_link, M, depth, rank8, st.clo, st.chi, st.g, cs8,
-               *tables8, 0, *outs, attrs8, None)
+               *tables8, 0, *outs, attrs8, None, None, None, 0)
 
     refused = 0
     for entry in ("", "_grouped"):
@@ -2416,11 +2436,13 @@ def phase_gradients_multidevice(torch, totals):
             s1 = 2 * segs if loose and rw["mesh"][1] == 1 else 0
             check(segs > 0 and got.get("shade_hit", 0) == segs
                   and got.get("shade_finish", 0) == segs
-                  and got.get("loose_hit", 0) == s1,
+                  and got.get("loose_hit", 0) == s1
+                  and got.get("visit_rank", 0) <= segs,
                   f"{row['case']} rank {r}: {segs} segments, S2 "
                   f"x{got.get('shade_hit', 0)}, S3 "
                   f"x{got.get('shade_finish', 0)}, S1 "
-                  f"x{got.get('loose_hit', 0)} (want {s1})")
+                  f"x{got.get('loose_hit', 0)} (want {s1}), V1 "
+                  f"x{got.get('visit_rank', 0)} (at most one a segment)")
         summary["sharded"].append(dict(
             cell=row["case"], mesh=row["mesh"], backend="gloo", ranks=2,
             ms=[rw["ms"] for rw in rows],
@@ -2831,35 +2853,55 @@ SEGMENT_TOL = 1e-6        # libm-parted values: |diff| <= tol * max(1, |ref|)
 
 class SegmentGuard:
     """While entered, checks each kernel-backend segment that
-    `trace.wavefront.trace_rays` traces on the card, from its closest-hit
-    query to the return of its S3: S2 and S3 launched once, S1 twice where
-    the query tests the scene's loose rows (the closest and the any-hit
-    query: a scene with loose rows, its whole triangle table), and no call
-    of `trace.shade.shade` inside it or of a segment kernel's plain twin
-    on card tensors. `segments` counts them, `bad` describes the ones that
-    were off."""
+    `trace.wavefront.trace_rays` traces on the card, from its visit ranks
+    (`segment_ranks`) to the return of its S3: V1 launched at most once,
+    S2 and S3 once, S1 twice where the query tests the scene's loose rows
+    (the closest and the any-hit query: a scene with loose rows, its whole
+    triangle table), and no call of `trace.shade.shade` inside it, of a
+    segment kernel's plain twin or of the eager visit order
+    (`batch_anchor`, `visit_order`, `tree_rank`, V1's twin) on card
+    tensors. `segments` counts them, `bad` describes the ones that were
+    off."""
 
     def __init__(self, launches):
+        from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
         from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
         from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+        from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tok
+        from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
+        from toroidal_ray_tracing_tpu_torch.ops import tri_stream as tsk
+        from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
         from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
 
         self.launches = launches
-        self.spots = [(wf, "closest_hit", self._closest_hit),
+        eager = [(m, n) for m in (kc, vk, trk, tok, tsk)
+                 for n in ("batch_anchor", "visit_order", "tree_rank",
+                           "visit_ranks_plain") if hasattr(m, n)]
+        self.spots = [(wf, "segment_ranks", self._ranks),
+                      (wf, "closest_hit", self._closest_hit),
                       (wf, "shade_finish", self._shade_finish),
                       (wf, "shade", self._stray(lambda a: self.open)),
                       *((m, n, self._stray(lambda a: a[0].is_cuda))
                         for m, n in ((lk, "loose_hit_plain"),
                                      (sk, "shade_hit_plain"),
-                                     (sk, "shade_finish_plain")))]
+                                     (sk, "shade_finish_plain"), *eager))]
         self.segments, self.bad = 0, []
         self.open = None      # (launches at its start, lanes, S1 to make)
+        self.ranked = None    # launches before the segment's visit ranks
         self.stray = 0        # calls of shade() in a segment or of a twin
         self.seen = 0         # ... that a segment or the exit reported
+
+    def _ranks(self, real):
+        def call(*a, **k):
+            self._close("did not reach S3")
+            self.ranked = dict(self.launches)
+            return real(*a, **k)
+        return call
 
     def _closest_hit(self, real):
         def call(scene, o, *a, **k):
             self._close("did not reach S3")
+            ranked, self.ranked = self.ranked, None
             if k.get("backend") == "kernel" and o.is_cuda:
                 g = k.get("geom")
                 T = g.woop_o.shape[2] if g is not None else None
@@ -2867,7 +2909,7 @@ class SegmentGuard:
                     T == scene.triangles.count
                     and g.cluster_lo.shape[0] * scene.cluster_size == T)
                 n = o.shape[1]
-                self.open = (dict(self.launches), n, 2 * (
+                self.open = (ranked or dict(self.launches), n, 2 * (
                     n > 0 and scene.loose_tris > 0 and whole))
             return real(scene, o, *a, **k)
         return call
@@ -2897,10 +2939,12 @@ class SegmentGuard:
                for k in ("loose_hit", "shade_hit", "shade_finish")}
         want = dict(loose_hit=s1, shade_hit=int(n > 0),
                     shade_finish=int(n > 0))
+        v1 = self.launches["visit_rank"] - start["visit_rank"]
         stray, self.seen = self.stray - self.seen, self.stray
-        if why or got != want or stray:
+        if why or got != want or v1 > 1 or stray:
             self.bad.append(f"segment of {n} lanes: launched {got}, want "
-                            f"{want}; {stray} calls of shade() or a twin"
+                            f"{want}; V1 x{v1} (at most 1); {stray} calls "
+                            "of shade(), a twin or the eager visit order"
                             f"{'; ' + why if why else ''}")
 
     def __enter__(self):
@@ -2930,8 +2974,9 @@ def segments_checked(name):
         print(f"  {name}: {b}", flush=True)
     check(n > 0 and not bad,
           f"{name}: {n} kernel-backend segments on the card, {len(bad)} "
-          "off: each launched S2 and S3 once, S1 twice where it tests the "
-          "scene's loose rows, and reached neither shade() nor a twin")
+          "off: each launched V1 at most once, S2 and S3 once, S1 twice "
+          "where it tests the scene's loose rows, and reached neither "
+          "shade(), a twin nor the eager visit order")
     SEGMENTS.update(checked=0, bad=[])
 
 
@@ -2966,9 +3011,9 @@ def segment_calls(torch, num, w, h):
     real = [getattr(m, n) for m, n in spots]
 
     def spy(key_of, fn):
-        def call(*a):
+        def call(*a, **k):
             calls.setdefault(key_of(a), _cloned(a))
-            return fn(*a)
+            return fn(*a, **k)
         return call
 
     tk.loose_hit = spy(lambda a: "s1_any" if a[8] else "s1", real[0])
@@ -3043,10 +3088,12 @@ def segment_row(results, key, name, src, agree_out, times, nbytes_,
 
 
 def bare_launch(fn):
-    """(name, args) of the one `launch` that the wrapper call fn() makes."""
+    """(name, args) of the one `launch` that the wrapper call fn() makes
+    (S1, S2, S3 or V1)."""
     from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
     from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
     from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+    from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
 
     seen = []
     real = kc.launch
@@ -3055,11 +3102,11 @@ def bare_launch(fn):
         seen.append((name, args))
         return real(name, *args)
 
-    lk.launch = sk.launch = rec
+    lk.launch = sk.launch = vk.launch = rec
     try:
         fn()
     finally:
-        lk.launch = sk.launch = real
+        lk.launch = sk.launch = vk.launch = real
     return seen[0]
 
 
@@ -3740,6 +3787,239 @@ def poisoned(sr, textured):
     return out
 
 
+V1_CELLS = (3, 4, 6, 7, 8, "8k6", 5, "capture")
+
+
+def v1_cell(num):
+    """(label, scene, camera, settings, width, height, spp, stream group)
+    of a phase 15 cell at its main-path size."""
+    from toroidal_ray_tracing_tpu_torch.cameras import ToroidalCamera
+    from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
+                                                      build_scene, procedural)
+
+    if num == "capture":
+        scene = scene_of("cornellish",
+                         lambda: build_scene(procedural.scene_cornellish()))
+        return ("capture", scene, ToroidalCamera(eye=(0.0, 1.0, 0.0),
+                                                 center=(8.0, 0.0, 0.0)),
+                RenderSettings.default(rho=4.0), *FULL, 1, 0)
+    group = 16 if num == "8k6" else 0
+    sc, scene = config(8 if group else num)
+    w, h = (sc.width, sc.height) if sc.spp > 1 else FULL
+    return (f"config {num}", scene, sc.camera_at(0), sc.settings(), w, h,
+            sc.spp, group)
+
+
+def phase_visit_ranks(torch, results):
+    """Phase 15: the visit-rank kernel V1 (`ops.visit_kernel`,
+    csrc/visit.cu) against its twin on every segment of a `render` of
+    configs 3, 4, 6, 7, 8 (K5, and K6 with the group switch on), 5 (4K, 2
+    spp) and the capture at their main-path sizes: the anchor and every
+    rank bit-equal (an anchor that differs is printed); its per-call route
+    (a tree kernel's wrapper given no rank launches V1 once, and its hits
+    equal those on the twin's rank); its global-scratch sort (two
+    synthetic sets above `SMEM_KEYS` boxes on config 5's origins, ties and
+    NaN boxes among them) bit-equal to the twin; the query folds the
+    kernels write on
+    the same renders against the torch formulation they replace, on every
+    lane: the torus query's tmax (`torch.minimum`, `torch.where(occ, 0,
+    tmax)`) and the occlusion byte (`t < BIG` ORed over the query's
+    kernels). Times on config 8's, config 6's and config 5's first
+    segment: the wrapper, the bare launch, its device time (20 bare
+    launches in a CUDA graph), the twin, the byte bound (12 B a lane of
+    origins, 28 B a box),
+    and the eager route it replaces (`batch_anchor` + `visit_order` +
+    `tree_rank`, the twin on the card) as the library yardstick."""
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
+    from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
+    from toroidal_ray_tracing_tpu_torch.ops import tri_stream
+    from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, launch)
+    from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import (
+        torus_closest_hit_chunked)
+    from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import tri_closest_hit
+    from toroidal_ray_tracing_tpu_torch.trace.intersect import (
+        geom_from_scene)
+
+    V1 = ("visit.cu", f"{JAX_OPS}/tri_kernel.py:398")
+    checked = dict(segments=0, sets=0, anchors_off=0, tmax=0, occ=0,
+                   tmax_lanes=0, occ_lanes=0)
+    timed = {}
+    for num in V1_CELLS:
+        label, scene, cam, st, w, h, spp, group = v1_cell(num)
+        calls, folds_off, seen = [], [], {}
+        real_ranks, real_query = tk.visit_ranks, tk._query
+        real_hit = {k: getattr(tk, k) for k in (
+            "tri_closest_hit", "tri_closest_hit_stream", "torus_closest_hit")}
+
+        def ranks(origins, n_batch, sets):
+            out = real_ranks(origins, n_batch, sets)
+            calls.append((origins.clone(), n_batch, sets,
+                          out[0].clone(), [r.clone() for r in out[1]]))
+            return out
+
+        def rec(name):
+            def call(o, d, tm, *a, **k):
+                seen[name] = tm.clone()
+                return real_hit[name](o, d, tm, *a, **k)
+            return call
+
+        def query(scene_, geom, o, d, tmax, want_attrs, occlusion, r):
+            seen.clear()
+            rows, occ = real_query(scene_, geom, o, d, tmax, want_attrs,
+                                   occlusion, r)
+            tri_in = (seen.get("tri_closest_hit")
+                      if "tri_closest_hit" in seen
+                      else seen.get("tri_closest_hit_stream"))
+            if tri_in is not None and "torus_closest_hit" in seen:
+                t_occ = rows.tri_hit[0] < kc.BIG
+                if rows.base is not None:
+                    t_occ = t_occ | (rows.base[1] >= 0)
+                want = (torch.where(t_occ, 0.0, tmax) if occlusion
+                        else torch.minimum(tri_in, rows.tri_hit[0]))
+                checked["tmax"] += 1
+                checked["tmax_lanes"] += want.numel()
+                if not torch.equal(want, seen["torus_closest_hit"]):
+                    folds_off.append("any-hit tmax" if occlusion
+                                     else "closest tmax")
+            if occlusion:
+                ref = torch.zeros_like(tmax, dtype=torch.bool)
+                for part, hit in ((rows.base, lambda p: p[1] >= 0),
+                                  (rows.tri_hit, lambda p: p[0] < kc.BIG),
+                                  (rows.tor_hit, lambda p: p[0] < kc.BIG)):
+                    if part is not None:
+                        ref |= hit(part)
+                checked["occ"] += 1
+                checked["occ_lanes"] += ref.numel()
+                if not torch.equal(ref, occ):
+                    folds_off.append("occlusion byte")
+            return rows, occ
+
+        tk.visit_ranks, tk._query = ranks, query
+        for k in real_hit:
+            setattr(tk, k, rec(k))
+        tri_stream.STREAM_GROUP = group
+        try:
+            render(scene, cam, w, h, st, backend="kernel", spp=spp,
+                   device=DEVICE)
+            sync(torch)
+        finally:
+            tk.visit_ranks, tk._query = real_ranks, real_query
+            for k, fn in real_hit.items():
+                setattr(tk, k, fn)
+            tri_stream.STREAM_GROUP = 0
+        same_anchor = same_ranks = 0
+        for origins, n_batch, sets, anchor, got in calls:
+            ref_anchor, ref = vk.visit_ranks_plain(origins, n_batch, sets)
+            if torch.equal(anchor, ref_anchor):
+                same_anchor += 1
+            else:
+                print(f"  {label}: V1 anchor {anchor.tolist()} against the "
+                      f"twin's {ref_anchor.tolist()}", flush=True)
+                checked["anchors_off"] += 1
+            same_ranks += all(torch.equal(a, b) for a, b in zip(got, ref))
+            checked["sets"] += len(sets)
+        checked["segments"] += len(calls)
+        print(f"  {label} {w}x{h}: {len(calls)} segments ranked by V1 "
+              f"(sets {[len(c[2]) for c in calls]}, boxes "
+              f"{[[int(lo.shape[0]) for lo, _ in c[2]] for c in calls]}); "
+              f"anchor bit-equal {same_anchor}, every rank bit-equal "
+              f"{same_ranks}; folds off: {folds_off[:4] or 'none'}",
+              flush=True)
+        check(calls and same_anchor == len(calls)
+              and same_ranks == len(calls),
+              f"{label}: V1 ranked its segments, anchor and ranks "
+              f"bit-equal to the twin's on all {len(calls)}")
+        check(not folds_off, f"{label}: the kernels' tmax folds and "
+              "occlusion bytes equal the torch formulation on every lane")
+        if num in (8, 6, 5) and calls:
+            timed[num] = calls[0]
+    check(checked["segments"] > 0 and checked["tmax"] > 0
+          and checked["occ"] > 0,
+          f"phase 15 checked {checked['segments']} segments' ranks "
+          f"({checked['sets']} sets), {checked['tmax']} torus tmax folds "
+          f"({checked['tmax_lanes']} lanes) and {checked['occ']} occlusion "
+          f"bytes ({checked['occ_lanes']} lanes)")
+
+    # the per-call route: a wrapper given no rank launches V1 once
+    sc6, scene6 = config(6)
+    geom6 = geom_from_scene(scene6)
+    mesh6 = tk._tri_plan(scene6, geom6).mesh
+    cam6 = sc6.camera
+    o, d = cam6.device_rays(cam6.ray_params(*FULL, sc6.settings()), *FULL,
+                            sc6.settings(), rows=True, device=DEVICE)
+    o, d = o.contiguous(), d.contiguous()
+    tm = torch.full((o.shape[1],), 1e4, device=DEVICE)
+    sc4, scene4 = config(4)
+    tor4 = tk._torus_tables(scene4, geom_from_scene(scene4))
+    for name, fn, lo, hi in (
+            ("K1", lambda r: tri_closest_hit(o, d, tm, mesh6, rank=r),
+             mesh6.clo, mesh6.chi),
+            ("K2", lambda r: torus_closest_hit_chunked(o, d, tm, tor4, rank=r),
+             tor4.clo, tor4.chi)):
+        before = LAUNCHES["visit_rank"]
+        got = fn(None)
+        sync(torch)
+        launched = LAUNCHES["visit_rank"] - before
+        _, (rank,) = vk.visit_ranks_plain(o, o.shape[1], [(lo, hi)])
+        before = LAUNCHES["visit_rank"]
+        ref = fn(rank)
+        sync(torch)
+        check(launched == 1 and LAUNCHES["visit_rank"] == before
+              and all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"{name}'s wrapper with no rank launches V1 once ({launched}) "
+              "and none with one; its hits bit-equal to those on the twin's "
+              "rank")
+
+    # sets above SMEM_KEYS boxes (a large OBJ mesh's clusters) sort in a
+    # global scratch: two synthetic sets, on config 5's first-segment
+    # origins (the most lanes), with duplicate boxes, boxes that hold the
+    # anchor (distance 0) and NaN boxes, against the twin bit for bit
+    origins, n_batch, _, anchor, _ = timed[5]
+    gen = torch.Generator().manual_seed(16)
+    big = []
+    for m in (vk.SMEM_KEYS + 808, 2 * vk.SMEM_KEYS + 1):
+        c = anchor.cpu() + 6.0 * torch.randn((m, 3), generator=gen)
+        h = 2.0 * torch.rand((m, 3), generator=gen)
+        lo, hi = c - h, c + h
+        lo[m // 2:m // 2 + 700], hi[m // 2:m // 2 + 700] = lo[:700], hi[:700]
+        lo[5::997, 1] = float("nan")
+        big.append((lo.to(DEVICE), hi.to(DEVICE)))
+    before = LAUNCHES["visit_rank"]
+    got_anchor, got = vk.visit_ranks(origins, n_batch, big)
+    sync(torch)
+    launched = LAUNCHES["visit_rank"] - before
+    ref_anchor, ref = vk.visit_ranks_plain(origins, n_batch, big)
+    zero = [int((kc.box_distance(lo, hi, ref_anchor) == 0).sum())
+            for lo, hi in big]
+    check(launched == 1 and torch.equal(got_anchor, ref_anchor)
+          and all(torch.equal(a, b) for a, b in zip(got, ref)),
+          f"V1 above {vk.SMEM_KEYS} boxes (the global-scratch sort: "
+          f"{[int(lo.shape[0]) for lo, _ in big]} boxes, {zero} at distance "
+          f"0, on {origins.shape[1]} lanes): anchor and every rank "
+          "bit-equal to the twin's")
+    checked["big_sets"] = [int(lo.shape[0]) for lo, _ in big]
+
+    # times on the first segment of config 8 (3,340 superblocks: the
+    # largest sort), config 6 and config 5 (the most lanes: the line's)
+    for num in (8, 6, 5):
+        origins, n_batch, sets, _, _ = timed[num]
+        lanes = origins.shape[1]
+        nb = lanes * 12 + sum(lo.shape[0] * 28 for lo, _ in sets) + 12
+        name, args = bare_launch(
+            lambda: vk.visit_ranks(origins, n_batch, sets))
+        front_row(results, "visit_rank", V1, f"V1 visit_rank config {num} "
+                  f"segment 0 ({lanes} lanes, boxes "
+                  f"{[int(lo.shape[0]) for lo, _ in sets]})", True,
+                  (lambda: vk.visit_ranks(origins, n_batch, sets),
+                   lambda: launch(name, *args),
+                   lambda: vk.visit_ranks_plain(origins, n_batch, sets)),
+                  nb, lambda: vk.visit_ranks_plain(origins, n_batch, sets))
+    results["visit_rank"].update(checked)
+
+
 def main() -> int:
     import torch
 
@@ -3866,6 +4146,10 @@ def main() -> int:
     phase("14. front-door kernels R1, G1, F1 against their twins")
     phase_front_kernels(torch, results)
     done("14. front-door kernels R1, G1, F1 against their twins")
+
+    phase("15. visit ranks V1 and the query folds against their twins")
+    phase_visit_ranks(torch, results)
+    done("15. visit ranks V1 and the query folds against their twins")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)

@@ -252,8 +252,11 @@ def test_render_frames_group_matches_jax():
     frame in the stacked channel-major output, against the JAX front
     door. The ray count is the per-frame renders' sum; against the JAX
     count it may part by a ray a thousand (here 3,759 against 3,758, on
-    the torch backend too and before the front-door kernels: one ray's
-    rounding near a shadow edge)."""
+    the torch backend too and before the front-door kernels). The gap is
+    the JAX package's own: jit against eager rounding near a shadow edge.
+    For camera (-8, 4, 6) its jitted reference counts 1,230 rays, where
+    its own `closest_hit` and `shade` run eagerly, segment by segment,
+    count 1,231, the port's count."""
     jscene = jax_build(jax_proc.scene_multi_torus(True))
     jst = JaxSettings.default(max_depth=3)
     eyes = [(8.0, 5.0, 8.0), (-8.0, 4.0, 6.0), (5.0, 6.0, -9.0)]

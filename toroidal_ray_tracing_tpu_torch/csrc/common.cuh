@@ -101,4 +101,20 @@ __device__ __forceinline__ void write_tri_attrs(
     attr_out[(size_t)r * n + i] = hit ? a0[(size_t)r * n_tris + bidx] : 0.0f;
 }
 
+// The folds a query's kernel writes beside its hit, for the kernel after
+// it (ops/kernel_common.py fold_outputs): the occlusion byte, t < BIG
+// (with occ_or the earlier kernels' byte is kept and only a hit is stored:
+// no read); the next kernel's tmax, in occlusion mode 0 where this kernel
+// hits and tmax elsewhere (an earlier kernel that occluded the lane left
+// its tmax 0), else min(tmax, t). Either output may be absent (NULL).
+__device__ __forceinline__ void write_folds(float t, float tm, int occlusion,
+                                            float* __restrict__ tmax_out,
+                                            bool* __restrict__ occ_out,
+                                            int occ_or, int i) {
+  const bool hit = t < TRT_BIG;
+  if (occ_out != nullptr && (hit || !occ_or)) occ_out[i] = hit;
+  if (tmax_out != nullptr)
+    tmax_out[i] = occlusion ? (hit ? 0.0f : tm) : jmin(tm, t);
+}
+
 }  // namespace trt

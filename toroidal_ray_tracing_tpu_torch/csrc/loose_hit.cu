@@ -12,7 +12,8 @@
 // triangle kernels start from: t (BIG on a miss), kind (0 on a hit, -1 on a
 // miss), prim (prim_base + row on a hit, 0 on a miss), u, v (0 on a miss),
 // and the triangle kernels' tmax: min(tmax, t), or, in occlusion mode, 0 on
-// a hit and tmax on a miss.
+// a hit and tmax on a miss; in occlusion mode also the query's occlusion
+// byte (t < BIG), which the later kernels of the query OR into.
 //
 // What bounds it on an H100 SXM (80 GB HBM3, 700 W): bytes. Per ray 28 B in
 // (origin, direction, tmax) and 24 B out; the L x 84 B of Woop entries go
@@ -36,7 +37,7 @@ __global__ void __launch_bounds__(kThreads) loose_hit(
     int prim_base, int occlusion, float* __restrict__ t_out,
     int* __restrict__ kind_out, int* __restrict__ prim_out,
     float* __restrict__ u_out, float* __restrict__ v_out,
-    float* __restrict__ tmax_out) {
+    float* __restrict__ tmax_out, bool* __restrict__ occ_out) {
   // rows [base, base + n_rows) of the (3, 4, T) / (3, 3, T) Woop tables as
   // 24-float rows (tri_kernel.woop_rows' layout, common.cuh woop_test)
   __shared__ float w[kMaxLoose * 24];
@@ -76,7 +77,7 @@ __global__ void __launch_bounds__(kThreads) loose_hit(
   prim_out[i] = hit ? prim_base + row : 0;
   u_out[i] = bu;
   v_out[i] = bv;
-  tmax_out[i] = occlusion ? (hit ? 0.0f : tm) : trt::jmin(tm, best);
+  trt::write_folds(best, tm, occlusion, tmax_out, occ_out, 0, i);
 }
 
 }  // namespace
@@ -87,7 +88,7 @@ extern "C" int trt_loose_hit(const float* origins, const float* dirs,
                              int n_rows, int prim_base, int occlusion,
                              float* t_out, int* kind_out, int* prim_out,
                              float* u_out, float* v_out, float* tmax_out,
-                             void* stream) {
+                             bool* occ_out, void* stream) {
   if (n_rows < 1 || n_rows > kMaxLoose || base < 0 ||
       base + n_rows > n_tris)
     return (int)cudaErrorInvalidValue;
@@ -95,6 +96,6 @@ extern "C" int trt_loose_hit(const float* origins, const float* dirs,
   loose_hit<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
       origins, dirs, tmax, n, woop_o, woop_d, n_tris, base, n_rows,
       prim_base, occlusion, t_out, kind_out, prim_out, u_out, v_out,
-      tmax_out);
+      tmax_out, occ_out);
   return (int)cudaGetLastError();
 }

@@ -44,7 +44,9 @@
 // every ray gates on the union box, then walks all K tori with the per-torus
 // slab against its running best. With attrs, the winner's world normal and
 // 12 material values are written once after the walk; any-hit writes idx 0,
-// as the reference kernel does. What bounds it on this card is bytes (7
+// as the reference kernel does. Both kernels, optionally, also write the
+// query's occlusion byte (t < BIG), ORed into the earlier kernels' where
+// asked (common.cuh write_folds). What bounds it on this card is bytes (7
 // floats in; t, idx and 15 attr rows out per ray), not its serial
 // quartics: they are few (0.16 per ray at config 3's 512x512 frame, K = 4;
 // 0.02 at config 7's 1080p frame, K = 1, by its counters). Its device time
@@ -338,7 +340,8 @@ __global__ void __launch_bounds__(128) torus_closest_hit(
     int n_nodes, const int* __restrict__ rank, int chunk,
     const float* __restrict__ mat, int occlusion, float* __restrict__ t_out,
     int* __restrict__ idx_out, float* __restrict__ attr_out,
-    long long* __restrict__ counters) {
+    long long* __restrict__ counters, bool* __restrict__ occ_out,
+    int occ_or) {
   constexpr unsigned kAll = trt::kAllLanes;
   __shared__ PairQueue queues[4];
   const int lane = threadIdx.x & 31;
@@ -389,6 +392,7 @@ __global__ void __launch_bounds__(128) torus_closest_hit(
     const int bidx = hit ? q.idx[lane] : 0;
     t_out[i] = best;
     idx_out[i] = bidx;
+    trt::write_folds(best, r.tm, occlusion, nullptr, occ_out, occ_or, i);
     if (attr_out != nullptr) {
       float nrm[3] = {0.0f, 0.0f, 0.0f};
       if (hit) {
@@ -409,13 +413,16 @@ constexpr int kParams = 32;  // [w2o (12), Rmaj, rmin, lo (3), hi (3), mat (12)]
 // kCount: the build that adds its work to counters. The main path launches
 // the other one, which carries no counting code: in the one build, the
 // counting cost config 7's bytes-bound 1080p calls 5-15% of device time.
-template <bool kCount>
+// kOcc: the build that writes the occlusion byte (an any-hit query's), so
+// the closest-hit build carries none of it.
+template <bool kCount, bool kOcc>
 __global__ void torus_closest_hit_small(
     const float* __restrict__ origins, const float* __restrict__ dirs,
     const float* __restrict__ tmax, int n, const float* __restrict__ par,
     int K, int occlusion, float* __restrict__ t_out,
     int* __restrict__ idx_out, float* __restrict__ attr_out,
-    long long* __restrict__ counters) {
+    long long* __restrict__ counters, bool* __restrict__ occ_out,
+    int occ_or) {
   __shared__ float sp[kSmallMaxK * kParams];
   for (int j = threadIdx.x; j < K * kParams; j += blockDim.x) sp[j] = par[j];
   __syncthreads();
@@ -466,6 +473,8 @@ __global__ void torus_closest_hit_small(
   }
   t_out[i] = best;
   idx_out[i] = occlusion ? 0 : barg;
+  if constexpr (kOcc)
+    trt::write_folds(best, tm, occlusion, nullptr, occ_out, occ_or, i);
   if (attr_out != nullptr) {
     const bool hit = best < TRT_BIG;
     const float* p = sp + kParams * barg;
@@ -495,26 +504,33 @@ extern "C" int trt_torus_closest_hit(
     const float* tree_hi, const int* tree_link, int n_nodes, int depth,
     const int* rank, int chunk, const float* mat, int occlusion,
     float* t_out, int* idx_out, float* attr_out, long long* counters,
-    void* stream) {
+    bool* occ_out, int occ_or, void* stream) {
   if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
   const int blocks = (n + 127) / 128;
   torus_closest_hit<<<blocks, 128, 0, (cudaStream_t)stream>>>(
       origins, dirs, tmax, n, w2o, rad, tree_lo, tree_hi, tree_link, n_nodes,
-      rank, chunk, mat, occlusion, t_out, idx_out, attr_out, counters);
+      rank, chunk, mat, occlusion, t_out, idx_out, attr_out, counters,
+      occ_out, occ_or);
   return (int)cudaGetLastError();
 }
 
 extern "C" int trt_torus_closest_hit_small(
     const float* origins, const float* dirs, const float* tmax, int n,
     const float* par, int K, int occlusion, float* t_out, int* idx_out,
-    float* attr_out, long long* counters, void* stream) {
+    float* attr_out, long long* counters, bool* occ_out, int occ_or,
+    void* stream) {
   if (K < 1 || K > kSmallMaxK) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
-  const auto kernel = counters != nullptr ? torus_closest_hit_small<true>
-                                          : torus_closest_hit_small<false>;
+  const bool occ = occ_out != nullptr;
+  const auto kernel =
+      counters != nullptr
+          ? (occ ? torus_closest_hit_small<true, true>
+                 : torus_closest_hit_small<true, false>)
+          : (occ ? torus_closest_hit_small<false, true>
+                 : torus_closest_hit_small<false, false>);
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       origins, dirs, tmax, n, par, K, occlusion, t_out, idx_out, attr_out,
-      counters);
+      counters, occ_out, occ_or);
   return (int)cudaGetLastError();
 }

@@ -12,7 +12,9 @@
 // That winner is the minimum of (t, rank, row), where a cluster's rank is
 // its position in the visit order. With attrs, the winner's 21
 // interpolated shading rows are written once after the walk (A0 + u*A1 +
-// v*A2 for rows 0-7, A0 for rows 8-20).
+// v*A2 for rows 0-7, A0 for rows 8-20). Beside the hit, optionally, the
+// query's folds for the kernel after it (common.cuh write_folds): its tmax
+// and the occlusion byte.
 //
 // The walk: K5's (csrc/tree_walk.cuh) with one cluster per leaf. The twin
 // tests every one of the mesh's cluster boxes per ray (181 at config 6, 26
@@ -45,7 +47,8 @@ __global__ void __launch_bounds__(128) tri_closest_hit(
     const float* __restrict__ a2, int occlusion, float* __restrict__ t_out,
     int* __restrict__ idx_out, float* __restrict__ u_out,
     float* __restrict__ v_out, float* __restrict__ attr_out,
-    long long* __restrict__ counters) {
+    long long* __restrict__ counters, float* __restrict__ tmax_out,
+    bool* __restrict__ occ_out, int occ_or) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
   trt::Best b;
@@ -54,9 +57,11 @@ __global__ void __launch_bounds__(128) tri_closest_hit(
   trt::walk_warp_packet(r, b, w, tree_lo, tree_hi, tree_link, n_nodes,
                         box_test, rank, nullptr, nullptr, 1, cluster, n_tris,
                         wrows, occlusion);
-  if (i < n)
+  if (i < n) {
     trt::write_out(b, n, i, a0, a1, a2, n_tris, t_out, idx_out, u_out, v_out,
                    attr_out);
+    trt::write_folds(b.t, r.tm, occlusion, tmax_out, occ_out, occ_or, i);
+  }
   trt::add_work(counters, w);
 }
 
@@ -69,12 +74,13 @@ extern "C" int trt_tri_closest_hit(
     const int* rank, int cluster, int box_test, const float* a0,
     const float* a1, const float* a2, int occlusion, float* t_out,
     int* idx_out, float* u_out, float* v_out, float* attr_out,
-    long long* counters, void* stream) {
+    long long* counters, float* tmax_out, bool* occ_out, int occ_or,
+    void* stream) {
   if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
   const int blocks = (n + 127) / 128;
   tri_closest_hit<<<blocks, 128, 0, (cudaStream_t)stream>>>(
       origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
       n_nodes, rank, cluster, box_test, a0, a1, a2, occlusion, t_out, idx_out,
-      u_out, v_out, attr_out, counters);
+      u_out, v_out, attr_out, counters, tmax_out, occ_out, occ_or);
   return (int)cudaGetLastError();
 }

@@ -16,7 +16,8 @@
 // a passing superblock its clusters are walked in index order, each skipped
 // by its own box (an exact shortcut: a skipped cluster holds no hit below
 // the bound). The winner's 21 attr rows are written once after the walk;
-// u/v are the true barycentrics in every mode.
+// u/v are the true barycentrics in every mode. Beside the hit, optionally,
+// the query's folds for the kernel after it (common.cuh write_folds).
 //
 // The walk. The twin visits every superblock in rank order; that O(S) walk
 // of 26-operation slab tests (3,340 boxes at config 8, 3,348 slab tests per
@@ -63,12 +64,13 @@ constexpr int kMaxSbRows = 512;
       const float *__restrict__ a2, int occlusion, float *__restrict__ t_out, \
       int *__restrict__ idx_out, float *__restrict__ u_out,                   \
       float *__restrict__ v_out, float *__restrict__ attr_out,               \
-      long long *__restrict__ counters
+      long long *__restrict__ counters, float *__restrict__ tmax_out,         \
+      bool *__restrict__ occ_out, int occ_or
 
 #define TRT_STREAM_PASS                                                      \
   origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,        \
       n_nodes, rank, clo, chi, g, cluster, a0, a1, a2, occlusion, t_out,     \
-      idx_out, u_out, v_out, attr_out, counters
+      idx_out, u_out, v_out, attr_out, counters, tmax_out, occ_out, occ_or
 
 __global__ void __launch_bounds__(128) tri_closest_hit_stream(TRT_STREAM_ARGS) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -79,9 +81,11 @@ __global__ void __launch_bounds__(128) tri_closest_hit_stream(TRT_STREAM_ARGS) {
   trt::walk_warp_packet(r, b, w, tree_lo, tree_hi, tree_link, n_nodes, 1,
                         rank, clo, chi, g, cluster, n_tris, wrows,
                         occlusion);
-  if (i < n)
+  if (i < n) {
     trt::write_out(b, n, i, a0, a1, a2, n_tris, t_out, idx_out, u_out, v_out,
                    attr_out);
+    trt::write_folds(b.t, r.tm, occlusion, tmax_out, occ_out, occ_or, i);
+  }
   trt::add_work(counters, w);
 }
 
@@ -182,9 +186,11 @@ __global__ void __launch_bounds__(kGroupRays)
                          clo, chi, staged, s * sb_rows, occlusion);
     __syncthreads();  // every thread is done with the rows before the next copy
   }
-  if (i < n)
+  if (i < n) {
     trt::write_out(b, n, i, a0, a1, a2, n_tris, t_out, idx_out, u_out,
                    v_out, attr_out);
+    trt::write_folds(b.t, r.tm, occlusion, tmax_out, occ_out, occ_or, i);
+  }
   trt::add_work(counters, w);
 }
 
@@ -198,7 +204,8 @@ extern "C" int trt_tri_closest_hit_stream(
     const float* clo, const float* chi, int g, int cluster, const float* a0,
     const float* a1, const float* a2, int occlusion, float* t_out,
     int* idx_out, float* u_out, float* v_out, float* attr_out,
-    long long* counters, void* stream) {
+    long long* counters, float* tmax_out, bool* occ_out, int occ_or,
+    void* stream) {
   if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
   const int blocks = (n + 127) / 128;
   tri_closest_hit_stream<<<blocks, 128, 0, (cudaStream_t)stream>>>(
@@ -214,7 +221,8 @@ extern "C" int trt_tri_closest_hit_stream_grouped(
     const float* clo, const float* chi, int g, int cluster, const float* a0,
     const float* a1, const float* a2, int occlusion, float* t_out,
     int* idx_out, float* u_out, float* v_out, float* attr_out,
-    long long* counters, void* stream) {
+    long long* counters, float* tmax_out, bool* occ_out, int occ_or,
+    void* stream) {
   if (depth > trt::kStack || g * cluster > kMaxSbRows)
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + kGroupRays - 1) / kGroupRays;

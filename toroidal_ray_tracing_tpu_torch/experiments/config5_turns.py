@@ -46,8 +46,14 @@ own device time goes to its range's stage):
   frame end    `block_unswizzle`, F1's wrapper and twin, and the rest of
                `render/renderer.py` (the unswizzle, the spp accumulation,
                the stacking)
-  wrappers     every other op: the kernel wrappers' visit orders and
-               tables, the loop's tmax and anchor
+  visit order  `visit_order`, `tree_rank` and the visit-rank kernel V1's
+               wrappers (`ops/visit_kernel.py`, `segment_ranks`)
+  anchor       `batch_anchor`
+  query folds  the torch ops of `ops/trace_kernel.py`'s `_query` and
+               `occluded_kernel` (the tmax folds and occlusion masks
+               between a query's kernels)
+  loop         every other op: the kernel wrappers' tables and buffers,
+               the loop's tmax and prefix copies
 
 The loop's regions come from its syntax tree (`loop_regions`), so the
 rule reads a checkout's own code as it stands; `span_lanes` is filed by
@@ -81,10 +87,10 @@ KERNELS = ("tri_closest_hit", "torus_closest_hit", "torus_closest_hit_small",
            "quad_gather", "tri_closest_hit_stream",
            "tri_closest_hit_stream_grouped", "threefry_uniform", "loose_hit",
            "shade_hit", "shade_finish", "raygen", "span_gather",
-           "frame_finish")
+           "frame_finish", "visit_rank")
 
 STAGES = ("raygen", "state init", "compaction", "unpermute", "frame end",
-          "wrappers", "other")
+          "visit order", "anchor", "query folds", "loop", "other")
 MARK = "stage:"                   # the prefix of a stage's profiler range
 PKG = "toroidal_ray_tracing_tpu_torch" + os.sep
 BY_FUNCTION = {
@@ -94,6 +100,10 @@ BY_FUNCTION = {
     "compaction": ("span_order", "span_gather", "span_gather_plain"),
     "unpermute": ("unpermute_rows",),
     "frame end": ("block_unswizzle", "frame_finish", "frame_finish_plain"),
+    "visit order": ("visit_order", "tree_rank", "visit_ranks",
+                    "visit_ranks_plain", "visit_rank", "segment_ranks"),
+    "anchor": ("batch_anchor",),
+    "query folds": ("_query", "occluded_kernel"),
 }
 
 
@@ -139,11 +149,11 @@ def stage_here(frame) -> str:
         if rel.startswith("cameras/"):
             return "raygen"
         if rel == "render/renderer.py":
-            return "wrappers" if func == "_setup" else "frame end"
+            return "loop" if func == "_setup" else "frame end"
         region = (loop_regions(path).get(func)
                   if rel == "trace/wavefront.py" else None)
         if region is None:
-            return "wrappers"
+            return "loop"
         first, last, shrinks = region
         line = f.f_lineno
         if line < first:
@@ -152,7 +162,7 @@ def stage_here(frame) -> str:
             return "unpermute"
         if any(a <= line <= b for a, b in shrinks):
             return "compaction"
-        return "wrappers"
+        return "loop"
     return "other"
 
 

@@ -156,7 +156,7 @@ def main(argv) -> int:
                     tb.tree_hi, tb.tree_link, tb.tree_lo.shape[0], tb.depth,
                     rank, tb.clo, tb.chi, tb.g, cs,
                     *((None,) * 3 if occl else attrs), int(occl), *out[:4],
-                    None if occl else out[4], None,
+                    None if occl else out[4], None, None, None, 0,
                     torch.cuda.current_stream().cuda_stream)
             rc = fn(*[x.data_ptr() if isinstance(x, torch.Tensor) else x
                       for x in args])

@@ -103,7 +103,8 @@ def main(argv) -> int:
                             tb.tree_hi, tb.tree_link, tb.tree_lo.shape[0],
                             tb.depth, rank, tb.chunk,
                             None if occl else tb.mat, int(occl), *out, attrs,
-                            counters, torch.cuda.current_stream().cuda_stream)
+                            counters, None, 0,
+                            torch.cuda.current_stream().cuda_stream)
                     rc = fn(*[x.data_ptr() if isinstance(x, torch.Tensor)
                               else x for x in args])
                     if rc != 0:

@@ -48,7 +48,8 @@ LAUNCHES = {"tri_closest_hit": 0, "torus_closest_hit": 0,
             "tri_closest_hit_stream": 0,
             "tri_closest_hit_stream_grouped": 0, "threefry_uniform": 0,
             "loose_hit": 0, "shade_hit": 0, "shade_finish": 0,
-            "raygen": 0, "span_gather": 0, "frame_finish": 0}
+            "raygen": 0, "span_gather": 0, "frame_finish": 0,
+            "visit_rank": 0}
 
 
 def reset_launches() -> None:
@@ -99,6 +100,35 @@ def count(counts, key: str, k) -> None:
         counts[key] = counts.get(key, 0) + int(k)
 
 
+def fold_outputs(t, tmax, occlusion: bool, tmax_out=None, occ_out=None,
+                 occ_or: bool = False) -> None:
+    """The folds a query's kernel writes beside its hit, for the kernel
+    after it (the plain twins' form of csrc/common.cuh write_folds), in
+    place: occ_out (N,) bool, the occlusion byte t < BIG, ORed into its
+    own lanes where occ_or; tmax_out (N,), the next kernel's tmax: in
+    occlusion mode 0 where t < BIG and tmax elsewhere, else min(tmax, t).
+    In a query an earlier kernel that occluded a lane left its tmax 0, so
+    tmax_out is 0 wherever occ_out holds."""
+    hit = t < BIG
+    if occ_out is not None:
+        occ_out.copy_(occ_out | hit if occ_or else hit)
+    if tmax_out is not None:
+        tmax_out.copy_(torch.where(hit, 0.0, tmax) if occlusion
+                       else torch.minimum(tmax, t))
+
+
+def check_folds(device, n: int, occlusion: bool, tmax_out=None,
+                occ_out=None, occ_or: bool = False) -> None:
+    """Validate a kernel's fold outputs: (N,) float32 tmax_out, (N,) bool
+    occ_out (occlusion mode only)."""
+    check_args(device, tmax_out=(tmax_out, (n,), F32),
+               occ_out=(occ_out, (n,), torch.bool))
+    if occ_out is not None and not occlusion:
+        raise ValueError("occ_out: the occlusion byte of an any-hit query")
+    if occ_or and occ_out is None:
+        raise ValueError("occ_or ORs into occ_out")
+
+
 def batch_anchor(origins, n_batch: int):
     """The point a batch's visit order starts from: its mean origin. The
     JAX kernels average over their padded batch (pad rays have zero
@@ -107,13 +137,21 @@ def batch_anchor(origins, n_batch: int):
     return (origins.sum(dim=1, dtype=torch.float64) / n_batch).float()
 
 
+def box_distance(lo, hi, anchor):
+    """Each (M, 3) box's clamped distance from the (3,) anchor, as
+    elementwise ops in a fixed order (`(gx*gx + gy*gy) + gz*gz`, then the
+    root), the order and rounding the visit-rank kernel V1 reproduces."""
+    a = anchor[None, :]
+    gap = torch.clamp(torch.maximum(lo - a, a - hi), min=0.0)
+    gx, gy, gz = gap[:, 0], gap[:, 1], gap[:, 2]
+    return torch.sqrt((gx * gx + gy * gy) + gz * gz)
+
+
 def visit_order(lo, hi, origins, n_batch: int, anchor=None):
     """Front-to-back block order: argsort (stable) of each box's clamped
     distance from `anchor` (default: `batch_anchor(origins, n_batch)`)."""
     mean_o = batch_anchor(origins, n_batch) if anchor is None else anchor
-    gap = torch.clamp(torch.maximum(lo - mean_o[None, :], mean_o[None, :] - hi),
-                      min=0.0)
-    cdist = torch.linalg.vector_norm(gap, dim=1)
+    cdist = box_distance(lo, hi, mean_o)
     return torch.argsort(cdist, stable=True).to(torch.int32)
 
 
@@ -258,37 +296,38 @@ _L = ctypes.c_int64
 _SIGNATURES = {
     # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
     # n_nodes, depth, rank, cluster, box_test, a0, a1, a2, occlusion, t,
-    # idx, u, v, attrs, counters, stream
+    # idx, u, v, attrs, counters, tmax_out, occ_out, occ_or, stream
     "trt_tri_closest_hit": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P,
                             _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _P],
+                            _P, _P, _I, _P],
     # origins, dirs, tmax, n, w2o, rad, tree_lo, tree_hi, tree_link, n_nodes,
-    # depth, rank, chunk, mat, occlusion, t, idx, attrs, counters, stream
+    # depth, rank, chunk, mat, occlusion, t, idx, attrs, counters, occ_out,
+    # occ_or, stream
     "trt_torus_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                              _P, _I, _P, _I, _P, _P, _P, _P, _P],
+                              _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
     # origins, dirs, tmax, n, par, K, occlusion, t, idx, attrs, counters,
-    # stream
+    # occ_out, occ_or, stream
     "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
-                                    _P, _P],
+                                    _P, _P, _I, _P],
     # data4q, n_texels, f0, f1, valid, n, q0, q1, stream
     "trt_quad_gather": [_P, _I, _P, _P, _P, _I, _P, _P, _P],
     # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
     # n_nodes, depth, rank, clo, chi, g, cluster, a0, a1, a2, occlusion, t,
-    # idx, u, v, attrs, counters, stream
+    # idx, u, v, attrs, counters, tmax_out, occ_out, occ_or, stream
     "trt_tri_closest_hit_stream": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
                                    _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
-                                   _P, _P, _P, _P, _P, _P, _P],
+                                   _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     "trt_tri_closest_hit_stream_grouped": [_P, _P, _P, _I, _P, _I, _P, _P,
                                            _P, _I, _I, _P, _P, _P, _I, _I,
                                            _P, _P, _P, _I, _P, _P, _P, _P,
-                                           _P, _P, _P],
+                                           _P, _P, _P, _P, _I, _P],
     # out, n, k1, k2, stream
     "trt_threefry_uniform": [_P, ctypes.c_int64, ctypes.c_uint32,
                              ctypes.c_uint32, _P],
     # origins, dirs, tmax, n, woop_o, woop_d, n_tris, base, n_rows,
-    # prim_base, occlusion, t, kind, prim, u, v, tri_tmax, stream
+    # prim_base, occlusion, t, kind, prim, u, v, tri_tmax, occ_out, stream
     "trt_loose_hit": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P],
+                      _P, _P, _P, _P, _P, _P],
     # origins, dirs, n, base t, kind, prim, u, v, tri t, idx, u, v,
     # tri_off, tor t, tri, tor, la0, la1, la2, n_cols, loose_base, n_loose,
     # consts, light_point, intensity, pixel_spread, tex_off, tex_sizes,
@@ -313,6 +352,10 @@ _SIGNATURES = {
     # spp, hp_out, o_out, d_out, chw, stream
     "trt_frame_finish": [_P, _I, _I, _I, _I, _P, _P, _L, _L, _P, _P, _I, _I,
                          _P, _P, _P, _I, _P],
+    # origins, row_stride, lanes, n_batch, lo0, hi0, m0, rank0, lo1, hi1,
+    # m1, rank1, anchor, partial, ticket, scratch, stream
+    "trt_visit_rank": [_P, _L, _I, _I, _P, _P, _I, _P, _P, _P, _I, _P, _P,
+                       _P, _P, _P, _P],
 }
 
 

@@ -23,7 +23,11 @@ twin (same inputs, same outputs) on CPU tensors. Both take the scene's
 tables prebuilt (`torus_tables`: padded transforms and radii, torus and
 chunk boxes, the tree, the material rows and K3's parameter blocks) and
 never build them; the orchestrator keeps them per scene and device. Only
-K2's chunk rank is per call.
+K2's chunk rank is per call: the caller's (the bounce loop ranks a
+segment's sets once with the visit-rank kernel V1, `ops.visit_kernel`), or
+V1 on the call's own rays. In any-hit mode both kernels can also write the
+query's occlusion byte, or OR their hits into the earlier kernels'
+(`kernel_common.fold_outputs`).
 
 Outputs: t (N,) f32 (BIG on a miss), idx (N,) i32, and with want_attrs the
 (15, N) attrs: the winner's unnormalized world normal (rows 0-2) and its
@@ -38,8 +42,10 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.torus import quartic_min_positive
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_rays, count,
-    launch, round_up, slab, tree_rank, tree_tensors, visit_order)
+    BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_folds,
+    check_rays, count, fold_outputs, launch, round_up, slab, tree_rank,
+    tree_tensors)
+from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 
 TORUS_CHUNK = 8           # tori per chunk, K <= 64
 GATED_TORUS_CHUNK = 16    # tori per chunk, K > 64
@@ -177,11 +183,13 @@ def _winner_attrs(w2o_rows, rad, mat, idx, troot, o, d, hit):
 
 def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
                         clo, chi, order, chunk: int, mat=None,
-                        occlusion: bool = False, counts=None):
+                        occlusion: bool = False, counts=None, occ_out=None,
+                        occ_or: bool = False):
     """Plain PyTorch twin of K2: vectorized over rays, one loop step per
     chunk in `order`. Returns (t, idx[, attrs]). counts: optional dict of
     the kernel's (ray, box) slab tests ("box": chunk and torus boxes) and
-    (ray, torus) quartic tests ("prim")."""
+    (ray, torus) quartic tests ("prim"). occ_out, occ_or: the occlusion
+    byte, as the wrapper's."""
     n = origins.shape[1]
     o = [origins[a] for a in range(3)]
     d = [dirs[a] for a in range(3)]
@@ -213,6 +221,7 @@ def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
         best = torch.where(better, ct, best)
         bidx = torch.where(better, (c * chunk + arg).to(torch.int32), bidx)
         broot = torch.where(better, troot.gather(0, arg[None, :])[0], broot)
+    fold_outputs(best, tmax, occlusion, occ_out=occ_out, occ_or=occ_or)
     if mat is None:
         return best, bidx
     hit = best < BIG
@@ -221,10 +230,12 @@ def torus_chunked_plain(origins, dirs, tmax, w2o_rows, rad, tor_lo, tor_hi,
 
 
 def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
-                      occlusion: bool = False, counts=None):
+                      occlusion: bool = False, counts=None, occ_out=None,
+                      occ_or: bool = False):
     """Plain PyTorch twin of K3. par: (K, 32) per-torus blocks [w2o (12),
     Rmaj, rmin, box lo (3), box hi (3), mat (12)]. Returns (t, idx[,
-    attrs]). counts: as `torus_chunked_plain`'s (union and torus boxes)."""
+    attrs]). counts: as `torus_chunked_plain`'s (union and torus boxes).
+    occ_out, occ_or: the occlusion byte, as K2's."""
     n = origins.shape[1]
     K = par.shape[0]
     o = [origins[a] for a in range(3)]
@@ -264,6 +275,7 @@ def torus_small_plain(origins, dirs, tmax, par, emit_attrs: bool,
         best = torch.where(better, t, best)
         barg = torch.where(better, k, barg)
         broot = torch.where(better, troot, broot)
+    fold_outputs(best, tmax, occlusion, occ_out=occ_out, occ_or=occ_or)
     if not emit_attrs:
         return best, barg
     hit = best < BIG
@@ -354,19 +366,22 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
                               want_attrs: bool = False,
                               occlusion: bool = False,
                               n_batch: int | None = None, counters=None,
-                              anchor=None):
+                              rank=None, occ_out=None,
+                              occ_or: bool = False):
     """K2 wrapper. origins/dirs (3, N); tmax (N,); tables: the scene's
     `torus_tables`. n_batch: batch size the chunk visit order averages
     origins over (default N). counters: optional (2,) int64 CUDA tensor the
     kernel adds its (ray, box) slab tests and (ray, torus) quartics to.
-    anchor: the (3,) point the visit order starts from (default: the
-    batch's `batch_anchor`)."""
+    rank: the (C,) int32 visit rank of the chunks (default: V1 on these
+    rays). occ_out: in occlusion mode, an optional (N,) bool occlusion byte
+    the kernel writes (or, with occ_or, ORs its hits into)."""
     _check_tables("torus_closest_hit_chunked", tables, want_attrs)
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
     Kp, C, M = tb.w2o_rows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
-    order = visit_order(tb.clo, tb.chi, origins, n_batch or n, anchor)
+    if rank is None:
+        rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
     mat = tb.mat if want_attrs else None
     check_args(origins.device, w2o=(tb.w2o_rows, (Kp, 12), F32),
                rad=(tb.rad, (Kp, 2), F32), tor_lo=(tb.tor_lo, (Kp, 3), F32),
@@ -374,15 +389,17 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
                chi=(tb.chi, (C, 3), F32), tree_lo=(tb.tree_lo, (M, 3), F32),
                tree_hi=(tb.tree_hi, (M, 3), F32),
                tree_link=(tb.tree_link, (M, 3), I32),
-               mat=(mat, (Kp, 12), F32),
+               rank=(rank, (C,), I32), mat=(mat, (Kp, 12), F32),
                counters=(counters, (2,), torch.int64))
+    check_folds(origins.device, n, occlusion, occ_out=occ_out, occ_or=occ_or)
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernel's work")
         return torus_chunked_plain(origins, dirs, tmax, tb.w2o_rows, tb.rad,
                                    tb.tor_lo, tb.tor_hi, tb.clo, tb.chi,
-                                   order, tb.chunk, mat, occlusion)
+                                   tree_rank(rank), tb.chunk, mat, occlusion,
+                                   occ_out=occ_out, occ_or=occ_or)
 
     # the entry point refuses a tree deeper than the kernel's stack, with an
     # error that `launch` raises
@@ -393,18 +410,19 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
     if n:
         launch("trt_torus_closest_hit", origins, dirs, tmax, n, tb.w2o_rows,
                tb.rad, tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth,
-               tree_rank(order), tb.chunk, mat, int(occlusion), t, idx,
-               attrs, counters)
+               rank, tb.chunk, mat, int(occlusion), t, idx, attrs, counters,
+               occ_out, int(occ_or))
     return (t, idx) + ((attrs,) if attrs is not None else ())
 
 
 def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
                             want_attrs: bool = False,
-                            occlusion: bool = False, counters=None):
+                            occlusion: bool = False, counters=None,
+                            occ_out=None, occ_or: bool = False):
     """K3 wrapper (K <= TORUS_SMALL_MAX_K tori); same contract as K2.
     counters: optional (2,) int64 CUDA tensor the kernel adds its (ray,
     box) slab tests and (ray, torus) quartics to, as the twin's `counts`
-    counts them."""
+    counts them. occ_out, occ_or: the occlusion byte, as K2's."""
     _check_tables("torus_closest_hit_small", tables, want_attrs)
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
@@ -414,12 +432,13 @@ def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
     par = tables.par
     check_args(origins.device, par=(par, (K, 32), F32),
                counters=(counters, (2,), torch.int64))
+    check_folds(origins.device, n, occlusion, occ_out=occ_out, occ_or=occ_or)
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernel's work")
         return torus_small_plain(origins, dirs, tmax, par, want_attrs,
-                                 occlusion)
+                                 occlusion, occ_out=occ_out, occ_or=occ_or)
 
     t = torch.empty((n,), dtype=torch.float32, device=origins.device)
     idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
@@ -427,7 +446,7 @@ def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
                          device=origins.device) if want_attrs else None)
     if n:
         launch("trt_torus_closest_hit_small", origins, dirs, tmax, n, par, K,
-               int(occlusion), t, idx, attrs, counters)
+               int(occlusion), t, idx, attrs, counters, occ_out, int(occ_or))
     return (t, idx) + ((attrs,) if attrs is not None else ())
 
 
@@ -441,15 +460,22 @@ def use_small_kernel(n_batch: int, K: int) -> bool:
 
 def torus_closest_hit(origins, dirs, tmax, tables: TorusTables,
                       want_attrs: bool = False, occlusion: bool = False,
-                      n_batch: int | None = None, anchor=None):
-    """Route to K3 or K2 as the TPU launcher does, then run it (anchor: K2's
-    visit order, K3 has none)."""
+                      n_batch: int | None = None, rank=None, occ_out=None,
+                      occ_or: bool = False, small: bool | None = None):
+    """Route to K3 or K2 as the TPU launcher does, then run it (rank: K2's
+    visit rank, K3 has none; occ_out, occ_or: the occlusion byte; small:
+    the route where the caller decided it, default
+    `use_small_kernel(n_batch, K)`)."""
     n_batch = n_batch or origins.shape[1]
-    if use_small_kernel(n_batch, tables.K):
+    if small is None:
+        small = use_small_kernel(n_batch, tables.K)
+    if small:
         return torus_closest_hit_small(origins, dirs, tmax, tables,
                                        want_attrs=want_attrs,
-                                       occlusion=occlusion)
+                                       occlusion=occlusion, occ_out=occ_out,
+                                       occ_or=occ_or)
     return torus_closest_hit_chunked(origins, dirs, tmax, tables,
                                      want_attrs=want_attrs,
                                      occlusion=occlusion, n_batch=n_batch,
-                                     anchor=anchor)
+                                     rank=rank, occ_out=occ_out,
+                                     occ_or=occ_or)

@@ -11,9 +11,11 @@ Per query:
      (`tri_stream.tri_closest_hit_stream`) for meshes above
      `TRI_STREAM_MIN` triangles cut into whole 128-multiple clusters (the
      TPU route, trace_kernel.py:345-352);
-  3. triangle hits fold into the torus query's tmax (one
-     `torch.minimum`; in any-hit mode 0 where a triangle occludes), then
-     K2/K3 (`torus_closest_hit`, routed as the TPU launcher routes);
+  3. the triangle kernel writes the torus query's tmax (min(tmax, t); in
+     any-hit mode 0 where a triangle occludes), then K2/K3
+     (`torus_closest_hit`, routed as the TPU launcher routes); in any-hit
+     mode each kernel also writes the query's occlusion byte, the first
+     one of the query, the later ones ORing into it;
   4. the kernels' hits come out as parts (`AttrRows.base` from S1,
      `.tri_hit`, `.tor_hit`), with want_attrs beside their 21-row
      (triangle) and 15-row (torus) attribute outputs and the loose tail's
@@ -21,13 +23,15 @@ Per query:
      the bounce loop, whose shading kernel S2 merges them in registers
      (`closest_hit_kernel(..., merge=False)`); `ops.shade_kernel.
      shade_attrs` assembles the rows into `ShadeAttrs`. The shadow query
-     (`occluded_kernel`) forms its mask from the parts without merging.
+     (`occluded_kernel`) returns the kernels' occlusion byte.
 
 The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
 `StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
 built at a scene's first query on a device and kept in
 `Scene.kernel_tables`, per geometry slice; only the visit ranks are per
-query. An entry is rebuilt when a tensor it was built from changed in
+segment (`segment_ranks`, the visit-rank kernel V1 once for both of a
+bounce-loop segment's queries) or, for any other caller, per query. An
+entry is rebuilt when a tensor it was built from changed in
 place (an optimizer step on `tori.minor_radius`) or was replaced.
 
 A query on one rank's slice of the primitives (`GeomSlice` with offsets,
@@ -37,24 +41,26 @@ triangle attribute tables and its own rows of the torus materials.
 
 The TPU path pads each batch to a 2048-ray tile; no kernel here needs the
 padding, but the route between K2 and K3 and the front-to-back visit
-orders are computed on that padded size so every batch meets the contract
+ranks are computed on that padded size so every batch meets the contract
 it meets on the TPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, round_up
 from toroidal_ray_tracing_tpu_torch.ops.loose_kernel import loose_hit
 from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import (
-    torus_closest_hit, torus_tables)
+    TorusTables, torus_closest_hit, torus_tables, use_small_kernel)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (tri_closest_hit,
                                                            tri_tables)
 from toroidal_ray_tracing_tpu_torch.ops.tri_stream import (
-    TRI_STREAM_MIN, stream_tables, tri_closest_hit_stream)
+    TRI_STREAM_MIN, StreamTables, stream_tables, tri_closest_hit_stream)
+from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_ranks
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
 from toroidal_ray_tracing_tpu_torch.trace import intersect as _isect
 
@@ -170,122 +176,216 @@ def merge_parts(rows: _isect.AttrRows, n: int, dev) -> _isect.Hit:
     return _isect.Hit(t=t, kind=kind, prim=prim, u=u, v=v, attrs=attrs)
 
 
+@dataclasses.dataclass
+class _TriPlan:
+    """How a query tests a geometry's triangles: the loose hoist's rows
+    (S1) and the kept tables of the triangle kernel (K1, or K5/K6 when
+    `stream`; None when the hoist covers every live triangle)."""
+
+    T: int                 # the geometry's triangle rows
+    off: int               # the global index of its first row
+    part: tuple            # the kept tables' key: () for the whole table
+    L: int                 # loose rows S1 tests (0: no hoist)
+    base: int              # the loose tail's first row
+    mesh: object           # TriTables / StreamTables, or None
+    stream: bool
+
+
+def _tri_plan(scene: Scene, geom) -> _TriPlan:
+    T = geom.woop_o.shape[2]
+    cs = scene.cluster_size
+    n_cl = geom.cluster_lo.shape[0]
+    aligned = n_cl * cs == T
+    if not aligned:
+        # a slice not cut on cluster boundaries: one uncullable block
+        cs, n_cl = T, 1
+    whole = T == scene.triangles.count
+    part = () if whole else (geom.tri_offset, T)
+    # the loose tail is the whole table's: a slice tests it like any other
+    # cluster (its real boxes)
+    L = scene.loose_tris
+    n_tail = (L + cs - 1) // cs if L > 0 and aligned and whole else 0
+    mesh, stream = None, False
+    if n_tail != n_cl:
+        # (the hoist may cover every live triangle: no K1 launch)
+        stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
+        make = stream_tables if stream else tri_tables
+        mesh = _kept(scene, "stream" if stream else "tri", part,
+                     (geom.woop_o, geom.woop_d, geom.cluster_lo,
+                      geom.cluster_hi),
+                     lambda: make(geom.woop_o, geom.woop_d,
+                                  *_walked_boxes(geom, aligned, n_tail), cs))
+    return _TriPlan(T=T, off=geom.tri_offset, part=part,
+                    L=L if n_tail else 0, base=T - n_tail * cs, mesh=mesh,
+                    stream=stream)
+
+
+def _torus_tables(scene: Scene, geom):
+    off, K = geom.tor_offset, geom.tor_major.shape[0]
+    return _kept(scene, "torus", () if K == scene.tori.count else (off, K),
+                 (geom.tor_w2o, geom.tor_major, geom.tor_minor,
+                  scene.tori.mat_id, *_material_sources(scene)),
+                 lambda: torus_tables(
+                     geom.tor_w2o, geom.tor_major, geom.tor_minor,
+                     _material_rows(scene, scene.tori.mat_id[off:off + K])
+                     .contiguous()))
+
+
+@dataclasses.dataclass
+class _Route:
+    """What a query of a geometry runs: the triangle plan (None: no
+    triangles), the torus tables (None: no tori) and the torus route."""
+
+    tri: Optional[_TriPlan]
+    tor: Optional[TorusTables]
+    small: bool            # K3, not K2, tests the tori
+
+
+def _route(scene: Scene, geom, n_batch: int) -> _Route:
+    """The route of a query of `n_batch` rays (the padded batch)."""
+    has_tris, has_tori = _isect.has_prims(scene)
+    tor = _torus_tables(scene, geom) if has_tori else None
+    return _Route(tri=_tri_plan(scene, geom) if has_tris else None, tor=tor,
+                  small=tor is not None and use_small_kernel(n_batch, tor.K))
+
+
+@dataclasses.dataclass
+class Ranks:
+    """A segment's route and visit ranks (`segment_ranks`), for both of its
+    queries: the rank of each box set they walk (None: a set no query
+    walks)."""
+
+    route: _Route
+    tri: Optional[torch.Tensor]      # K1's clusters or K5's superblocks
+    tor: Optional[torch.Tensor]      # K2's chunks
+
+
+def segment_ranks(scene: Scene, geom, origins, n_batch: int,
+                  lanes: int) -> Ranks:
+    """The route and visit ranks of a bounce-loop segment, decided once for
+    both of its queries of `lanes` rays: V1 (`ops.visit_kernel.
+    visit_ranks`, one launch on the card) from the anchor of the (3, L)
+    origin rows `origins` (the loop's whole state, divided by `n_batch`)
+    over the sets the route walks: K1's cluster boxes (where it tests them)
+    or K5's superblocks, and K2's chunk boxes where K2, not K3, is the
+    torus route. No set, no launch."""
+    route = _route(scene, geom, round_up(max(lanes, 1), RAY_TILE))
+    tri = tor = None
+    mesh = route.tri.mesh if route.tri is not None else None
+    if isinstance(mesh, StreamTables):
+        tri = (mesh.sb_lo, mesh.sb_hi)
+    elif mesh is not None and mesh.box_test:
+        tri = (mesh.clo, mesh.chi)
+    if route.tor is not None and not route.small:
+        tor = (route.tor.clo, route.tor.chi)
+    sets = [s for s in (tri, tor) if s is not None]
+    ranks = iter(visit_ranks(origins, n_batch, sets)[1] if sets else ())
+    return Ranks(route=route, tri=next(ranks) if tri else None,
+                 tor=next(ranks) if tor else None)
+
+
 def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
-           occlusion: bool, anchor):
+           occlusion: bool, ranks: Optional[Ranks]):
     """Run a query's kernels, each on the tmax the earlier ones left: S1
-    (the loose hoist), K1/K5, K2/K3. Returns (rows, tri_occ): the parts
-    unmerged in an `AttrRows` (with the kernels' attribute rows and the
-    loose tables where want_attrs), and in occlusion mode the (N,) mask of
-    the rays a triangle occludes (else None)."""
+    (the loose hoist), K1/K5, K2/K3. Each kernel writes the next one's tmax
+    and, in occlusion mode, the query's occlusion byte (the first kernel
+    writes it, the later ones OR into it). ranks: the segment's route and
+    visit ranks (None: the query decides its route, and each tree kernel
+    ranks its own set). Returns (rows, occ): the
+    parts unmerged in an `AttrRows` (with the kernels' attribute rows and
+    the loose tables where want_attrs), and in occlusion mode the (N,)
+    occlusion byte (else None)."""
     origins = origins.contiguous()
     dirs = dirs.contiguous()
     n = origins.shape[1]
+    dev = origins.device
     n_batch = round_up(max(n, 1), RAY_TILE)
-    has_tris, has_tori = _isect.has_prims(scene)
+    route = ranks.route if ranks is not None else _route(scene, geom, n_batch)
     rows = _isect.AttrRows()
     tri_tmax = tmax   # the next kernel's tmax: below every hit so far
-    tri_occ = None
+    occ = (torch.empty((n,), dtype=torch.bool, device=dev) if occlusion
+           else None)
+    first = True      # no kernel wrote occ yet
 
-    if has_tris:
-        T = geom.woop_o.shape[2]
-        cs = scene.cluster_size
-        n_cl = geom.cluster_lo.shape[0]
-        aligned = n_cl * cs == T
-        if not aligned:
-            # a slice not cut on cluster boundaries: one uncullable block
-            cs, n_cl = T, 1
-        off = geom.tri_offset
-        whole = T == scene.triangles.count
-        part = () if whole else (off, T)
+    plan, tor = route.tri, route.tor
+    if plan is not None:
+        off, T = plan.off, plan.T
         tables = None
         if want_attrs:
             tris = scene.triangles
             tables = _kept(
-                scene, "tri_attrs", part,
+                scene, "tri_attrs", plan.part,
                 (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
                  tris.uv0, tris.uv1, tris.uv2, tris.mat_id,
                  *_material_sources(scene)),
                 lambda: tuple(a[:, off:off + T].contiguous()
                               for a in _tri_attr_tables(scene)))
 
-        # the loose tail is the whole table's: a slice tests it like any
-        # other cluster (its real boxes). S1 writes the base hit the
-        # triangle kernels start from and their tmax (0 where it occludes)
-        L = scene.loose_tris
-        n_tail = (L + cs - 1) // cs if L > 0 and aligned and whole else 0
-        if n_tail:
-            base = T - n_tail * cs
+        # S1 writes the base hit the triangle kernels start from and their
+        # tmax (0 where it occludes)
+        if plan.L:
             *hit, tri_tmax = loose_hit(origins, dirs, tmax, geom.woop_o,
-                                       geom.woop_d, base, L, base + off,
-                                       occlusion)
+                                       geom.woop_d, plan.base, plan.L,
+                                       plan.base + off, occlusion,
+                                       occ_out=occ)
+            first = False
             rows.base = tuple(hit)
-            if occlusion:
-                tri_occ = hit[1] >= 0
             if want_attrs:
-                rows.loose, rows.loose_base, rows.n_loose = tables, base, L
+                rows.loose, rows.loose_base, rows.n_loose = (tables,
+                                                             plan.base,
+                                                             plan.L)
 
-        if n_tail != n_cl:
-            # (the hoist may cover every live triangle: no K1 launch)
-            kw = dict(attr_tables=tables, occlusion=occlusion,
-                      n_batch=n_batch, anchor=anchor)
-            stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
-            make = stream_tables if stream else tri_tables
-            mesh = _kept(scene, "stream" if stream else "tri", part,
-                         (geom.woop_o, geom.woop_d, geom.cluster_lo,
-                          geom.cluster_hi),
-                         lambda: make(geom.woop_o, geom.woop_d,
-                                      *_walked_boxes(geom, aligned, n_tail),
-                                      cs))
-            hit_fn = tri_closest_hit_stream if stream else tri_closest_hit
-            out = hit_fn(origins, dirs, tri_tmax, mesh, **kw)
-            tt = out[0]
+        if plan.mesh is not None:
+            # the torus query's tmax comes out of the triangle kernel (S1's
+            # hit is in the tmax it starts from)
+            nxt = (torch.empty((n,), dtype=torch.float32, device=dev)
+                   if tor is not None else None)
+            hit_fn = (tri_closest_hit_stream if plan.stream
+                      else tri_closest_hit)
+            out = hit_fn(origins, dirs, tri_tmax, plan.mesh,
+                         attr_tables=tables, occlusion=occlusion,
+                         n_batch=n_batch,
+                         rank=ranks.tri if ranks is not None else None,
+                         tmax_out=nxt, occ_out=occ,
+                         occ_or=occlusion and not first)
+            first = False
             rows.tri_hit, rows.tri_offset = tuple(out[:4]), off
             if want_attrs:
                 rows.tri = out[4]
-            if occlusion:
-                # K1 found nothing where S1 occluded (tmax 0 there)
-                hit_k1 = tt < BIG
-                tri_occ = hit_k1 if tri_occ is None else tri_occ | hit_k1
-            if has_tori:
-                # the torus query's tmax: S1's tmax already holds S1's hit
-                tri_tmax = (torch.where(tri_occ, 0.0, tmax) if occlusion
-                            else torch.minimum(tri_tmax, tt))
+            if tor is not None:
+                tri_tmax = nxt
 
-    if has_tori:
-        off, K = geom.tor_offset, geom.tor_major.shape[0]
-        tor = _kept(scene, "torus",
-                    () if K == scene.tori.count else (off, K),
-                    (geom.tor_w2o, geom.tor_major, geom.tor_minor,
-                     scene.tori.mat_id, *_material_sources(scene)),
-                    lambda: torus_tables(
-                        geom.tor_w2o, geom.tor_major, geom.tor_minor,
-                        _material_rows(scene, scene.tori.mat_id[off:off + K])
-                        .contiguous()))
-        out = torus_closest_hit(origins, dirs, tri_tmax.contiguous(), tor,
+    if tor is not None:
+        out = torus_closest_hit(origins, dirs, tri_tmax, tor,
                                 want_attrs=want_attrs, occlusion=occlusion,
-                                n_batch=n_batch, anchor=anchor)
-        rows.tor_hit, rows.tor_offset = tuple(out[:2]), off
+                                n_batch=n_batch, small=route.small,
+                                rank=ranks.tor if ranks is not None else None,
+                                occ_out=occ, occ_or=occlusion and not first)
+        first = False
+        rows.tor_hit, rows.tor_offset = tuple(out[:2]), geom.tor_offset
         if want_attrs:
             rows.tor = out[2]
-    return rows, tri_occ
+    if occlusion and first:
+        occ.zero_()    # no primitive to occlude
+    return rows, occ
 
 
 def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                        want_attrs: bool = False, occlusion: bool = False,
-                       anchor=None, merge: bool = True):
+                       ranks: Optional[Ranks] = None, merge: bool = True):
     """Closest hit through the kernels. origins/dirs: (3, N) rows; tmax
     (N,). want_attrs: emit Hit.attrs, the kernels' raw `AttrRows`.
-    occlusion: any-hit (only Hit.kind >= 0 is meaningful). anchor: the
-    (3,) point the tree kernels' visit orders start from (default: the
-    batch's mean origin). merge=False (with want_attrs): the parts
-    unmerged in Hit.attrs, what S2 reads, and Hit's own fields None;
+    occlusion: any-hit (only Hit.kind >= 0 is meaningful). ranks: the tree
+    kernels' visit ranks (`segment_ranks`; default: each kernel ranks its
+    set from the batch's mean origin). merge=False (with want_attrs): the
+    parts unmerged in Hit.attrs, what S2 reads, and Hit's own fields None;
     `merge_parts` merges them."""
     if want_attrs and occlusion:
         raise ValueError("want_attrs and occlusion are exclusive")
     if not merge and not want_attrs:
         raise ValueError("merge=False hands the parts to S2: want_attrs")
     rows, _ = _query(scene, geom, origins, dirs, tmax, want_attrs,
-                     occlusion, anchor)
+                     occlusion, ranks)
     if not merge:
         return _isect.Hit(t=None, kind=None, prim=None, u=None, v=None,
                           attrs=rows)
@@ -295,14 +395,9 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
     return hit
 
 
-def occluded_kernel(scene: Scene, geom, origins, dirs, tmax, anchor=None):
+def occluded_kernel(scene: Scene, geom, origins, dirs, tmax,
+                    ranks: Optional[Ranks] = None):
     """The any-hit query through the kernels: the (N,) bool mask of the rays
-    a primitive occludes, formed from the parts (equal to
+    a primitive occludes, the occlusion byte its kernels write (equal to
     `closest_hit_kernel(..., occlusion=True).kind >= 0` on every lane)."""
-    rows, tri_occ = _query(scene, geom, origins, dirs, tmax, False, True,
-                           anchor)
-    if rows.tor_hit is None:
-        return (tri_occ if tri_occ is not None
-                else torch.zeros_like(tmax, dtype=torch.bool))
-    occ = rows.tor_hit[0] < BIG
-    return occ if tri_occ is None else tri_occ | occ
+    return _query(scene, geom, origins, dirs, tmax, False, True, ranks)[1]

@@ -26,7 +26,13 @@ and compares the full key, so it returns the twin's bits wherever the two
 walks meet a box at the same bound. The scene-constant tables (`TriTables`:
 the Woop rows, the cluster boxes as walked and the tree) are built once by
 `tri_tables`; the wrapper takes them and never builds them, and the
-orchestrator keeps them per scene and device. Only the rank is per call.
+orchestrator keeps them per scene and device. Only the rank is per call:
+the caller's (the bounce loop ranks a segment's sets once with the
+visit-rank kernel V1, `ops.visit_kernel`), or V1 on the call's own rays.
+
+Beside the hit the kernel can write the query's folds for the kernel after
+it (`kernel_common.fold_outputs`): the torus query's tmax and, in any-hit
+mode, the query's occlusion byte.
 """
 
 from __future__ import annotations
@@ -37,8 +43,10 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.triangle import woop_dots, woop_hit
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_rays, count,
-    launch, tree_rank, tree_tensors, visit_order, walk_bound)
+    BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_folds,
+    check_rays, count, fold_outputs, launch, tree_rank, tree_tensors,
+    walk_bound)
+from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 
 N_ATTR = 21
 
@@ -102,12 +110,14 @@ def winner_attrs(attr_tables, best, bidx, bu, bv):
 
 def tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi, order,
                           cluster: int, box_test: bool, attr_tables=None,
-                          occlusion: bool = False, counts=None):
+                          occlusion: bool = False, counts=None,
+                          tmax_out=None, occ_out=None, occ_or: bool = False):
     """Plain PyTorch twin of the CUDA kernel: vectorized over rays, one
     loop step per cluster in `order`. Returns (t, idx, u, v[, attrs]).
     counts: optional dict; adds the (ray, box) slab tests under "box", the
     (ray, triangle) Woop tests under "prim" that the kernel runs, and the
-    distinct triangles some ray tests under "rows"."""
+    distinct triangles some ray tests under "rows". tmax_out, occ_out,
+    occ_or: the folds, as the wrapper's."""
     n = origins.shape[1]
     o, d, inv, state = walk_start(origins, dirs)
     for c in order.tolist():
@@ -125,6 +135,7 @@ def tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi, order,
         if box is not None:
             t = torch.where(box, t, BIG)
         state = fold_block(state, t, u, v, c * cluster, occlusion)
+    fold_outputs(state[0], tmax, occlusion, tmax_out, occ_out, occ_or)
     if attr_tables is None:
         return state
     return state + (winner_attrs(attr_tables, *state),)
@@ -143,6 +154,7 @@ class TriTables:
     tree_hi: torch.Tensor
     tree_link: torch.Tensor  # (M, 3) int32, see kernel_common.build_tree
     depth: int
+    one_rank: torch.Tensor | None   # (1,) int32 [0]: without box test
 
 
 def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi,
@@ -163,21 +175,26 @@ def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi,
     return TriTables(cluster=cluster, box_test=box_test,
                      wrows=woop_rows(woop_o, woop_d), clo=clo, chi=chi,
                      tree_lo=tree_lo, tree_hi=tree_hi, tree_link=tree_link,
-                     depth=depth)
+                     depth=depth, one_rank=None if box_test else torch.zeros(
+                         (1,), dtype=I32, device=clo.device))
 
 
 def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
                     attr_tables=None, occlusion: bool = False,
-                    n_batch: int | None = None, counters=None,
-                    anchor=None):
+                    n_batch: int | None = None, counters=None, rank=None,
+                    tmax_out=None, occ_out=None, occ_or: bool = False):
     """K1 wrapper. origins/dirs: (3, N) rows; tmax: (N,); tables: the
     mesh's `tri_tables`. attr_tables: optional ((21, T), (8, T), (8, T))
     interpolation tables. n_batch: the batch size the visit order averages
     origins over (the caller's padded batch; default N). counters: optional
     (2,) int64 CUDA tensor the kernel adds its (ray, box) slab tests and
-    (ray, triangle) Woop tests to. anchor: the (3,) point the visit order
-    starts from (default: the batch's `batch_anchor`). Returns (t, idx, u,
-    v[, attrs (21, N)]) — t is BIG on a miss, idx int32."""
+    (ray, triangle) Woop tests to. rank: the (C,) int32 visit rank of the
+    clusters (default: V1 on these rays, `ops.visit_kernel.visit_rank`).
+    tmax_out: optional (N,) float32 the kernel writes the next kernel's
+    tmax into; occ_out: in occlusion mode, an optional (N,) bool occlusion
+    byte the kernel writes (or, with occ_or, ORs its hits into)
+    (`kernel_common.fold_outputs`). Returns (t, idx, u, v[, attrs (21,
+    N)]) — t is BIG on a miss, idx int32."""
     if not isinstance(tables, TriTables):
         raise TypeError("tri_closest_hit takes the mesh's prebuilt "
                         "TriTables (tri_tables)")
@@ -185,24 +202,29 @@ def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
     n = origins.shape[1]
     tb = tables
     T, C, M = tb.wrows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
-    order = (visit_order(tb.clo, tb.chi, origins, n_batch or n, anchor)
-             if tb.box_test else
-             torch.zeros((1,), dtype=torch.int32, device=origins.device))
+    if not tb.box_test:
+        rank = tb.one_rank
+    elif rank is None:
+        rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
                clo=(tb.clo, (C, 3), F32), chi=(tb.chi, (C, 3), F32),
                tree_lo=(tb.tree_lo, (M, 3), F32),
                tree_hi=(tb.tree_hi, (M, 3), F32),
                tree_link=(tb.tree_link, (M, 3), I32),
+               rank=(rank, (C,), I32),
                a0=(a0, (N_ATTR, T), F32), a1=(a1, (8, T), F32),
                a2=(a2, (8, T), F32), counters=(counters, (2,), torch.int64))
+    check_folds(origins.device, n, occlusion, tmax_out, occ_out, occ_or)
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernel's work")
         return tri_closest_hit_plain(origins, dirs, tmax, tb.wrows, tb.clo,
-                                     tb.chi, order, tb.cluster, tb.box_test,
-                                     attr_tables, occlusion)
+                                     tb.chi, tree_rank(rank), tb.cluster,
+                                     tb.box_test, attr_tables, occlusion,
+                                     tmax_out=tmax_out, occ_out=occ_out,
+                                     occ_or=occ_or)
 
     # the entry point refuses a tree deeper than the kernel's stack, with an
     # error that `launch` raises
@@ -215,8 +237,8 @@ def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
              else None)
     if n:
         launch("trt_tri_closest_hit", origins, dirs, tmax, n, tb.wrows, T,
-               tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth,
-               tree_rank(order), tb.cluster, int(tb.box_test), a0, a1, a2,
-               int(occlusion), t, idx, u, v, attrs, counters)
+               tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth, rank,
+               tb.cluster, int(tb.box_test), a0, a1, a2, int(occlusion), t,
+               idx, u, v, attrs, counters, tmax_out, occ_out, int(occ_or))
     out = (t, idx, u, v)
     return out + ((attrs,) if attrs is not None else ())

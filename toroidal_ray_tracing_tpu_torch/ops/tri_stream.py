@@ -38,7 +38,10 @@ cluster boxes, the superblock boxes and the tree) are built by
 `stream_tables`, once per mesh: the tree is a host build (~0.3 s at config
 8), so the wrapper takes the tables and never builds them. The
 orchestrator keeps them per scene and device. Only the rank, which depends
-on the batch's mean origin, is computed per call.
+on the batch's mean origin, is per call: the caller's (the bounce loop
+ranks a segment's sets once with the visit-rank kernel V1,
+`ops.visit_kernel`), or V1 on the call's own rays. Beside the hit the
+kernels write K1's optional folds (`kernel_common.fold_outputs`).
 
 Not carried over (TPU machinery, default-off A/B paths): the per-span XLA
 visit gate and its packed SMEM rows, the visit-row cap and its overflow
@@ -53,10 +56,11 @@ import os
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, F32, I32, box_pass, check_args, check_rays, count, launch,
-    tree_rank, tree_tensors, visit_order, walk_bound)
+    BIG, F32, I32, box_pass, check_args, check_folds, check_rays, count,
+    fold_outputs, launch, tree_rank, tree_tensors, walk_bound)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (
     N_ATTR, fold_block, walk_start, winner_attrs, woop_block, woop_rows)
+from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 
 TRI_STREAM_MIN = 65536     # triangles: above this the orchestrator streams
 STREAM_GATE_BOXES = 512    # superblock-count target (tri_stream.py:31)
@@ -133,12 +137,14 @@ def stream_tables(woop_o, woop_d, cluster_lo, cluster_hi,
 def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,
                                  order, clo, chi, g: int, cluster: int,
                                  attr_tables=None, occlusion: bool = False,
-                                 counts=None):
+                                 counts=None, tmax_out=None, occ_out=None,
+                                 occ_or: bool = False):
     """Plain PyTorch twin of K5 and K6: vectorized over rays, one loop step
     per superblock in `order`, then per cluster in it. Returns (t, idx, u,
     v[, attrs]). counts: optional dict of this flat walk's (ray, box) slab
     tests ("box"), (ray, triangle) Woop tests ("prim") and the distinct
-    triangles some ray tests ("rows")."""
+    triangles some ray tests ("rows"). tmax_out, occ_out, occ_or: the
+    folds, as K1's wrapper's."""
     n = origins.shape[1]
     T = wrows.shape[0]
     o, d, inv, state = walk_start(origins, dirs)
@@ -168,6 +174,7 @@ def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,
             t, u, v = woop_block(wrows, base, end, o, d, tmax)
             state = fold_block(state, torch.where(box, t, BIG), u, v, base,
                                occlusion)
+    fold_outputs(state[0], tmax, occlusion, tmax_out, occ_out, occ_or)
     if attr_tables is None:
         return state
     return state + (winner_attrs(attr_tables, *state),)
@@ -177,22 +184,26 @@ def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
                            attr_tables=None, occlusion: bool = False,
                            n_batch: int | None = None,
                            group: int | None = None, counters=None,
-                           anchor=None):
+                           rank=None, tmax_out=None, occ_out=None,
+                           occ_or: bool = False):
     """K5/K6 wrapper, K1's contract. origins/dirs (3, N); tmax (N,);
     tables: the mesh's `stream_tables`. attr_tables: optional ((21, T), (8,
     T), (8, T)). n_batch: the batch size the superblock rank averages
     origins over (the caller's padded batch; default N). group: K6 when > 1
     (default: the module's STREAM_GROUP). counters: optional (2,) int64
     CUDA tensor the kernel adds its (ray, box) slab tests and (ray,
-    triangle) Woop tests to. anchor: as `tri_closest_hit`'s. Returns (t,
-    idx, u, v[, attrs (21, N)])."""
+    triangle) Woop tests to. rank: the (S,) int32 visit rank of the
+    superblocks (default: V1 on these rays). tmax_out, occ_out, occ_or:
+    the folds, as `tri_closest_hit`'s. Returns (t, idx, u, v[, attrs (21,
+    N)])."""
     check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
     group = STREAM_GROUP if group is None else group
     T, S, Cp, M = (tb.wrows.shape[0], tb.sb_lo.shape[0], tb.clo.shape[0],
                    tb.tree_lo.shape[0])
-    order = visit_order(tb.sb_lo, tb.sb_hi, origins, n_batch or n, anchor)
+    if rank is None:
+        rank = visit_rank(origins, n_batch or n, tb.sb_lo, tb.sb_hi)
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
                sb_lo=(tb.sb_lo, (S, 3), F32), sb_hi=(tb.sb_hi, (S, 3), F32),
@@ -200,16 +211,19 @@ def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
                tree_lo=(tb.tree_lo, (M, 3), F32),
                tree_hi=(tb.tree_hi, (M, 3), F32),
                tree_link=(tb.tree_link, (M, 3), I32),
+               rank=(rank, (S,), I32),
                a0=(a0, (N_ATTR, T), F32), a1=(a1, (8, T), F32),
                a2=(a2, (8, T), F32),
                counters=(counters, (2,), torch.int64))
+    check_folds(origins.device, n, occlusion, tmax_out, occ_out, occ_or)
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernels' work")
         return tri_closest_hit_stream_plain(
-            origins, dirs, tmax, tb.wrows, tb.sb_lo, tb.sb_hi, order, tb.clo,
-            tb.chi, tb.g, tb.cluster, attr_tables, occlusion)
+            origins, dirs, tmax, tb.wrows, tb.sb_lo, tb.sb_hi,
+            tree_rank(rank), tb.clo, tb.chi, tb.g, tb.cluster, attr_tables,
+            occlusion, tmax_out=tmax_out, occ_out=occ_out, occ_or=occ_or)
 
     # the entry points refuse a tree deeper than the kernels' stack, and K6
     # a superblock of more than STREAM_MAX_SB rows (48 KB staged), with an
@@ -223,9 +237,9 @@ def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
              else None)
     if n:
         args = (origins, dirs, tmax, n, tb.wrows, T, tb.tree_lo, tb.tree_hi,
-                tb.tree_link, M, tb.depth, tree_rank(order), tb.clo, tb.chi,
-                tb.g, tb.cluster, a0, a1, a2, int(occlusion), t, idx, u, v,
-                attrs, counters)
+                tb.tree_link, M, tb.depth, rank, tb.clo, tb.chi, tb.g,
+                tb.cluster, a0, a1, a2, int(occlusion), t, idx, u, v, attrs,
+                counters, tmax_out, occ_out, int(occ_or))
         launch("trt_tri_closest_hit_stream"
                + ("_grouped" if group > 1 else ""), *args)
     return (t, idx, u, v) + ((attrs,) if attrs is not None else ())

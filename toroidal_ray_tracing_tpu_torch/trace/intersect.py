@@ -32,7 +32,7 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.geom import torus as torus_geom
 from toroidal_ray_tracing_tpu_torch.geom.triangle import intersect_woop
-from toroidal_ray_tracing_tpu_torch.scene.types import Scene
+from toroidal_ray_tracing_tpu_torch.scene.types import Scene, derived
 from toroidal_ray_tracing_tpu_torch.utils.collectives import (MAX, MIN, SUM,
                                                               all_reduce)
 
@@ -139,8 +139,10 @@ def geom_from_scene(scene: Scene) -> GeomSlice:
 
 def has_prims(scene: Scene):
     """(has_tris, has_tori): static skips — a scene with no real triangles
-    or tori still carries one padded row."""
-    return (bool(scene.triangles.valid.any()), bool(scene.tori.valid.any()))
+    or tori still carries one padded row. Kept per primitive soup: each
+    check reads its valid mask back from the device (a host sync)."""
+    return tuple(derived(soup, "has_prims", lambda s=soup: bool(s.valid.any()))
+                 for soup in (scene.triangles, scene.tori))
 
 
 def _ray_chunk(n_prims: int, budget: int = 1 << 24) -> int:
@@ -198,7 +200,7 @@ def combine_hits_over_axis(hit: Hit, group) -> Hit:
 def closest_hit(scene: Scene, origins, dirs, tmax=None,
                 backend: str = "torch", geom: Optional[GeomSlice] = None,
                 want_attrs: bool = False, occlusion: bool = False,
-                prim_group=None, anchor=None, merge: bool = True) -> Hit:
+                prim_group=None, ranks=None, merge: bool = True) -> Hit:
     """Nearest hit for every ray. origins/dirs: (3, N) f32 rows.
 
     geom: the geometry to test (default: the whole scene). prim_group: the
@@ -207,10 +209,11 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
     kernels' raw `AttrRows`, which the shading kernel S2 reads and
     `ops.shade_kernel.shade_attrs` assembles into ShadeAttrs (kernel
     backend only; the torch path shades via gathers). occlusion: any-hit
-    semantics — only Hit.kind >= 0 is meaningful then. anchor: kernel
-    backend, the (3,) point the kernels' visit orders start from, which
-    decides exact ties between boxes (default: the batch's mean origin;
-    `trace_rays` passes the whole wavefront's). merge=False (kernel
+    semantics — only Hit.kind >= 0 is meaningful then. ranks: kernel
+    backend, the tree kernels' visit ranks (`ops.trace_kernel.Ranks`),
+    which decide exact ties between boxes (default: each kernel ranks its
+    boxes from the batch's mean origin; `trace_rays` passes a segment's
+    `segment_ranks`, from the whole wavefront's). merge=False (kernel
     backend, want_attrs, no prim_group): Hit.attrs holds the query's hit
     parts unmerged, what S2 merges, and Hit's own fields are None."""
     if not merge and (backend != "kernel" or prim_group is not None):
@@ -226,7 +229,7 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
 
         hit = closest_hit_kernel(scene, geom, origins, dirs, tmax,
                                  want_attrs=want_attrs, occlusion=occlusion,
-                                 anchor=anchor, merge=merge)
+                                 ranks=ranks, merge=merge)
     elif backend == "torch":
         hit = _closest_hit_torch(scene, geom, origins, dirs, tmax)
     else:
@@ -392,12 +395,12 @@ def closest_hit_diff(scene: Scene, origins, dirs, tmax=None) -> Hit:
 
 
 def any_hit(scene: Scene, origins, dirs, tmax, backend: str = "torch",
-            geom: Optional[GeomSlice] = None, prim_group=None, anchor=None):
+            geom: Optional[GeomSlice] = None, prim_group=None, ranks=None):
     """Occlusion query (shadow rays: TerminateOnFirstHit | SkipClosestHit,
     raytrace.rchit:96-109). The kernel backend runs its kernels in any-hit
-    mode and forms the mask from their parts (`ops.trace_kernel.
-    occluded_kernel`; anchor: their visit orders' start, as in
-    `closest_hit`). Returns a bool mask; with prim_group, a ray is
+    mode and returns the occlusion byte they write (`ops.trace_kernel.
+    occluded_kernel`; ranks: their visit ranks, as in `closest_hit`).
+    Returns a bool mask; with prim_group, a ray is
     occluded when any rank's slice occludes it (a MAX over the group: a
     hit is t < BIG on every path, so this equals the full combine's
     kind >= 0)."""
@@ -407,7 +410,7 @@ def any_hit(scene: Scene, origins, dirs, tmax, backend: str = "torch",
 
         mask = occluded_kernel(scene, geom or geom_from_scene(scene),
                                origins, dirs, _tmax(tmax, origins),
-                               anchor=anchor)
+                               ranks=ranks)
     else:
         mask = closest_hit(scene, origins, dirs, tmax=tmax, backend=backend,
                            geom=geom).kind >= 0

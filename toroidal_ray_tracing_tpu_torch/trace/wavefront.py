@@ -20,13 +20,15 @@ them, before any shrink). The color is unpermuted once at the end, by F1
 on the front doors. `backend="torch"` traces every segment whole, as the
 JAX package's jnp path does.
 
-A kernel-backend segment is S1 (the loose hoist) -> K1/K5 -> K2/K3 (the
-closest hit's parts unmerged, its raw attribute rows), S2
+A kernel-backend segment is V1 (`ops.trace_kernel.segment_ranks`: the
+anchor and the tree kernels' visit ranks, once for both queries) -> S1
+(the loose hoist) -> K1/K5 -> K2/K3 (the closest hit's parts unmerged,
+its raw attribute rows; each kernel writes the next one's tmax), S2
 (`ops.shade_kernel.shade_hit`: the merges, shading up to the shadow ray)
--> K4 (textured scenes) -> S1 -> the any-hit kernels (their mask formed
-from the parts), then S3 (`shade_finish`: the rest of the shading and the
-state update in place, the ray count and the live spans), and G1 when
-the bucket shrinks. The torch backend shades with
+-> K4 (textured scenes) -> S1 -> the any-hit kernels (each writes or ORs
+into the query's occlusion byte), then S3 (`shade_finish`: the rest of
+the shading and the state update in place, the ray count and the live
+spans), and G1 when the bucket shrinks. The torch backend shades with
 `trace.shade.shade` and updates the state with tensor ops (`_advance`).
 
 `trace_rays_fixed` is the differentiable variant: a fixed number of
@@ -44,18 +46,17 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.front_kernel import (  # noqa: F401
     fill_state_plain, span_gather, span_lanes, span_order, unpermute_rows)
-from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (batch_anchor,
-                                                              round_up)
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import round_up
 # live_spans: the 128-lane spans that hold a live ray (S3 writes them on
 # the kernel backend; kept here beside span_order and span_lanes)
 from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import (  # noqa: F401
     base_rows, live_spans, shade_finish, shade_hit, shade_params)
 from toroidal_ray_tracing_tpu_torch.ops.tex_kernel import quad_gather
-from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import RAY_TILE
+from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (RAY_TILE,
+                                                             segment_ranks)
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
-from toroidal_ray_tracing_tpu_torch.trace.intersect import (any_hit,
-                                                            closest_hit,
-                                                            closest_hit_diff)
+from toroidal_ray_tracing_tpu_torch.trace.intersect import (
+    any_hit, closest_hit, closest_hit_diff, geom_from_scene)
 from toroidal_ray_tracing_tpu_torch.trace.shade import shade
 from toroidal_ray_tracing_tpu_torch.utils.collectives import MAX, all_reduce
 
@@ -208,12 +209,15 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
         o, d = s[_O].contiguous(), s[_D].contiguous()
         # dead rays trace with tmax = 0: every kernel skips them
         seg_tmax = torch.where(act, SEG_TMAX, 0.0)
-        anchor = batch_anchor(state[_O], n_batch) if kernel else None
+        # the segment's visit ranks, from the whole state's anchor, for
+        # both of its queries (V1, one launch)
+        ranks = (segment_ranks(scene, geom or geom_from_scene(scene),
+                               state[_O], n_batch, nb) if kernel else None)
         # the kernel backend's unsharded query hands S2 its parts
         # unmerged; a sharded one merges over the ranks first
         hit = closest_hit(scene, o, d, tmax=seg_tmax, backend=backend,
                           geom=geom, prim_group=prim_group,
-                          want_attrs=kernel, anchor=anchor,
+                          want_attrs=kernel, ranks=ranks,
                           merge=not kernel or prim_group is not None)
         if kernel:
             # S2 -> K4 (textured) -> the shadow any-hit -> S3, which
@@ -223,10 +227,11 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
             quads = (quad_gather(scene.textures.data4q, *sr.tex)
                      if sr.tex is not None else None)
             # (a missed lane's shadow ray is undefined, its tmax 0: the
-            # visit orders start from the segment's anchor)
+            # visit ranks are the segment's; S3 reads the occlusion byte
+            # the query's kernels write)
             occluded = any_hit(scene, sr.shadow_o, sr.shadow_d,
                                sr.shadow_tmax, backend=backend, geom=geom,
-                               prim_group=prim_group, anchor=anchor)
+                               prim_group=prim_group, ranks=ranks)
             local = counts[depth]
             shade_finish(state, active, nb, sr, occluded, quads, params,
                          depth, max_depth, rays, spans, local)

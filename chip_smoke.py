@@ -190,7 +190,10 @@ Phases, each printed on its own lines with its wall seconds:
      the first buffer as the spare), recorded from a `render`; F1
      (csrc/frame.cu frame_finish) on the traced states of config 5's two
      samples (the second adds and divides), config 6's and the capture's
-     frames with dumps, row-major and channel-major. Each kernel and its
+     frames with dumps, row-major and channel-major, and an odd toroidal
+     frame (1001x543, block 1: the last CTA short, the pixel count no
+     multiple of 4) with dumps and then its second sample, its outputs
+     16-B aligned and at a 4-B offset. Each kernel and its
      twin start from the same buffers and end bit-equal on every entry
      (NaN equal to NaN), those their contract leaves unwritten too, with the
      wrapper, the bare launch, its device time (20 bare launches in a
@@ -208,10 +211,15 @@ Phases, each printed on its own lines with its wall seconds:
      the folds the query's kernels now write against the torch
      formulation they replace, on every lane: the torus query's tmax
      (`torch.minimum(tmax, t)`, `torch.where(occ, 0, tmax)`) and the
-     occlusion byte (S1, K1, K5/K6, K2, K3; `t < BIG` ORed); V1's
-     wrapper, bare, CUDA-graph device and twin times and byte bound on
-     config 8's, config 6's and config 5's first segment, beside the
-     eager route it replaces.
+     occlusion byte (S1, K1, K5/K6, K2, K3; `t < BIG` ORed); synthetic
+     sets on config 5's origins, two a launch (1 and 8, 9 and 257 boxes in
+     one CTA; 513 and 3,340, 8,192 and 33 in a cluster, the sorted shares
+     in shared memory; 9,000 and 16,385, 600 and 8,193 with shares in the
+     global scratch), bit-equal to the twin; the same anchor bits
+     from two launches on the same origins; V1's wrapper, bare,
+     CUDA-graph device and twin times and byte bound on the 9,000- and
+     16,385-box sets and on config 8's, config 6's and config 5's first
+     segment, beside the eager route it replaces.
 
 Phases 4 and 7-11 also check every kernel-backend segment that a counted
 path traces on the card (`SegmentGuard`): from its visit ranks to its
@@ -3764,14 +3772,60 @@ def phase_front_kernels(torch, results):
         lname, largs = front_bare(call)
         hv = fk.unpermute_rows(tr.state[6:9], tr.slot)[:, :n]
         nb_ = n * (24 + (12 if s > 0 else 0) + (48 if dumps else 0))
-        front_row(results, "frame_finish", F1, f"F1 frame_finish {name} "
-                  f"({'compacted' if tr.slot is not None else 'no shrink'})",
-                  same,
+        label = (f"F1 frame_finish {name} "
+                 f"({'compacted' if tr.slot is not None else 'no shrink'})")
+        front_row(results, "frame_finish", F1, label, same,
                   (call, lambda: launch(lname, *largs),
                    lambda to=to: fk.frame_finish_plain(
                        *args, to[0], s, spp, tuple(to[1:]) or None, chw)),
                   nb_,
                   lambda: fk.block_unswizzle(hv.T, w, h, block).contiguous())
+        if dumps:
+            # the library yardstick moves the color only; the PyTorch route
+            # that does the most of F1's work also lays out the first hit
+            # (the ray dumps have no library call)
+            def lay(rows):
+                a = fk.block_unswizzle(rows.T, w, h, block)
+                return (a.permute(2, 0, 1) if chw else a).contiguous()
+
+            hp_rows = tr.first[12:15, :n]
+            route = cuda_ms(lambda: (lay(hv), lay(hp_rows)), reps=10)
+            results["frame_finish"]["shapes"][label]["library_route_ms"] = \
+                route
+            print(f"  {label}: the color's and the first hit's permuted "
+                  f"`.contiguous()` {route:.4f} ms", flush=True)
+    # an odd frame on the toroidal camera (block 1; its pixel count no
+    # multiple of 4, the last CTA short of 256 pixels), HWC with dumps, then
+    # its second sample adding on the same image; the outputs 16-B aligned
+    # (whole CTAs store float4 runs) and at a 4-B offset (every CTA stores
+    # scalars)
+    w, h = F1_ODD_RES
+    n = w * h
+    tr = traced_of(cap_cam, cap_st, w, h, None, cap_scene)
+    args = (cap_cam.KIND, cap_cam.ray_params(w, h, cap_st), w, h,
+            pick_block(w, h), tr.state, tr.first, tr.slot, 0)
+    seed_img = torch.rand((h, w, 3), device=dev)
+    for shift in (0, 1):
+        outs = {side: [torch.empty(n * 3 + shift, device=dev)[shift:].view(
+            h, w, 3) for _ in range(4)] for side in ("kernel", "twin")}
+        for side in outs:
+            outs[side][0].copy_(seed_img)
+        fk.frame_finish(*args, outs["kernel"][0], 0, 2,
+                        tuple(outs["kernel"][1:]))
+        fk.frame_finish_plain(*args, outs["twin"][0], 0, 2,
+                              tuple(outs["twin"][1:]))
+        same = all(nan_equal(torch, a, b)
+                   for a, b in zip(outs["kernel"], outs["twin"]))
+        fk.frame_finish(*args, outs["kernel"][0], 1, 2)
+        fk.frame_finish_plain(*args, outs["twin"][0], 1, 2)
+        same = same and nan_equal(torch, outs["kernel"][0], outs["twin"][0])
+        front_row(results, "frame_finish", F1, f"F1 frame_finish {w}x{h} "
+                  f"capture (toroidal, block {args[4]}, {n} pixels: the last "
+                  f"CTA {n % 256}), HWC with dumps, then its second sample "
+                  f"(adds, divides); outputs "
+                  + ("16-B aligned" if shift == 0 else "at a 4-B offset")
+                  + (" (compacted)" if tr.slot is not None
+                     else " (no shrink)"), same, None, 0, None)
     for k in ("raygen", "span_gather", "frame_finish"):
         check(k in results and "ms" in results[k], f"{k}: timed")
 
@@ -3788,6 +3842,7 @@ def poisoned(sr, textured):
 
 
 V1_CELLS = (3, 4, 6, 7, 8, "8k6", 5, "capture")
+F1_ODD_RES = (1001, 543)      # phase 14's odd frame: 543,543 pixels
 
 
 def v1_cell(num):
@@ -3817,17 +3872,17 @@ def phase_visit_ranks(torch, results):
     spp) and the capture at their main-path sizes: the anchor and every
     rank bit-equal (an anchor that differs is printed); its per-call route
     (a tree kernel's wrapper given no rank launches V1 once, and its hits
-    equal those on the twin's rank); its global-scratch sort (two
-    synthetic sets above `SMEM_KEYS` boxes on config 5's origins, ties and
-    NaN boxes among them) bit-equal to the twin; the query folds the
-    kernels write on
+    equal those on the twin's rank); synthetic sets on config 5's origins
+    (ties, boxes at distance 0 and NaN boxes among them; shares in shared
+    memory and in the global scratch) bit-equal to the twin; two launches'
+    anchor bits equal; the query folds the kernels write on
     the same renders against the torch formulation they replace, on every
     lane: the torus query's tmax (`torch.minimum`, `torch.where(occ, 0,
     tmax)`) and the occlusion byte (`t < BIG` ORed over the query's
-    kernels). Times on config 8's, config 6's and config 5's first
-    segment: the wrapper, the bare launch, its device time (20 bare
-    launches in a CUDA graph), the twin, the byte bound (12 B a lane of
-    origins, 28 B a box),
+    kernels). Times on the 9,000- and 16,385-box sets and on config 8's,
+    config 6's and config 5's first segment: the wrapper, the bare
+    launch, its device time (20 bare launches in a CUDA graph), the twin,
+    the byte bound (12 B a lane of origins, 28 B a box),
     and the eager route it replaces (`batch_anchor` + `visit_order` +
     `tree_rank`, the twin on the card) as the library yardstick."""
     from toroidal_ray_tracing_tpu_torch import render
@@ -3973,34 +4028,75 @@ def phase_visit_ranks(torch, results):
               "and none with one; its hits bit-equal to those on the twin's "
               "rank")
 
-    # sets above SMEM_KEYS boxes (a large OBJ mesh's clusters) sort in a
-    # global scratch: two synthetic sets, on config 5's first-segment
-    # origins (the most lanes), with duplicate boxes, boxes that hold the
-    # anchor (distance 0) and NaN boxes, against the twin bit for bit
+    # synthetic sets on config 5's first-segment origins (the most lanes),
+    # with duplicate boxes, boxes that hold the anchor (distance 0) and NaN
+    # boxes, in launches of two sets, against the twin bit for bit: ranked
+    # in one CTA (1 and 8, 9 and 257 boxes), in a cluster with the sorted
+    # shares in shared memory (513 and 3,340, 8,192 and 33) and in the
+    # global scratch (9,000 and 16,385; 600 and 8,193, one of each)
     origins, n_batch, _, anchor, _ = timed[5]
     gen = torch.Generator().manual_seed(16)
-    big = []
-    for m in (vk.SMEM_KEYS + 808, 2 * vk.SMEM_KEYS + 1):
+
+    def box_set(m):
         c = anchor.cpu() + 6.0 * torch.randn((m, 3), generator=gen)
         h = 2.0 * torch.rand((m, 3), generator=gen)
         lo, hi = c - h, c + h
-        lo[m // 2:m // 2 + 700], hi[m // 2:m // 2 + 700] = lo[:700], hi[:700]
-        lo[5::997, 1] = float("nan")
-        big.append((lo.to(DEVICE), hi.to(DEVICE)))
-    before = LAUNCHES["visit_rank"]
-    got_anchor, got = vk.visit_ranks(origins, n_batch, big)
-    sync(torch)
-    launched = LAUNCHES["visit_rank"] - before
-    ref_anchor, ref = vk.visit_ranks_plain(origins, n_batch, big)
-    zero = [int((kc.box_distance(lo, hi, ref_anchor) == 0).sum())
-            for lo, hi in big]
-    check(launched == 1 and torch.equal(got_anchor, ref_anchor)
-          and all(torch.equal(a, b) for a, b in zip(got, ref)),
-          f"V1 above {vk.SMEM_KEYS} boxes (the global-scratch sort: "
-          f"{[int(lo.shape[0]) for lo, _ in big]} boxes, {zero} at distance "
-          f"0, on {origins.shape[1]} lanes): anchor and every rank "
-          "bit-equal to the twin's")
-    checked["big_sets"] = [int(lo.shape[0]) for lo, _ in big]
+        q = m // 4
+        lo[m // 2:m // 2 + q], hi[m // 2:m // 2 + q] = lo[:q], hi[:q]
+        lo[2::7], hi[2::7] = anchor.cpu() - 1.0, anchor.cpu() + 1.0
+        lo[5::97, 1] = float("nan")
+        return lo.to(DEVICE), hi.to(DEVICE)
+
+    pairs = [(1, 8), (9, 257), (513, 3340), (vk.SLAB_KEYS, 33),
+             (9000, 16385), (600, vk.SLAB_KEYS + 1)]
+    checked["synthetic_sets"] = []
+    for ms in pairs:
+        sets = [box_set(m) for m in ms]
+        before = LAUNCHES["visit_rank"]
+        got_anchor, got = vk.visit_ranks(origins, n_batch, sets)
+        sync(torch)
+        launched = LAUNCHES["visit_rank"] - before
+        ref_anchor, ref = vk.visit_ranks_plain(origins, n_batch, sets)
+        zero = [int((kc.box_distance(lo, hi, ref_anchor) == 0).sum())
+                for lo, hi in sets]
+        nan = [int(torch.isnan(kc.box_distance(lo, hi, ref_anchor)).sum())
+               for lo, hi in sets]
+        c = vk.cluster_for(ms)
+        where = ["the scratch" if c * vk.share_keys(m, c) > vk.SLAB_KEYS
+                 else "shared memory" for m in ms]
+        check(launched == 1 and torch.equal(got_anchor, ref_anchor)
+              and all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"V1 on synthetic sets of {list(ms)} boxes (ranked by "
+              f"{c} CTA{'s' if c > 1 else ''}, the sorted shares in "
+              f"{where}; {zero} at distance 0, {nan} NaN, on "
+              f"{origins.shape[1]} lanes): one launch, anchor and every rank "
+              "bit-equal to the twin's")
+        checked["synthetic_sets"].append(list(ms))
+        if ms[0] == 9000:
+            nb = (origins.shape[1] * 12 + sum(m * 28 for m in ms) + 12)
+            name, args = bare_launch(
+                lambda: vk.visit_ranks(origins, n_batch, sets))
+            front_row(results, "visit_rank", V1, "V1 visit_rank on config "
+                      f"5's segment 0 origins, synthetic sets of {list(ms)} "
+                      "boxes", True,
+                      (lambda: vk.visit_ranks(origins, n_batch, sets),
+                       lambda: launch(name, *args),
+                       lambda: vk.visit_ranks_plain(origins, n_batch, sets)),
+                      nb, lambda: vk.visit_ranks_plain(origins, n_batch,
+                                                        sets))
+
+    # two launches on the same origins give the same anchor bits (and
+    # ranks): config 5's and config 6's first segment
+    for num in (5, 6):
+        origins, n_batch, sets, _, _ = timed[num]
+        a1, r1 = vk.visit_ranks(origins, n_batch, sets)
+        a2, r2 = vk.visit_ranks(origins, n_batch, sets)
+        sync(torch)
+        check(torch.equal(a1.view(torch.int32), a2.view(torch.int32))
+              and all(torch.equal(x, y) for x, y in zip(r1, r2)),
+              f"V1 twice on config {num}'s segment 0 origins: the same "
+              f"anchor bits ({[hex(v) for v in a1.view(torch.int32).tolist()]}"
+              ") and ranks")
 
     # times on the first segment of config 8 (3,340 superblocks: the
     # largest sort), config 6 and config 5 (the most lanes: the line's)

@@ -14,7 +14,9 @@ the CPU, and the query folds its segment's kernels write beside their hits.
 (c) Edge cases: ties keep index order (duplicate boxes, boxes holding the
     anchor, far boxes), a NaN anchor gives torch's stable order (every
     distance NaN), a NaN box sorts after every number, -0.0 equals 0.0;
-    the wrapper's checks.
+    the wrapper's checks; synthetic sets at the sizes the kernel splits on
+    (1-3,340 boxes), against the JAX order and a Python model of the
+    kernel's share-sort-and-count rank.
 (d) Folds: each kernel twin's new outputs (S1, K1, K5, K2, K3; closest and
     any-hit) through their wrappers equal the torch formulation they
     replace, bit for bit: the next kernel's tmax `torch.minimum(tmax, t)`
@@ -26,8 +28,11 @@ the CPU, and the query folds its segment's kernels write beside their hits.
 (f) The turns script's stage split files V1's wrappers under "visit
     order", `batch_anchor` under "anchor" and `_query`'s ops under "query
     folds".
+(g) The sweep script's edits of csrc/visit.cu match the source once, and
+    the wrapper's constants are the source's.
 """
 
+import os
 import sys
 
 import numpy as np
@@ -38,7 +43,8 @@ import jax.numpy as jnp
 
 from toroidal_ray_tracing_tpu_torch import render
 from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera
-from toroidal_ray_tracing_tpu_torch.experiments import config5_turns
+from toroidal_ray_tracing_tpu_torch.experiments import (config5_turns,
+                                                        v1_cluster_sweep)
 from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
 from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
@@ -203,6 +209,69 @@ def test_negative_zero_distance_and_checks():
         vk.visit_ranks(o.T.contiguous().T, 4, [(lo, hi)])
     with pytest.raises(ValueError):
         vk.visit_ranks(o, 0, [(lo, hi)])
+
+
+def _cluster_rank(lo, hi, anchor):
+    """The kernel's rank in plain Python: box j's 64-bit key (ordered
+    distance bits << 32 | j); each of the `cluster_for` CTAs (one up to
+    ONE_CTA_BOXES boxes, else CLUSTER) sorts its share of ceil(m / C) keys
+    padded with ~0 to `share_keys(m, C)`, and a box's rank is the number of
+    keys below its own in every share."""
+    m = lo.shape[0]
+    cdist = kc.box_distance(lo, hi, anchor).numpy()
+    bits = cdist.view(np.uint32)
+    bits = np.where(bits == 0x80000000, 0, bits)        # -0 as +0
+    ordered = np.where(bits & 0x80000000, ~bits, bits | 0x80000000)
+    ordered = np.where(np.isnan(cdist), 0xFFFFFFFF, ordered)
+    keys = (ordered.astype(np.uint64) << np.uint64(32)
+            | np.arange(m, dtype=np.uint64))
+    c = vk.cluster_for([m])
+    assert c == (1 if m <= vk.ONE_CTA_BOXES else vk.CLUSTER)
+    share, size = -(-m // c), vk.share_keys(m, c)
+    assert size >= max(share, 32) and size & (size - 1) == 0
+    pad = np.uint64(2 ** 64 - 1)
+    shares = []
+    for k in range(c):
+        own = keys[k * share:(k + 1) * share]
+        shares.append(np.sort(np.concatenate(
+            [own, np.full(size - len(own), pad, np.uint64)])))
+    return np.array([sum(int(np.searchsorted(s, k)) for s in shares)
+                     for k in keys], np.int32)
+
+
+@pytest.mark.parametrize("m", [1, 2, 8, 9, 33, 257, 3340])
+def test_twin_ranks_match_jax_order_synthetic(m):
+    """V1's split sizes (one CTA's sort of 1 box, of a warp, past a warp;
+    config 8's 3,340 superblocks over a cluster) on seeded boxes with
+    duplicates, boxes that hold the anchor and NaN boxes: the twin's ranks
+    equal the JAX package's `argsort(argsort(cdist))` and the kernel's
+    rank (shares sorted, a rank the keys below in every share), every
+    rank."""
+    g = np.random.default_rng(m)
+    o = g.normal(0.0, 2.0, (3, 500)).astype(np.float32)
+    n_batch = kc.round_up(o.shape[1], 2048)
+    anchor = kc.batch_anchor(torch.from_numpy(o), n_batch)
+    c = anchor.numpy()[None, :] + g.normal(0.0, 6.0, (m, 3)).astype(
+        np.float32)
+    h = g.uniform(0.0, 2.0, (m, 3)).astype(np.float32)
+    lo, hi = c - h, c + h
+    if m >= 8:
+        lo[m // 2:m // 2 + m // 4] = lo[:m // 4]         # duplicates
+        hi[m // 2:m // 2 + m // 4] = hi[:m // 4]
+        lo[1::7] = anchor.numpy() - 1.0                   # hold the anchor
+        hi[1::7] = anchor.numpy() + 1.0
+        lo[3::11, 1] = np.nan                             # NaN boxes
+    lo, hi = torch.from_numpy(lo), torch.from_numpy(hi)
+    got_anchor, (rank,) = vk.visit_ranks(torch.from_numpy(o), n_batch,
+                                         [(lo, hi)])
+    assert torch.equal(got_anchor, anchor)
+    want = _jax_rank(lo, hi, anchor)
+    np.testing.assert_array_equal(rank.numpy(), want)
+    np.testing.assert_array_equal(_cluster_rank(lo, hi, anchor), want)
+    if m >= 8:
+        cdist = kc.box_distance(lo, hi, anchor)
+        assert bool((cdist == 0).any())
+        assert bool(torch.isnan(cdist).any())
 
 
 # ---------------------------------------------------------------------------
@@ -415,3 +484,28 @@ def test_stage_split_names_the_new_stages():
     assert got == {"vo": "visit order", "an": "anchor", "qf": "query folds",
                    "v1": "visit order", "loop": "loop"}
     assert "visit_rank" in config5_turns.KERNELS
+
+
+# ---------------------------------------------------------------------------
+# (g) the measurement scripts' builds of csrc/visit.cu
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("build", ["limit", *v1_cluster_sweep.STOPS])
+def test_v1_sweep_edits_match_the_source_once(build):
+    """experiments/v1_cluster_sweep.py builds visit.cu with one line edited
+    (the one-CTA limit, or an early exit); each edit must match the
+    shipped source once, or the sweep raises on the card."""
+    with open(os.path.join(kc.CSRC, "visit.cu")) as f:
+        src = f.read()
+    pattern, line = ((v1_cluster_sweep.LIMIT,
+                      "constexpr int kOneCtaBoxes = {};")
+                     if build == "limit" else v1_cluster_sweep.STOPS[build])
+    assert len(pattern.findall(src)) == 1
+    edited = pattern.sub(line.format(0), src)
+    assert edited != src
+    if build == "limit":
+        assert f"constexpr int kOneCtaBoxes = {vk.ONE_CTA_BOXES};" in src
+        assert f"constexpr int kCluster = {vk.CLUSTER};" in src
+        assert f"constexpr int kSlabKeys = {vk.SLAB_KEYS};" in src
+    else:
+        assert edited.count("return;") == src.count("return;") + 1

@@ -40,6 +40,15 @@
 // float does. With dumps (sample 0) it also writes the first hit (read in
 // original lane order) and the pixel's ray, recomputed by R1's own device
 // function (raygen.cuh), so nothing stored is read for it.
+// Row-major with the dumps is a kernel of its own, frame_finish<true>:
+// storing each output's value a pixel at a 12-B stride made every warp
+// store touch three times the sectors it filled, 12 such stores a pixel
+// (0.091 ms at config 6's 1080p frame, 2.05x the bound; 0.060 with the
+// dump stores alone made contiguous, 0.086 with no ray recomputed). A CTA's
+// 256 pixels now meet in 12 KB of shared memory and leave as 192 float4s
+// an output. Channel-major stores are contiguous, and the image alone
+// stores as fast unstaged (staged it took 0.025 against 0.023 ms at 1080p,
+// 0.114 against 0.102 with its add at 4K): both keep frame_finish.
 //
 // What bounds them on an H100 SXM (80 GB HBM3, 700 W): bytes. G1 moves 12
 // rows and the active byte of a lane that lands in the new prefix (98 B a
@@ -49,6 +58,9 @@
 // color (24 B when it adds) and writes 12 B; with dumps it also reads the
 // 12 B first hit and writes 36 B: at config 6's 1080p frame with dumps
 // 149.3 MB, 0.045 ms; config 5's sample 2 without dumps 298.6 MB, 0.089 ms.
+// Measured there (20 launches in a CUDA graph): row-major with dumps
+// 0.056 ms at config 6 (1.25x), 0.213 at config 5's sample 0 (1.20x);
+// channel-major 0.058 (1.30x); config 5's sample 2 0.102 (1.14x).
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -167,41 +179,109 @@ __global__ void __launch_bounds__(kThreads) span_gather(
   }
 }
 
+// F1's HWC outputs with the dumps meet in shared memory: a CTA's 256
+// row-major pixels are one contiguous run of 768 floats in each of the four
+// outputs.
+constexpr int kOuts = 4;                 // image, hit position, origin,
+                                         // direction
+constexpr int kRun = kThreads * 3;       // floats of one output a CTA owns
+constexpr int kRunQuads = kRun / 4;
+
+// F1. kStaged = false, channel-major or the image alone: thread p is
+// row-major pixel p, its stores contiguous (CHW) or three scalars a pixel
+// (for the image alone this measured faster than staging). kStaged = true,
+// row-major with the dumps (sample 0, so nothing to add): each thread
+// writes its pixel's 12 values into shared memory; after one barrier the
+// CTA stores each output's run as 192 float4s (as scalars in a short last
+// CTA, or when an output is not 16-B aligned: vec = 0).
+template <bool kStaged>
 __global__ void __launch_bounds__(kThreads) frame_finish(
     trt::Cam cam, const float* __restrict__ hv, const int* __restrict__ slot,
     long long lanes, long long off, const float* __restrict__ hp,
     float* __restrict__ img, int add, int last, float inv_spp,
     float* __restrict__ hp_out, float* __restrict__ o_out,
-    float* __restrict__ d_out, int chw) {
+    float* __restrict__ d_out, int chw, int vec) {
   const int W = cam.width, H = cam.height, n = W * H;
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  if (p >= n) return;
-  const int x = p % W, y = p / W;
-  int i = p;
-  if (cam.block > 1) {
-    const int b = cam.block;
-    i = ((y / b) * (W / b) + x / b) * (b * b) + (y % b) * b + x % b;
-  }
-  const long long gl = off + i;
-  const long long sl =
-      slot != nullptr ? (long long)slot[gl / kSpan] * kSpan + gl % kSpan : gl;
+  if constexpr (!kStaged) {
+    const int p = blockIdx.x * kThreads + threadIdx.x;
+    if (p >= n) return;
+    const int x = p % W, y = p / W;
+    int i = p;
+    if (cam.block > 1) {
+      const int b = cam.block;
+      i = ((y / b) * (W / b) + x / b) * (b * b) + (y % b) * b + x % b;
+    }
+    const long long gl = off + i;
+    const long long sl = slot != nullptr
+                             ? (long long)slot[gl / kSpan] * kSpan + gl % kSpan
+                             : gl;
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const size_t at = chw ? (size_t)c * n + p : (size_t)p * 3 + c;
-    float v = hv[c * lanes + sl];
-    if (add) v = img[at] + v;
-    if (last) v = v * inv_spp;
-    img[at] = v;
-  }
-  if (hp_out == nullptr) return;
-  float o[3], d[3];
-  trt::lane_ray(cam, i, nullptr, o, d);
+    for (int c = 0; c < 3; ++c) {
+      const size_t at = chw ? (size_t)c * n + p : (size_t)p * 3 + c;
+      float v = hv[c * lanes + sl];
+      if (add) v = img[at] + v;
+      if (last) v = v * inv_spp;
+      img[at] = v;
+    }
+    if (hp_out == nullptr) return;
+    float o[3], d[3];
+    trt::lane_ray(cam, i, nullptr, o, d);
 #pragma unroll
-  for (int c = 0; c < 3; ++c) {
-    const size_t at = chw ? (size_t)c * n + p : (size_t)p * 3 + c;
-    hp_out[at] = hp[c * lanes + gl];
-    o_out[at] = o[c];
-    d_out[at] = d[c];
+    for (int c = 0; c < 3; ++c) {
+      const size_t at = chw ? (size_t)c * n + p : (size_t)p * 3 + c;
+      hp_out[at] = hp[c * lanes + gl];
+      o_out[at] = o[c];
+      d_out[at] = d[c];
+    }
+  } else {
+    __shared__ float4 stage4[kOuts * kRunQuads];   // 12 KB
+    float* stage = reinterpret_cast<float*>(stage4);
+    const int t = threadIdx.x;
+    const int p0 = blockIdx.x * kThreads;
+    const int p = p0 + t;
+    if (p < n) {
+      const int x = p % W, y = p / W;
+      int i = p;
+      if (cam.block > 1) {
+        const int b = cam.block;
+        i = ((y / b) * (W / b) + x / b) * (b * b) + (y % b) * b + x % b;
+      }
+      const long long gl = off + i;
+      const long long sl =
+          slot != nullptr ? (long long)slot[gl / kSpan] * kSpan + gl % kSpan
+                          : gl;
+      // the loads first, then the ray, whose arithmetic overlaps them
+      float v[3], h[3], o[3], d[3];
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        v[c] = hv[c * lanes + sl];
+        h[c] = hp[c * lanes + gl];
+      }
+      trt::lane_ray(cam, i, nullptr, o, d);
+#pragma unroll
+      for (int c = 0; c < 3; ++c) {
+        stage[3 * t + c] = last ? v[c] * inv_spp : v[c];
+        stage[kRun + 3 * t + c] = h[c];
+        stage[2 * kRun + 3 * t + c] = o[c];
+        stage[3 * kRun + 3 * t + c] = d[c];
+      }
+    }
+    __syncthreads();
+    const int run = min(kThreads, n - p0);       // the CTA's pixels
+    const size_t base = (size_t)p0 * 3;          // the run's first float
+    if (vec && run == kThreads) {
+      for (int q = t; q < kOuts * kRunQuads; q += kThreads) {
+        const int k = q / kRunQuads, r = q - k * kRunQuads;
+        float* dst = k == 0 ? img : k == 1 ? hp_out : k == 2 ? o_out : d_out;
+        reinterpret_cast<float4*>(dst + base)[r] = stage4[q];
+      }
+    } else {
+      for (int k = 0; k < kOuts; ++k) {
+        float* dst = k == 0 ? img : k == 1 ? hp_out : k == 2 ? o_out : d_out;
+        for (int q = t; q < 3 * run; q += kThreads)
+          dst[base + q] = stage[k * kRun + q];
+      }
+    }
   }
 }
 
@@ -246,8 +326,8 @@ extern "C" int trt_span_gather(const float* cur, float* spare,
 // (first hit), both of row stride `lanes`; slot: (lanes / 128,) original
 // span -> slot, or NULL; off: the frame's first lane; img: the image
 // (H, W, 3), or (3, H, W) with chw; sample s of spp; hp_out / o_out /
-// d_out: the dumps in img's layout, or all NULL. Launches on `stream`,
-// allocates nothing, does not synchronize.
+// d_out: the dumps in img's layout (sample 0 only), or all NULL. Launches
+// on `stream`, allocates nothing, does not synchronize.
 extern "C" int trt_frame_finish(const float* cam, int kind, int width,
                                 int height, int block, const float* hv,
                                 const int* slot, long long lanes,
@@ -258,7 +338,7 @@ extern "C" int trt_frame_finish(const float* cam, int kind, int width,
   if (n <= 0) return 0;
   if ((kind != trt::kPinhole && kind != trt::kToroidal) || spp < 1 ||
       s < 0 || s >= spp || off + n > lanes ||
-      (hp_out != nullptr && (hp == nullptr || o_out == nullptr ||
+      (hp_out != nullptr && (s != 0 || hp == nullptr || o_out == nullptr ||
                              d_out == nullptr)))
     return (int)cudaErrorInvalidValue;
   trt::Cam c;
@@ -270,8 +350,18 @@ extern "C" int trt_frame_finish(const float* cam, int kind, int width,
   // PyTorch's CUDA division by a Python float: a multiply by 1 / spp
   const float inv_spp = 1.0f / (float)spp;
   const int blocks = (int)((n + kThreads - 1) / kThreads);
-  frame_finish<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      c, hv, slot, lanes, off, hp, img, s > 0, s == spp - 1, inv_spp, hp_out,
-      o_out, d_out, chw);
+  // row-major with the dumps: staged; a run starts at a multiple of 3,072
+  // B, so float4 stores where all four outputs are 16-B aligned
+  const bool staged = !chw && hp_out != nullptr;
+  const bool vec = staged && aligned16(img) && aligned16(hp_out) &&
+                   aligned16(o_out) && aligned16(d_out);
+  if (staged)
+    frame_finish<true><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        c, hv, slot, lanes, off, hp, img, 0, s == spp - 1, inv_spp, hp_out,
+        o_out, d_out, 0, vec ? 1 : 0);
+  else
+    frame_finish<false><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        c, hv, slot, lanes, off, hp, img, s > 0, s == spp - 1, inv_spp,
+        hp_out, o_out, d_out, chw, 0);
   return (int)cudaGetLastError();
 }

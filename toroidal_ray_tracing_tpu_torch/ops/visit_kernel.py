@@ -29,8 +29,11 @@ import torch
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     F32, I32, batch_anchor, check_args, launch, tree_rank, visit_order)
 
-SMEM_KEYS = 8192          # csrc/visit.cu kSmemKeys: larger sets sort in a
-                          # global scratch
+CLUSTER = 8               # csrc/visit.cu kCluster: the CTAs that rank a
+                          # set above ONE_CTA_BOXES
+ONE_CTA_BOXES = 512       # csrc/visit.cu kOneCtaBoxes
+SLAB_KEYS = 8192          # csrc/visit.cu kSlabKeys: a set's sorted shares
+                          # above this many keys go to a global scratch
 _PARTIALS = 512 * 3       # csrc/visit.cu: one float64 triple a CTA
 _scratch: dict = {}       # (device, stream) -> (partial, ticket)
 
@@ -40,6 +43,24 @@ def visit_ranks_plain(origins, n_batch: int, sets):
     anchor = batch_anchor(origins, n_batch)
     return anchor, [tree_rank(visit_order(lo, hi, origins, n_batch, anchor))
                     for lo, hi in sets]
+
+
+def cluster_for(ms) -> int:
+    """csrc/visit.cu cluster_for: the CTAs that rank box sets of these
+    sizes (one while every set fits ONE_CTA_BOXES)."""
+    return CLUSTER if max(ms, default=0) > ONE_CTA_BOXES else 1
+
+
+def share_keys(m: int, c: int) -> int:
+    """csrc/visit.cu share_keys: the keys each of c CTAs sorts for an m-box
+    set (its share ceil(m / c) padded to a power of two, at least 32; 0
+    for no set)."""
+    if m <= 0:
+        return 0
+    share, p = -(-m // c), 32
+    while p < share:
+        p *= 2
+    return p
 
 
 def _rows(origins):
@@ -90,11 +111,11 @@ def visit_ranks(origins, n_batch: int, sets):
     ranks = [torch.empty((lo.shape[0],), dtype=I32, device=dev)
              for lo, _ in sets]
     m = [lo.shape[0] for lo, _ in sets] + [0, 0]
-    p2 = 1
-    while p2 < max(m):
-        p2 *= 2
-    scratch = (torch.empty((p2,), dtype=torch.int64, device=dev)
-               if p2 > SMEM_KEYS else None)
+    c = cluster_for(m)
+    slab = sum(c * share_keys(k, c) for k in m[:2]
+               if c * share_keys(k, c) > SLAB_KEYS)
+    scratch = (torch.empty((slab,), dtype=torch.int64, device=dev)
+               if slab else None)
     args = [a for k in range(2) for a in (
         (*sets[k], m[k], ranks[k]) if k < len(sets) else (None, None, 0,
                                                           None))]

@@ -11,6 +11,13 @@ shaders/host_device.h:101-107).
 The image is linear color; `tonemap` applies the post pass's gamma
 (post.frag:35-36) for display. Every entry point renders on the CUDA device
 unless the caller passes `device="cpu"`; without a GPU, the default raises.
+
+Each call runs inside a `utils.profiling.span` named `trt.door.<name>`,
+and its stages inside `trt.door.setup` (device check, the scene's and
+settings' copies, output allocation), `trt.raygen` (the jitter draw and R1
+of one batch), the bounce loop's spans (`trace.wavefront`) and
+`trt.finish` (F1 of one frame). Each finished frame adds one to
+`utils.profiling.COUNTERS["frames"]`.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from toroidal_ray_tracing_tpu_torch.trace.wavefront import (lane_count,
                                                             trace_rays,
                                                             trace_state)
 from toroidal_ray_tracing_tpu_torch.utils import prng
+from toroidal_ray_tracing_tpu_torch.utils.profiling import COUNTERS, span
 
 F32 = np.float32
 INV_GAMMA = float(F32(1.0 / 2.2))
@@ -55,22 +63,27 @@ def autofill_pixel_spread(settings: RenderSettings, camera, width, height):
     return settings
 
 
-def _trace_frames(scene, settings, cams, width, height, backend, jitter,
+def _trace_frames(scene, settings, cams, width, height, backend, jitter_key,
                   device):
     """R1 + the bounce loop of one wavefront batch: each (camera, params)
     of `cams` writes its frame's rays, in block-major pixel order (each
     warp of a trace kernel covers a compact screen patch), straight into
     its columns of the loop's state (`ops.front_kernel.raygen_state`, the
-    last also the dead tail lanes). Returns the loop's `Traced`."""
+    last also the dead tail lanes), jittered by
+    `prng.uniform(jitter_key, (W*H, 2))` unless jitter_key is None.
+    Returns the loop's `Traced`."""
     n = width * height
     total = n * len(cams)
-    lanes = lane_count(total, backend)
-    state, active = new_state(lanes, device)
-    block = pick_block(width, height)
-    for g, (cam, params) in enumerate(cams):
-        raygen_state(cam.KIND, params, width, height, jitter, block, state,
-                     active, g * n,
-                     lanes - total if g == len(cams) - 1 else 0)
+    with span("trt.raygen"):
+        jitter = (None if jitter_key is None else
+                  threefry_kernel.uniform(jitter_key, (n, 2), device))
+        lanes = lane_count(total, backend)
+        state, active = new_state(lanes, device)
+        block = pick_block(width, height)
+        for g, (cam, params) in enumerate(cams):
+            raygen_state(cam.KIND, params, width, height, jitter, block,
+                         state, active, g * n,
+                         lanes - total if g == len(cams) - 1 else 0)
     return trace_state(scene, settings, state, active, total, backend)
 
 
@@ -79,11 +92,15 @@ def _finish(traced, cam, params, width, height, off, outs, s, spp,
     """F1 (`ops.front_kernel.frame_finish`): the frame at lanes [off, off +
     W*H) of the batch into outs[0], sample s of spp, and on sample 0 the
     dumps into outs[1:] (when there), row-major (H, W, 3), or (3, H, W)
-    with chw."""
-    frame_finish(cam.KIND, params, width, height, pick_block(width, height),
-                 traced.state, traced.first, traced.slot, off, outs[0], s,
-                 spp, tuple(outs[1:]) if s == 0 and len(outs) > 1 else None,
-                 chw)
+    with chw. The last sample finishes the frame (`COUNTERS["frames"]`)."""
+    with span("trt.finish"):
+        frame_finish(cam.KIND, params, width, height,
+                     pick_block(width, height), traced.state, traced.first,
+                     traced.slot, off, outs[0], s, spp,
+                     tuple(outs[1:]) if s == 0 and len(outs) > 1 else None,
+                     chw)
+    if s == spp - 1:
+        COUNTERS["frames"] += 1
 
 
 def _render_banded(scene, camera, width, height, settings, backend, spp,
@@ -166,17 +183,16 @@ def _spp_frame(scene, settings, camera, width, height, backend, spp,
     no dumps, each (H, W, 3) or (3, H, W) with chw; None makes the four
     (H, W, 3). Returns (outs, the exact ray count)."""
     params = camera.ray_params(width, height, settings)
-    n = width * height
     if outs is None:
-        outs = tuple(torch.empty((height, width, 3), dtype=torch.float32,
-                                 device=device) for _ in range(4))
+        with span("trt.door.setup"):
+            outs = tuple(torch.empty((height, width, 3), dtype=torch.float32,
+                                     device=device) for _ in range(4))
     nrays = 0
     spp = max(spp, 1)
     for s in range(spp):
-        jitter = (None if s == 0 else
-                  threefry_kernel.uniform(sample_key(s), (n, 2), device))
         traced = _trace_frames(scene, settings, [(camera, params)], width,
-                               height, backend, jitter, device)
+                               height, backend,
+                               None if s == 0 else sample_key(s), device)
         _finish(traced, camera, params, width, height, 0, outs, s, spp, chw)
         nrays += traced.rays
     return outs, nrays
@@ -205,15 +221,17 @@ def render(scene: Scene, camera, width: int, height: int,
     Returns a dict: image, hit_position, ray_origin, ray_dir — each
     (H, W, 3) — and rays_traced (int).
     """
-    scene, settings, device = _setup(scene, settings, camera, width, height,
-                                     device)
-    if tile_rows is not None and tile_rows < height:
-        return _render_banded(scene, camera, width, height, settings,
-                              backend, spp, seed, device, tile_rows)
-    root = prng.prng_key(seed)
-    (image, hitpos, origins, dirs), nrays = _spp_frame(
-        scene, settings, camera, width, height, backend, spp,
-        lambda s: prng.fold_in(root, s), device)
+    with span("trt.door.render"):
+        with span("trt.door.setup"):
+            scene, settings, device = _setup(scene, settings, camera, width,
+                                             height, device)
+        if tile_rows is not None and tile_rows < height:
+            return _render_banded(scene, camera, width, height, settings,
+                                  backend, spp, seed, device, tile_rows)
+        root = prng.prng_key(seed)
+        (image, hitpos, origins, dirs), nrays = _spp_frame(
+            scene, settings, camera, width, height, backend, spp,
+            lambda s: prng.fold_in(root, s), device)
     return {
         "image": image,
         "hit_position": hitpos,
@@ -257,14 +275,16 @@ def _frames(scene, cameras, width, height, settings, backend, spp, seed,
     A group of frames (frames_per_batch) is traced as one wavefront batch:
     each camera's rays fill its columns of the state (R1) and F1 finishes
     each frame from its columns; every per-ray result is the frame's own."""
-    scene, settings, device = _setup(scene, settings, cameras[0], width,
-                                     height, device)
-    group = _frame_groups(len(cameras), width, height, spp, frames_per_batch)
-    frame = (3, height, width) if chw else (height, width, 3)
-    f32 = dict(dtype=torch.float32, device=device)
-    bufs = tuple(torch.empty((len(cameras), *frame), **f32)
-                 for _ in range(n_bufs))
-    scratch = (torch.empty(frame, **f32),) if not n_bufs else None
+    with span("trt.door.setup"):
+        scene, settings, device = _setup(scene, settings, cameras[0], width,
+                                         height, device)
+        group = _frame_groups(len(cameras), width, height, spp,
+                              frames_per_batch)
+        frame = (3, height, width) if chw else (height, width, 3)
+        f32 = dict(dtype=torch.float32, device=device)
+        bufs = tuple(torch.empty((len(cameras), *frame), **f32)
+                     for _ in range(n_bufs))
+        scratch = (torch.empty(frame, **f32),) if not n_bufs else None
 
     def outs(f):
         return scratch or tuple(b[f] for b in bufs)
@@ -311,9 +331,10 @@ def render_sequence(scene: Scene, cameras, width: int, height: int,
     Returns {"images": (F, H, W, 3) linear color (if keep_images),
              "rays_traced": int}.
     """
-    bufs, total = _frames(scene, cameras, width, height, settings, backend,
-                          spp, seed, frames_per_batch, device,
-                          int(keep_images), chw=False)
+    with span("trt.door.render_sequence"):
+        bufs, total = _frames(scene, cameras, width, height, settings,
+                              backend, spp, seed, frames_per_batch, device,
+                              int(keep_images), chw=False)
     out = {"rays_traced": total}
     if keep_images:
         out["images"] = bufs[0]
@@ -338,9 +359,10 @@ def render_frames(scene: Scene, cameras, width: int, height: int,
     if not isinstance(cameras, (list, tuple)):
         cameras = [cameras]
     keys = ("images", "hit_positions", "ray_origins", "ray_dirs")
-    bufs, total = _frames(scene, cameras, width, height, settings, backend,
-                          spp, seed, frames_per_batch, device,
-                          4 if dumps else 1, chw=True)
+    with span("trt.door.render_frames"):
+        bufs, total = _frames(scene, cameras, width, height, settings,
+                              backend, spp, seed, frames_per_batch, device,
+                              4 if dumps else 1, chw=True)
     out = dict(zip(keys, bufs))
     out["rays_traced"] = total
     return out

@@ -31,6 +31,14 @@ the shading and the state update in place, the ray count and the live
 spans), and G1 when the bucket shrinks. The torch backend shades with
 `trace.shade.shade` and updates the state with tensor ops (`_advance`).
 
+Each stage runs inside a `utils.profiling.span`: `trt.loop` (the whole
+loop), `trt.segment` (one pass) and within it `trt.segment.ranks` (V1),
+`.query` (the closest hit), `.shade` (S2, K4), `.shadow` (the any-hit),
+`.finish` (S3, or `_advance`), `.read` (the stop test's host read) and
+`.compact` (G1); then `trt.loop.read` (the ray total's). They cost nothing
+outside `utils.profiling.recording`. Each host read adds one to
+`utils.profiling.COUNTERS["host_reads"]`.
+
 `trace_rays_fixed` is the differentiable variant: a fixed number of
 segments, autograd through shading and (on the kernel backend)
 `closest_hit_diff`'s recompute.
@@ -59,6 +67,7 @@ from toroidal_ray_tracing_tpu_torch.trace.intersect import (
     any_hit, closest_hit, closest_hit_diff, geom_from_scene)
 from toroidal_ray_tracing_tpu_torch.trace.shade import shade
 from toroidal_ray_tracing_tpu_torch.utils.collectives import MAX, all_reduce
+from toroidal_ray_tracing_tpu_torch.utils.profiling import COUNTERS, span
 
 SEG_TMAX = 10000.0   # raytrace.rgen:62
 
@@ -183,88 +192,116 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
     if state.shape != (15, lanes):
         raise ValueError(f"state {tuple(state.shape)} for {n} rays on "
                          f"{backend}: want (15, {lanes})")
-    first = state
-    n_batch = round_up(max(n, 1), RAY_TILE)   # the kernels' anchor divisor
-    group = _sync_group(ray_group, prim_group)
-    spare = slot = None     # G1's second buffer; original span -> slot
-    orig_in = orig_out = None   # G1's maps slot -> original span
-    nb = lanes              # lanes this segment traces
-    any_active = True
-    depth = 0
-    rays = torch.zeros((), dtype=torch.int64, device=dev)
-    if kernel:
-        params = shade_params(scene, settings)
-        spans = torch.empty((-(-lanes // COMPACT_SPAN),), dtype=torch.bool,
-                            device=dev)
-        counts = torch.zeros((max(max_depth, 1),), dtype=torch.int32,
-                             device=dev)
-
-    # do-while (rgen:75-108): the primary segment is traced even when
-    # max_depth <= 0
-    while any_active and (depth < max_depth or depth == 0):
-        s = state[:, :nb]
-        act = active[:nb]
-        # (rows of a compacted prefix are strided: the kernels take them
-        # contiguous)
-        o, d = s[_O].contiguous(), s[_D].contiguous()
-        # dead rays trace with tmax = 0: every kernel skips them
-        seg_tmax = torch.where(act, SEG_TMAX, 0.0)
-        # the segment's visit ranks, from the whole state's anchor, for
-        # both of its queries (V1, one launch)
-        ranks = (segment_ranks(scene, geom or geom_from_scene(scene),
-                               state[_O], n_batch, nb) if kernel else None)
-        # the kernel backend's unsharded query hands S2 its parts
-        # unmerged; a sharded one merges over the ranks first
-        hit = closest_hit(scene, o, d, tmax=seg_tmax, backend=backend,
-                          geom=geom, prim_group=prim_group,
-                          want_attrs=kernel, ranks=ranks,
-                          merge=not kernel or prim_group is not None)
+    with span("trt.loop"):
+        first = state
+        n_batch = round_up(max(n, 1), RAY_TILE)  # the kernels' anchor divisor
+        group = _sync_group(ray_group, prim_group)
+        spare = slot = None     # G1's second buffer; original span -> slot
+        orig_in = orig_out = None   # G1's maps slot -> original span
+        nb = lanes              # lanes this segment traces
+        any_active = True
+        depth = 0
+        rays = torch.zeros((), dtype=torch.int64, device=dev)
         if kernel:
-            # S2 -> K4 (textured) -> the shadow any-hit -> S3, which
-            # updates the state, the ray count and the live spans in place
-            sr = shade_hit(o, d, hit.attrs if hit.t is None
-                           else base_rows(hit), params)
-            quads = (quad_gather(scene.textures.data4q, *sr.tex)
-                     if sr.tex is not None else None)
-            # (a missed lane's shadow ray is undefined, its tmax 0: the
-            # visit ranks are the segment's; S3 reads the occlusion byte
-            # the query's kernels write)
-            occluded = any_hit(scene, sr.shadow_o, sr.shadow_d,
-                               sr.shadow_tmax, backend=backend, geom=geom,
-                               prim_group=prim_group, ranks=ranks)
-            local = counts[depth]
-            shade_finish(state, active, nb, sr, occluded, quads, params,
-                         depth, max_depth, rays, spans, local)
-            count = local
-        else:
-            count = _advance(scene, settings, s, active, nb, hit, depth,
-                             max_depth, rays, geom, prim_group)
+            params = shade_params(scene, settings)
+            spans = torch.empty((-(-lanes // COMPACT_SPAN),),
+                                dtype=torch.bool, device=dev)
+            counts = torch.zeros((max(max_depth, 1),), dtype=torch.int32,
+                                 device=dev)
 
-        # the stop test and the next bucket: the live spans (the most of
-        # any rank's, which every rank's bucket then holds), read once
-        if group is not None:
-            count = all_reduce(count, MAX, group)
-        count = int(count)
-        any_active = count > 0
-        fit = (min(z for z in sizes if z >= count * COMPACT_SPAN)
-               if compact else nb)
-        if any_active and fit < nb:
-            # G1: the prefix's live spans first (the suffix is dead), into
-            # the spare buffer, which becomes the state
-            if spare is None:
-                spare, spare_act = new_state(lanes, dev)
-                orig_out = torch.empty((lanes // COMPACT_SPAN,),
-                                       dtype=torch.int32, device=dev)
-                slot = torch.empty_like(orig_out)
-            span_gather(state, spare, active, spare_act, spans, local,
-                        orig_in, orig_out, slot, nb, fit)
-            state, spare = spare, state
-            active, spare_act = spare_act, active
-            orig_in, orig_out = orig_out, (
-                torch.empty_like(orig_out) if orig_in is None else orig_in)
-            nb = fit
-        depth += 1
-    return Traced(state, first, slot, int(rays))
+        # do-while (rgen:75-108): the primary segment is traced even when
+        # max_depth <= 0
+        while any_active and (depth < max_depth or depth == 0):
+            with span("trt.segment"):
+                s = state[:, :nb]
+                act = active[:nb]
+                if kernel:
+                    # the segment's visit ranks, from the whole state's
+                    # anchor, for both of its queries (V1, one launch)
+                    with span("trt.segment.ranks"):
+                        ranks = segment_ranks(
+                            scene, geom or geom_from_scene(scene), state[_O],
+                            n_batch, nb)
+                else:
+                    ranks = None
+                with span("trt.segment.query"):
+                    # (rows of a compacted prefix are strided: the kernels
+                    # take them contiguous)
+                    o, d = s[_O].contiguous(), s[_D].contiguous()
+                    # dead rays trace with tmax = 0: every kernel skips them
+                    seg_tmax = torch.where(act, SEG_TMAX, 0.0)
+                    # the kernel backend's unsharded query hands S2 its
+                    # parts unmerged; a sharded one merges over the ranks
+                    # first
+                    hit = closest_hit(scene, o, d, tmax=seg_tmax,
+                                      backend=backend, geom=geom,
+                                      prim_group=prim_group,
+                                      want_attrs=kernel, ranks=ranks,
+                                      merge=not kernel
+                                      or prim_group is not None)
+                if kernel:
+                    # S2 -> K4 (textured) -> the shadow any-hit -> S3,
+                    # which updates the state, the ray count and the live
+                    # spans in place
+                    with span("trt.segment.shade"):
+                        sr = shade_hit(o, d, hit.attrs if hit.t is None
+                                       else base_rows(hit), params)
+                        quads = (quad_gather(scene.textures.data4q, *sr.tex)
+                                 if sr.tex is not None else None)
+                    # (a missed lane's shadow ray is undefined, its tmax 0:
+                    # the visit ranks are the segment's; S3 reads the
+                    # occlusion byte the query's kernels write)
+                    with span("trt.segment.shadow"):
+                        occluded = any_hit(scene, sr.shadow_o, sr.shadow_d,
+                                           sr.shadow_tmax, backend=backend,
+                                           geom=geom, prim_group=prim_group,
+                                           ranks=ranks)
+                    with span("trt.segment.finish"):
+                        local = counts[depth]
+                        shade_finish(state, active, nb, sr, occluded, quads,
+                                     params, depth, max_depth, rays, spans,
+                                     local)
+                    count = local
+                else:
+                    with span("trt.segment.finish"):
+                        count = _advance(scene, settings, s, active, nb, hit,
+                                         depth, max_depth, rays, geom,
+                                         prim_group)
+
+                # the stop test and the next bucket: the live spans (the
+                # most of any rank's, which every rank's bucket then
+                # holds), read once
+                with span("trt.segment.read"):
+                    if group is not None:
+                        count = all_reduce(count, MAX, group)
+                    count = int(count)
+                    COUNTERS["host_reads"] += 1
+                any_active = count > 0
+                fit = (min(z for z in sizes if z >= count * COMPACT_SPAN)
+                       if compact else nb)
+                if any_active and fit < nb:
+                    # G1: the prefix's live spans first (the suffix is
+                    # dead), into the spare buffer, which becomes the state
+                    with span("trt.segment.compact"):
+                        if spare is None:
+                            spare, spare_act = new_state(lanes, dev)
+                            orig_out = torch.empty((lanes // COMPACT_SPAN,),
+                                                   dtype=torch.int32,
+                                                   device=dev)
+                            slot = torch.empty_like(orig_out)
+                        span_gather(state, spare, active, spare_act, spans,
+                                    local, orig_in, orig_out, slot, nb, fit)
+                        state, spare = spare, state
+                        active, spare_act = spare_act, active
+                        orig_in, orig_out = orig_out, (
+                            torch.empty_like(orig_out) if orig_in is None
+                            else orig_in)
+                    nb = fit
+                depth += 1
+        with span("trt.loop.read"):
+            rays = int(rays)
+            COUNTERS["host_reads"] += 1
+    return Traced(state, first, slot, rays)
 
 
 def _advance(scene, settings, s, active, nb, hit, depth, max_depth, rays,

@@ -16,6 +16,14 @@ Here:
   enclosed block, as [lanes traced, live spans among them]: what live-ray
   compaction did (it reads the live mask, so it synchronizes once a
   segment; leave it out of timed runs).
+* `span(name)` — the program's stage spans (`trt.door.*`, `trt.raygen`,
+  `trt.loop`, `trt.segment.*`, `trt.finish`), each a
+  `torch.profiler.record_function` inside a `recording` block and a shared
+  no-op outside one, so a profiler run inside `recording` shows them as
+  user annotations on the device trace's clock.
+* `COUNTERS` — frames F1 finished and the card path's device-to-host
+  reads, always counted; `recording(out)` turns the spans on for its
+  block and writes each counter's change over it into `out`.
 
 The JAX module's `enable_compile_cache` (XLA's persistent compilation
 cache) has no counterpart: nothing here compiles per shape, and the CUDA
@@ -31,7 +39,40 @@ import time
 
 import torch
 
-from toroidal_ray_tracing_tpu_torch.render.renderer import check_device
+# Always counted, as `ops.kernel_common.LAUNCHES` is: "frames", the frames
+# F1 finished (its last sample of each; the banded path and
+# `render_sharded` run no F1 and count none); "host_reads", each
+# device-to-host read the bounce loop makes (a segment's stop test, the
+# ray total), counted at the read.
+COUNTERS = {"frames": 0, "host_reads": 0}
+
+_recording = False
+_OFF = contextlib.nullcontext()   # every span outside `recording`
+
+
+def span(name: str):
+    """A stage span named `name` around a `with` block: a
+    `torch.profiler.record_function` inside `recording`, else one shared
+    no-op (no record_function, clock read or allocation)."""
+    if not _recording:
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def recording(out: dict):
+    """Turn the program's spans on inside the block (wrap a
+    `torch.profiler.profile` run in it, or put it inside one, for them to
+    land in its trace) and, on exit, write into `out` each counter's change
+    over the block (`COUNTERS`). Blocks nest."""
+    global _recording
+    before = dict(COUNTERS)
+    outer, _recording = _recording, True
+    try:
+        yield out
+    finally:
+        _recording = outer
+        out.update({k: v - before[k] for k, v in COUNTERS.items()})
 
 
 class FrameTimer:
@@ -45,6 +86,9 @@ class FrameTimer:
     """
 
     def __init__(self, device="cuda"):
+        from toroidal_ray_tracing_tpu_torch.render.renderer import \
+            check_device
+
         self.device = check_device(device)
         self.times: list = []
         self.rays: list = []
@@ -82,6 +126,8 @@ class FrameTimer:
 def trace_to(log_dir: str, device="cuda"):
     """Profile the enclosed block with torch.profiler and write
     `log_dir/trace.json`. Yields the profiler (for `key_averages()`)."""
+    from toroidal_ray_tracing_tpu_torch.render.renderer import check_device
+
     device = check_device(device)
     activities = [torch.profiler.ProfilerActivity.CPU]
     if device.type == "cuda":

@@ -3,7 +3,10 @@
 
 Usage (from the repository root, on a machine with a CUDA GPU):
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only 16]
+
+(`--only` runs phases 1, 2 and the listed ones; 6 and 8 also need 4, 14
+needs 7.)
 
 Phases, each printed on its own lines with its wall seconds:
   1. device: the card's name and power limit (nvidia-smi);
@@ -219,7 +222,16 @@ Phases, each printed on its own lines with its wall seconds:
      from two launches on the same origins; V1's wrapper, bare,
      CUDA-graph device and twin times and byte bound on the 9,000- and
      16,385-box sets and on config 8's, config 6's and config 5's first
-     segment, beside the eager route it replaces.
+     segment, beside the eager route it replaces;
+ 16. the bounce loop's segment plan (`ops.segment_plan`): configs 3, 5
+     (3840x2160, 2 spp), 6, 7 (textured) and 8 and the capture frame (config 6 in the
+     toroidal camera, rho 4, depth 10) render through the plan and through
+     the wrappers' default route, image, dumps and ray count bit-equal,
+     `plan_segments` equal to the frame's segments; S1, K1, K5, K2, K3
+     and S2 give the same bits with their rays' rows at another row
+     stride; then each wrapper's first call of each route is replayed
+     alone, the host microseconds a call takes with the plan's outputs
+     and without (`host_us_plan`, `host_us`).
 
 Phases 4 and 7-11 also check every kernel-backend segment that a counted
 path traces on the card (`SegmentGuard`): from its visit ranks to its
@@ -598,7 +610,7 @@ def phase_kernels(torch, results):
         attr = torch.empty((21, n_), device=dev) if attrs else None
 
         def run(depth=tb.depth):
-            launch("trt_tri_closest_hit", o_, d_, tm, n_, tb.wrows,
+            launch("trt_tri_closest_hit", o_, d_, tm, n_, n_, tb.wrows,
                    tb.wrows.shape[0], tb.tree_lo, tb.tree_hi, tb.tree_link,
                    M1, depth, rank, cs, 1, *(tables if attrs else (None,) * 3),
                    int(occl), *outs, attr, None, None, None, 0)
@@ -719,7 +731,7 @@ def phase_kernels(torch, results):
         attr = torch.empty((15, n_), device=dev) if attrs else None
 
         def run(depth=tt.depth):
-            launch("trt_torus_closest_hit", o_, d_, tm, n_, tt.w2o_rows,
+            launch("trt_torus_closest_hit", o_, d_, tm, n_, n_, tt.w2o_rows,
                    tt.rad, tt.tree_lo, tt.tree_hi, tt.tree_link,
                    tt.tree_lo.shape[0], depth, rank, tt.chunk,
                    tt.mat if attrs else None, int(occl), t_, i_, attr, None,
@@ -825,7 +837,7 @@ def phase_kernels(torch, results):
         i_ = torch.empty((n_,), dtype=torch.int32, device=dev)
         a_ = torch.empty((15, n_), device=dev) if attrs else None
         return lambda: launch("trt_torus_closest_hit_small", o_, d_, tm, n_,
-                              tt.par, tt.K, int(occl), t_, i_, a_, None,
+                              n_, tt.par, tt.K, int(occl), t_, i_, a_, None,
                               None, 0)
 
     def k3_cell(label, tt, o_, d_, tm, attrs, occl):
@@ -901,9 +913,9 @@ def phase_kernels(torch, results):
         return real_k3(o_, d_, tm, tables, want_attrs=want_attrs,
                        occlusion=occlusion, **kw)
 
-    def record_k4(*args):
+    def record_k4(*args, **kw):
         k4_calls.append(tuple(a.clone() for a in args))
-        return real_k4(*args)
+        return real_k4(*args, **kw)
 
     tk.torus_closest_hit_small, wavefront.quad_gather = (record_k3,
                                                          record_k4)
@@ -1210,7 +1222,7 @@ def phase_stream(torch, results, rays, light):
     attrs8 = torch.empty((21, n8), device=dev)
 
     def bare(entry="", depth=st.depth):
-        launch("trt_tri_closest_hit_stream" + entry, o8, d8, tm8, n8,
+        launch("trt_tri_closest_hit_stream" + entry, o8, d8, tm8, n8, n8,
                st.wrows, st.wrows.shape[0], st.tree_lo, st.tree_hi,
                st.tree_link, M, depth, rank8, st.clo, st.chi, st.g, cs8,
                *tables8, 0, *outs, attrs8, None, None, None, 0)
@@ -2862,7 +2874,8 @@ SEGMENT_TOL = 1e-6        # libm-parted values: |diff| <= tol * max(1, |ref|)
 class SegmentGuard:
     """While entered, checks each kernel-backend segment that
     `trace.wavefront.trace_rays` traces on the card, from its visit ranks
-    (`segment_ranks`) to the return of its S3: V1 launched at most once,
+    (`segment_ranks`, or a segment plan's `ranks`) to the return of its
+    S3: V1 launched at most once,
     S2 and S3 once, S1 twice where the query tests the scene's loose rows
     (the closest and the any-hit query: a scene with loose rows, its whole
     triangle table), and no call of `trace.shade.shade` inside it, of a
@@ -2874,6 +2887,7 @@ class SegmentGuard:
     def __init__(self, launches):
         from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
         from toroidal_ray_tracing_tpu_torch.ops import loose_kernel as lk
+        from toroidal_ray_tracing_tpu_torch.ops import segment_plan as sp
         from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
         from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tok
         from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
@@ -2886,6 +2900,7 @@ class SegmentGuard:
                  for n in ("batch_anchor", "visit_order", "tree_rank",
                            "visit_ranks_plain") if hasattr(m, n)]
         self.spots = [(wf, "segment_ranks", self._ranks),
+                      (sp.SegmentPlan, "ranks", self._ranks),
                       (wf, "closest_hit", self._closest_hit),
                       (wf, "shade_finish", self._shade_finish),
                       (wf, "shade", self._stray(lambda a: self.open)),
@@ -3106,9 +3121,9 @@ def bare_launch(fn):
     seen = []
     real = kc.launch
 
-    def rec(name, *args):
+    def rec(name, *args, **kw):
         seen.append((name, args))
-        return real(name, *args)
+        return real(name, *args, **kw)
 
     lk.launch = sk.launch = vk.launch = rec
     try:
@@ -3523,9 +3538,9 @@ def front_bare(fn):
     seen = []
     real = fk.launch
 
-    def rec(name, *args):
+    def rec(name, *args, **kw):
         seen.append((name, args))
-        return real(name, *args)
+        return real(name, *args, **kw)
 
     fk.launch = rec
     try:
@@ -3614,8 +3629,8 @@ def phase_front_kernels(torch, results):
     cap_st = RenderSettings.default(rho=4.0)
     cap_scene = scene_of("cornellish",
                          lambda: build_scene(procedural.scene_cornellish()))
-    jitter5 = tfk.uniform(prng.fold_in(prng.prng_key(0), 1),
-                          (sc5.width * sc5.height, 2), DEVICE)
+    key5 = prng.fold_in(prng.prng_key(0), 1)
+    jitter5 = tfk.uniform(key5, (sc5.width * sc5.height, 2), DEVICE)
     # (name, camera, settings, width, height, jitter, timed)
     frames = [
         (f"config 6 {W}x{H}", sc6.camera, sc6.settings(), W, H, None, True),
@@ -3698,14 +3713,16 @@ def phase_front_kernels(torch, results):
                      f"{want + 1}"):
             continue
         a = calls[want]
-        cur, _, act_in, _, spans, count, orig_in, _, _, nb, fit = a
+        cur, _, act_in, _, spans, count, orig_in, _, _, nb, fit = a[:11]
+        tmax_row = a[11] if len(a) > 11 else None   # a segment plan's
         lanes = cur.shape[1]
         # both start from the same buffers: every entry equal, those the
         # contract leaves unwritten too
         kern, twin = list(_cloned(a)), list(_cloned(a))
         fk.span_gather(*kern)
         fk.span_gather_plain(*twin)
-        same = all(nan_equal(torch, kern[i], twin[i]) for i in (1, 3, 7, 8))
+        same = all(nan_equal(torch, kern[i], twin[i]) for i in (
+            1, 3, 7, 8, *((11,) if tmax_row is not None else ())))
         live = int(count)
         s_old, s_total = nb // 128, lanes // 128
         name = (f"G1 span_gather {label}: the {nb}-lane prefix of {lanes} "
@@ -3718,8 +3735,8 @@ def phase_front_kernels(torch, results):
         # 12 rows and the active byte of a lane landing in the new prefix,
         # read and written; origin and color of every other lane; the live
         # flags; the span maps
-        nb_ = (fit * 98 + (lanes - fit) * 48 + s_old
-               + s_total * (12 if orig_in is not None else 8))
+        nb_ = (fit * (98 if tmax_row is None else 102) + (lanes - fit) * 48
+               + s_old + s_total * (12 if orig_in is not None else 8))
         front_row(results, "span_gather", G1, name, same,
                   (lambda: fk.span_gather(*kern),
                    lambda: launch(lname, *largs),
@@ -3728,10 +3745,11 @@ def phase_front_kernels(torch, results):
 
     # --- F1 on traced states
     def traced_of(cam, st, w, h, jit, scene):
+        # (the loop's R1 draws the jitter from its key: jitter5's)
         st = rd.autofill_pixel_spread(st, cam, w, h)
         return rd._trace_frames(scene, st.to(dev),
                                 [(cam, cam.ray_params(w, h, st))], w, h,
-                                "kernel", jit, dev)
+                                "kernel", None if jit is None else key5, dev)
 
     f1_cases = []
     for name, cam, st, w, h, jit, _ in frames:
@@ -3909,8 +3927,8 @@ def phase_visit_ranks(torch, results):
         real_hit = {k: getattr(tk, k) for k in (
             "tri_closest_hit", "tri_closest_hit_stream", "torus_closest_hit")}
 
-        def ranks(origins, n_batch, sets):
-            out = real_ranks(origins, n_batch, sets)
+        def ranks(origins, n_batch, sets, out=None):
+            out = real_ranks(origins, n_batch, sets, out=out)
             calls.append((origins.clone(), n_batch, sets,
                           out[0].clone(), [r.clone() for r in out[1]]))
             return out
@@ -3953,6 +3971,7 @@ def phase_visit_ranks(torch, results):
             return rows, occ
 
         tk.visit_ranks, tk._query = ranks, query
+        vk.visit_ranks = ranks     # the segment plan's V1 call
         for k in real_hit:
             setattr(tk, k, rec(k))
         tri_stream.STREAM_GROUP = group
@@ -3962,6 +3981,7 @@ def phase_visit_ranks(torch, results):
             sync(torch)
         finally:
             tk.visit_ranks, tk._query = real_ranks, real_query
+            vk.visit_ranks = real_ranks
             for k, fn in real_hit.items():
                 setattr(tk, k, fn)
             tri_stream.STREAM_GROUP = 0
@@ -4116,8 +4136,212 @@ def phase_visit_ranks(torch, results):
     results["visit_rank"].update(checked)
 
 
-def main() -> int:
+
+PLAN_REPS = 40            # phase 16: timed replays of a wrapper call
+
+
+def plan_cells():
+    """Phase 16's cells: (name, scenario number, camera, settings, width,
+    height, spp) at the ladder's shapes (config 7: K4 and K3 with K = 1),
+    and the capture frame (config 6's scene in the toroidal camera, rho 4,
+    depth 10, as the benchmark's capture cell)."""
+    from toroidal_ray_tracing_tpu_torch.cameras import ToroidalCamera
+    from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
+    from toroidal_ray_tracing_tpu_torch.scene import RenderSettings
+
+    cells = []
+    for num in (3, 5, 6, 7, 8):
+        sc = SCENARIOS[num]
+        cells.append((sc.name, num, sc.camera_at(0), sc.settings(), sc.width,
+                      sc.height, sc.spp))
+    cells.append(("capture_config6_rho4", 6,
+                  ToroidalCamera(eye=(0.0, 1.5, 0.0), center=(8.0, 0.0, 0.0)),
+                  RenderSettings.default(max_depth=10, rho=4.0), *FULL, 1))
+    return cells
+
+
+class CallRecorder:
+    """The first call of each segment wrapper (V1, S1, K1, K5, K2, K3, S2,
+    K4, S3), recorded as (fn, args, kwargs) while a frame renders, for
+    replaying it alone."""
+
+    def __init__(self):
+        from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tok
+        from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
+        from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
+        from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
+
+        self.spots = [(vk, "visit_ranks", "V1 visit_rank"),
+                      (tk, "visit_ranks", "V1 visit_rank"),
+                      (tk, "loose_hit", "S1 loose_hit"),
+                      (tk, "tri_closest_hit", "K1 tri_closest_hit"),
+                      (tk, "tri_closest_hit_stream",
+                       "K5 tri_closest_hit_stream"),
+                      (tok, "torus_closest_hit_chunked",
+                       "K2 torus_closest_hit"),
+                      (tok, "torus_closest_hit_small",
+                       "K3 torus_closest_hit_small"),
+                      (wf, "shade_hit", "S2 shade_hit"),
+                      (wf, "quad_gather", "K4 quad_gather"),
+                      (wf, "shade_finish", "S3 shade_finish")]
+        self.calls: dict = {}
+
+    def __enter__(self):
+        self.real = [getattr(m, a) for m, a, _ in self.spots]
+        for (mod, attr, name), fn in zip(self.spots, self.real):
+            def rec(*a, _fn=fn, _name=name, **k):
+                self.calls.setdefault(_name, (_fn, a, k))
+                return _fn(*a, **k)
+            setattr(mod, attr, rec)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, attr, _), fn in zip(self.spots, self.real):
+            setattr(mod, attr, fn)
+
+
+def host_us(torch, fn, reps: int = PLAN_REPS) -> float:
+    """Host microseconds a call of fn() takes to return (its launch
+    queued, not run): the median of 5 rounds of `reps` calls."""
+    fn()
+    torch.cuda.synchronize()
+    rounds = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        rounds.append((time.perf_counter() - t0) / reps * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(rounds)
+
+
+def same_outputs(torch, a, b) -> bool:
+    """A wrapper's outputs equal bit for bit: tuples entry by entry, S2's
+    `ShadeRays` on the lanes its contract defines."""
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+
+    if isinstance(a, sk.ShadeRays):
+        return all(nan_equal(torch, x[..., m], y[..., m])
+                   for (_, x, m), (_, y, _) in zip(
+                       sk.defined_entries(a, a.tex is not None),
+                       sk.defined_entries(b, b.tex is not None)))
+    if isinstance(a, torch.Tensor):
+        return nan_equal(torch, a, b)
+    return len(a) == len(b) and all(same_outputs(torch, x, y)
+                                    for x, y in zip(a, b))
+
+
+def strided_twin(torch, fn, a, k):
+    """Whether the wrapper call fn(*a, **k), whose first two arguments are
+    the rays' (3, N) rows, gives the same bits on the rows at another row
+    stride (contiguous rows when they were a state's prefix, else rows
+    inside a wider buffer)."""
+    o, d = a[0], a[1]
+    n = o.shape[1]
+    if o.is_contiguous():
+        wide = torch.empty((6, n + 4096), device=o.device)
+        wide[0:3, :n], wide[3:6, :n] = o, d
+        o2, d2 = wide[0:3, :n], wide[3:6, :n]
+    else:
+        o2, d2 = o.contiguous(), d.contiguous()
+    k = {key: v for key, v in k.items() if key != "out"}
+    return same_outputs(torch, fn(*a, **k), fn(o2, d2, *a[2:], **k))
+
+
+def phase_segment_plan(torch, results):
+    """Phase 16: the bounce loop's segment plan (`ops.segment_plan`) on the
+    card. Each cell's frame renders through the plan and through the
+    wrappers' default route (`wavefront.segment_plan` giving none): image,
+    dumps and ray count bit-equal, `plan_segments` equal to the planned
+    frame's S3 launches (its segments) and none on the default route. The
+    first call of each ray-reading wrapper (S1, K1, K5, K2, K3, S2) gives
+    the same bits with its rays' rows at another row stride. Then each
+    wrapper's first call of each route is replayed alone: the host
+    microseconds a call takes with the plan's outputs (`out=`) and without
+    (its checks, allocations and route), into the kernels' results as
+    `host_us` / `host_us_plan`."""
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+        LAUNCHES, reset_launches)
+    from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
+    from toroidal_ray_tracing_tpu_torch.utils.profiling import COUNTERS
+
+    timing: dict = {}
+    for name, num, cam, st, w, h, spp in plan_cells():
+        _, scene = config(num)
+        outs, calls, segs = {}, {}, {}
+        for route in ("default", "plan"):
+            real = wf.segment_plan
+            if route == "default":
+                wf.segment_plan = lambda *a, **k: None
+            before = COUNTERS["plan_segments"]
+            try:
+                with CallRecorder() as rec:
+                    reset_launches()
+                    outs[route] = render(scene, cam, w, h, st,
+                                         backend="kernel", spp=spp,
+                                         device=DEVICE)
+                    sync(torch)
+                    segs[route] = (LAUNCHES["shade_finish"],
+                                   COUNTERS["plan_segments"] - before)
+            finally:
+                wf.segment_plan = real
+            calls[route] = rec.calls
+        same = all(bit_equal(outs["plan"][k], outs["default"][k])
+                   for k in ("image", "hit_position", "ray_origin",
+                             "ray_dir"))
+        check(same and outs["plan"]["rays_traced"]
+              == outs["default"]["rays_traced"],
+              f"{name}: the plan's frame bit-equal to the default route's "
+              f"(image, dumps), rays {outs['plan']['rays_traced']} / "
+              f"{outs['default']['rays_traced']}")
+        check(segs["plan"][1] == segs["plan"][0] > 0
+              and segs["default"][1] == 0,
+              f"{name}: plan_segments {segs['plan'][1]} = the planned "
+              f"frame's {segs['plan'][0]} segments; default route "
+              f"{segs['default'][1]}")
+        strided = [kernel for kernel, (fn, a, k) in calls["default"].items()
+                   if kernel.split()[0] in ("S1", "K1", "K5", "K2", "K3",
+                                            "S2")
+                   and not strided_twin(torch, fn, a, k)]
+        check(not strided, f"{name}: S1, K1, K5, K2, K3, S2 give the same "
+              f"bits at another row stride ({len(calls['default'])} "
+              f"wrappers called; off: {strided or 'none'})")
+        for kernel, (fn, a, k) in calls["plan"].items():
+            d = calls["default"].get(kernel)
+            if d is None or k.get("out") is None:
+                continue
+            plain = host_us(torch, lambda: d[0](*d[1], **d[2]))
+            planned = host_us(torch, lambda: fn(*a, **k))
+            timing.setdefault(kernel, {})[name] = (plain, planned)
+    print("host us a wrapper call, segment 0, default route -> plan:",
+          flush=True)
+    for kernel, by_cell in timing.items():
+        cells = "; ".join(f"{c} {p:.1f} -> {q:.1f}"
+                          for c, (p, q) in by_cell.items())
+        print(f"  {kernel}: {cells}", flush=True)
+        key = kernel.split(" ", 1)[1]
+        row = results.setdefault(key, {})
+        row["host_us"] = {c: p for c, (p, _) in by_cell.items()}
+        row["host_us_plan"] = {c: q for c, (_, q) in by_cell.items()}
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--only", default=None,
+                    help="comma-separated phases to run after 1 and 2 (6 "
+                         "and 8 also need 4, 14 needs 7); default: every "
+                         "phase")
+    args = ap.parse_args(argv)
+    only = (None if args.only is None
+            else {int(x) for x in args.only.split(",") if x})
+
+    def want(n: int) -> bool:
+        return only is None or n in only
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4158,100 +4382,121 @@ def main() -> int:
             print("  " + line.strip(), flush=True)
     done("2. build")
 
-    phase("3. kernels against their plain twins")
     results: dict = {}
-    phase_kernels(torch, results)
-    done("3. kernels against their plain twins")
-
-    phase("4. main path: render / render_frames / render_sequence "
-          "(backend='kernel', device='cuda')")
     launches: dict = {}
-    SEGMENTS.update(checked=0, bad=[])
-    FRONT.update(samples=0, shrinks=0, bad=[])
-    stats, cells = phase_main_path(torch, launches)
-    segments_checked("phase 4")
-    front_checked("phase 4", need_shrink=True)
-    done("4. main path: render / render_frames / render_sequence "
-         "(backend='kernel', device='cuda')")
+    stats = cells = profile_rows = experiment = front_doors = phase9 = None
+    oracle_rows = compaction_rows = streams = None
+    if want(3):
+        phase("3. kernels against their plain twins")
+        phase_kernels(torch, results)
+        done("3. kernels against their plain twins")
 
-    phase("5. goldens on the card")
-    phase_goldens(torch)
-    done("5. goldens on the card")
+    if want(4):
+        phase("4. main path: render / render_frames / render_sequence "
+              "(backend='kernel', device='cuda')")
+        SEGMENTS.update(checked=0, bad=[])
+        FRONT.update(samples=0, shrinks=0, bad=[])
+        stats, cells = phase_main_path(torch, launches)
+        segments_checked("phase 4")
+        front_checked("phase 4", need_shrink=True)
+        done("4. main path: render / render_frames / render_sequence "
+             "(backend='kernel', device='cuda')")
 
-    phase("6. profile: one frame per cell")
-    profile_rows = phase_profile(torch, cells, stats)
-    done("6. profile: one frame per cell")
+    if want(5):
+        phase("5. goldens on the card")
+        phase_goldens(torch)
+        done("5. goldens on the card")
 
-    phase("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
-    before = dict(launches)
-    SEGMENTS.update(checked=0, bad=[])
-    FRONT.update(samples=0, shrinks=0, bad=[])
-    experiment = phase_experiment(torch, launches, smi.stdout.strip())
-    segments_checked("phase 7")
-    front_checked("phase 7", need_shrink=False)
-    done("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
+    if want(6) and stats is not None:
+        phase("6. profile: one frame per cell")
+        profile_rows = phase_profile(torch, cells, stats)
+        done("6. profile: one frame per cell")
 
-    phase("8. measurement front doors")
-    before = dict(launches)
-    front_doors = phase_front_doors(torch, launches, stats)
-    print("launches, phases 4 and 7: " + json.dumps(before)
-          + "; phase 8: " + json.dumps({k: launches[k] - before.get(k, 0)
-                                        for k in launches}), flush=True)
-    segments_checked("phase 8")
-    front_checked("phase 8", need_shrink=False)
-    done("8. measurement front doors")
+    if want(7):
+        phase("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
+        before = dict(launches)
+        SEGMENTS.update(checked=0, bad=[])
+        FRONT.update(samples=0, shrinks=0, bad=[])
+        experiment = phase_experiment(torch, launches, smi.stdout.strip())
+        segments_checked("phase 7")
+        front_checked("phase 7", need_shrink=False)
+        done("7. experiment: OBJ scenes, rho sweep, gTruth, reprojection")
 
-    phase("9. gradients and multi-device")
-    before = dict(launches)
-    phase9 = phase_gradients_multidevice(torch, launches)
-    print("launches, phase 9: " + json.dumps(
-        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
-    segments_checked("phase 9")
-    front_checked("phase 9", need_shrink=False, need_samples=False)
-    done("9. gradients and multi-device")
+    if want(8) and stats is not None:
+        phase("8. measurement front doors")
+        before = dict(launches)
+        front_doors = phase_front_doors(torch, launches, stats)
+        print("launches, phases 4 and 7: " + json.dumps(before)
+              + "; phase 8: " + json.dumps({k: launches[k] - before.get(k, 0)
+                                            for k in launches}), flush=True)
+        segments_checked("phase 8")
+        front_checked("phase 8", need_shrink=False)
+        done("8. measurement front doors")
 
-    phase("10. oracle on the card")
-    before = dict(launches)
-    oracle_rows = phase_oracle(torch, launches)
-    print("launches, phase 10: " + json.dumps(
-        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
-    segments_checked("phase 10")
-    front_checked("phase 10", need_shrink=False)
-    done("10. oracle on the card")
+    if want(9):
+        phase("9. gradients and multi-device")
+        before = dict(launches)
+        phase9 = phase_gradients_multidevice(torch, launches)
+        print("launches, phase 9: " + json.dumps(
+            {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+        segments_checked("phase 9")
+        front_checked("phase 9", need_shrink=False, need_samples=False)
+        done("9. gradients and multi-device")
 
-    phase("11. compaction")
-    before = dict(launches)
-    compaction_rows = phase_compaction(torch, launches)
-    print("launches, phase 11: " + json.dumps(
-        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
-    segments_checked("phase 11")
-    front_checked("phase 11", need_shrink=True)
-    done("11. compaction")
+    if want(10):
+        phase("10. oracle on the card")
+        before = dict(launches)
+        oracle_rows = phase_oracle(torch, launches)
+        print("launches, phase 10: " + json.dumps(
+            {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+        segments_checked("phase 10")
+        front_checked("phase 10", need_shrink=False)
+        done("10. oracle on the card")
 
-    phase("12. random streams and the graft entry")
-    before = dict(launches)
-    streams = phase_streams_entry(torch, launches)
-    print("launches, phase 12: " + json.dumps(
-        {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
-    done("12. random streams and the graft entry")
+    if want(11):
+        phase("11. compaction")
+        before = dict(launches)
+        compaction_rows = phase_compaction(torch, launches)
+        print("launches, phase 11: " + json.dumps(
+            {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+        segments_checked("phase 11")
+        front_checked("phase 11", need_shrink=True)
+        done("11. compaction")
 
-    phase("13. segment kernels S1-S3 against their twins")
-    phase_segment_kernels(torch, results)
-    done("13. segment kernels S1-S3 against their twins")
+    if want(12):
+        phase("12. random streams and the graft entry")
+        before = dict(launches)
+        streams = phase_streams_entry(torch, launches)
+        print("launches, phase 12: " + json.dumps(
+            {k: launches[k] - before.get(k, 0) for k in launches}), flush=True)
+        done("12. random streams and the graft entry")
 
-    phase("14. front-door kernels R1, G1, F1 against their twins")
-    phase_front_kernels(torch, results)
-    done("14. front-door kernels R1, G1, F1 against their twins")
+    if want(13):
+        phase("13. segment kernels S1-S3 against their twins")
+        phase_segment_kernels(torch, results)
+        done("13. segment kernels S1-S3 against their twins")
 
-    phase("15. visit ranks V1 and the query folds against their twins")
-    phase_visit_ranks(torch, results)
-    done("15. visit ranks V1 and the query folds against their twins")
+    if want(14):
+        phase("14. front-door kernels R1, G1, F1 against their twins")
+        phase_front_kernels(torch, results)
+        done("14. front-door kernels R1, G1, F1 against their twins")
+
+    if want(15):
+        phase("15. visit ranks V1 and the query folds against their twins")
+        phase_visit_ranks(torch, results)
+        done("15. visit ranks V1 and the query folds against their twins")
+
+    if want(16):
+        phase("16. the segment plan against the default route")
+        phase_segment_plan(torch, results)
+        done("16. the segment plan against the default route")
 
     if FAILURES:
         print(f"chip_smoke: {len(FAILURES)} check(s) failed:", file=sys.stderr)
         for f in FAILURES:
             print("  " + f, file=sys.stderr)
         return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "chip_smoke.json"), "w") as f:
         json.dump({"device": smi.stdout.strip(), "kernels": results,
                    "cells": stats, "profile": profile_rows,
@@ -4265,8 +4510,11 @@ def main() -> int:
             "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
     for k, v in results.items():
-        row = dict(v, name=k, route="cuda", launches=launches[k])
-        kernels.append({"name": k, **{key: row[key] for key in keys}})
+        row = dict(v, name=k, route="cuda", launches=launches.get(k))
+        kernels.append({"name": k, **{key: row.get(key) for key in keys},
+                        **{key: row[key] for key in ("host_us",
+                                                     "host_us_plan")
+                           if key in row}})
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

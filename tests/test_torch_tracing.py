@@ -188,4 +188,5 @@ def test_recording_ends_on_an_error():
         with profiling.recording(got):
             raise ValueError("inside")
     assert profiling.span("trt.loop") is profiling._OFF
-    assert got == {"frames": 0, "host_reads": 0}
+    assert got == {"frames": 0, "host_reads": 0, "plan_builds": 0,
+                   "plan_segments": 0}

@@ -47,6 +47,7 @@ from toroidal_ray_tracing_tpu_torch.experiments import (config5_turns,
                                                         v1_cluster_sweep)
 from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
 from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
+from toroidal_ray_tracing_tpu_torch.ops import segment_plan as sp
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
 from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
 from toroidal_ray_tracing_tpu_torch.ops.loose_kernel import loose_hit
@@ -409,9 +410,9 @@ def test_trace_state_ranks_once_a_segment(monkeypatch):
     real_route = tk._route
     real_finish = wf.shade_finish
 
-    def ranks(origins, n_batch, sets):
+    def ranks(origins, n_batch, sets, out=None):
         calls["ranks"].append(len(sets))
-        return real_ranks(origins, n_batch, sets)
+        return real_ranks(origins, n_batch, sets, out=out)
 
     def per_call(*a, **k):
         calls["per_call"] += 1
@@ -426,7 +427,9 @@ def test_trace_state_ranks_once_a_segment(monkeypatch):
         return real_route(*a, **k)
 
     monkeypatch.setattr(tk, "visit_ranks", ranks)
+    monkeypatch.setattr(vk, "visit_ranks", ranks)
     monkeypatch.setattr(tk, "_route", route)
+    monkeypatch.setattr(sp, "_route", route)
     monkeypatch.setattr(wf, "shade_finish", finish)
     for mod in ("tri_kernel", "torus_kernel", "tri_stream"):
         monkeypatch.setattr(sys.modules["toroidal_ray_tracing_tpu_torch.ops."
@@ -438,8 +441,9 @@ def test_trace_state_ranks_once_a_segment(monkeypatch):
     # K1's clusters and K2's chunks, once a segment for both queries
     assert calls["ranks"] == [2] * calls["segments"]
     assert calls["per_call"] == 0
-    # the route too is decided once a segment, and both queries take it
-    assert calls["routes"] == calls["segments"]
+    # the route is decided once a loop (the segment plan's), and both
+    # queries of every segment take it
+    assert calls["routes"] == 1
     assert out["rays_traced"] > 0
 
 

@@ -25,7 +25,9 @@
 // segment 0 writes them, before any shrink). The spans past the old prefix
 // keep their slots.
 // Each span's original index travels with it (orig_out[pos] = orig_in[k])
-// and its slot is recorded (slot[orig] = pos), F1's gather index. One CTA
+// and its slot is recorded (slot[orig] = pos), F1's gather index. With a
+// segment plan's tmax row, the new prefix's lanes get the next segment's
+// tmax from their active flags (seg_tmax where active, else 0). One CTA
 // owns a contiguous chunk of spans: it counts the live flags before the
 // chunk from L2 (at most 64,800 bytes at config 5; a popc of 4 flags a
 // word), scans its chunk 256 spans at a time in shared memory, then moves
@@ -120,7 +122,7 @@ __global__ void __launch_bounds__(kThreads) span_gather(
     const bool* __restrict__ live, const int* __restrict__ count,
     const int* __restrict__ orig_in, int* __restrict__ orig_out,
     int* __restrict__ slot, int s_old, int s_fit, int s_total,
-    long long lanes, int per) {
+    long long lanes, int per, float* __restrict__ tmax_out, float seg_tmax) {
   __shared__ int scratch[kWarps];
   __shared__ int pos[kThreads];
   const int c0 = blockIdx.x * per;
@@ -174,6 +176,19 @@ __global__ void __launch_bounds__(kThreads) span_gather(
       if (pos[sp] >= s_fit) continue;
       reinterpret_cast<uint4*>(act_out + (size_t)pos[sp] * kSpan)[q] =
           reinterpret_cast<const uint4*>(act_in + (size_t)src * kSpan)[q];
+    }
+    // the next segment's tmax row on the new prefix, from the same flags
+    // (seg_tmax where active, else 0): 32 float4s a span
+    if (tmax_out != nullptr) {
+      for (int w = threadIdx.x; w < nt * kRowQuads; w += kThreads) {
+        const int sp = w / kRowQuads, q = w % kRowQuads;
+        if (pos[sp] >= s_fit) continue;
+        const uchar4 a = reinterpret_cast<const uchar4*>(
+            act_in + (size_t)(t0 + sp) * kSpan)[q];
+        reinterpret_cast<float4*>(tmax_out + (size_t)pos[sp] * kSpan)[q] =
+            make_float4(a.x ? seg_tmax : 0.0f, a.y ? seg_tmax : 0.0f,
+                        a.z ? seg_tmax : 0.0f, a.w ? seg_tmax : 0.0f);
+      }
     }
     __syncthreads();
   }
@@ -304,20 +319,22 @@ extern "C" int trt_span_gather(const float* cur, float* spare,
                                const bool* live, const int* count,
                                const int* orig_in, int* orig_out, int* slot,
                                int s_old, int s_fit, int s_total,
-                               long long lanes, void* stream) {
+                               long long lanes, float* tmax_out,
+                               float seg_tmax, void* stream) {
   if (s_total <= 0) return 0;
   if (lanes != (long long)s_total * kSpan || s_old > s_total || s_old < 0 ||
       s_fit > s_old || s_fit < 0)
     return (int)cudaErrorInvalidValue;
   if (!aligned16(cur) || !aligned16(spare) || !aligned16(act_in) ||
-      !aligned16(act_out) || !aligned16(live))
+      !aligned16(act_out) || !aligned16(live) ||
+      (tmax_out != nullptr && !aligned16(tmax_out)))
     return (int)cudaErrorMisalignedAddress;
   // 4 CTAs an SM fill the card; each walks a chunk of spans
   const int grid = s_total < 132 * 4 ? s_total : 132 * 4;
   const int per = (s_total + grid - 1) / grid;
   span_gather<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
       cur, spare, act_in, act_out, live, count, orig_in, orig_out, slot,
-      s_old, s_fit, s_total, lanes, per);
+      s_old, s_fit, s_total, lanes, per, tmax_out, seg_tmax);
   return (int)cudaGetLastError();
 }
 

@@ -13,7 +13,9 @@
 // miss), prim (prim_base + row on a hit, 0 on a miss), u, v (0 on a miss),
 // and the triangle kernels' tmax: min(tmax, t), or, in occlusion mode, 0 on
 // a hit and tmax on a miss; in occlusion mode also the query's occlusion
-// byte (t < BIG), which the later kernels of the query OR into.
+// byte (t < BIG), which the later kernels of the query OR into. The rays'
+// rows lie rs floats apart (n for a (3, n) tensor, the state's lanes for a
+// prefix of the bounce loop's state), as every trace kernel reads them.
 //
 // What bounds it on an H100 SXM (80 GB HBM3, 700 W): bytes. Per ray 28 B in
 // (origin, direction, tmax) and 24 B out; the L x 84 B of Woop entries go
@@ -32,7 +34,8 @@ constexpr int kThreads = 256;
 
 __global__ void __launch_bounds__(kThreads) loose_hit(
     const float* __restrict__ origins, const float* __restrict__ dirs,
-    const float* __restrict__ tmax, int n, const float* __restrict__ woop_o,
+    const float* __restrict__ tmax, int n, long long rs,
+    const float* __restrict__ woop_o,
     const float* __restrict__ woop_d, int n_tris, int base, int n_rows,
     int prim_base, int occlusion, float* __restrict__ t_out,
     int* __restrict__ kind_out, int* __restrict__ prim_out,
@@ -56,8 +59,8 @@ __global__ void __launch_bounds__(kThreads) loose_hit(
   float o[3], d[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    o[a] = origins[(size_t)a * n + i];
-    d[a] = dirs[(size_t)a * n + i];
+    o[a] = origins[a * rs + i];
+    d[a] = dirs[a * rs + i];
   }
   const float tm = tmax[i];
   float best = TRT_BIG, bu = 0.0f, bv = 0.0f;
@@ -83,7 +86,8 @@ __global__ void __launch_bounds__(kThreads) loose_hit(
 }  // namespace
 
 extern "C" int trt_loose_hit(const float* origins, const float* dirs,
-                             const float* tmax, int n, const float* woop_o,
+                             const float* tmax, int n, long long rs,
+                             const float* woop_o,
                              const float* woop_d, int n_tris, int base,
                              int n_rows, int prim_base, int occlusion,
                              float* t_out, int* kind_out, int* prim_out,
@@ -94,7 +98,7 @@ extern "C" int trt_loose_hit(const float* origins, const float* dirs,
     return (int)cudaErrorInvalidValue;
   const int blocks = (n + kThreads - 1) / kThreads;
   loose_hit<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, woop_o, woop_d, n_tris, base, n_rows,
+      origins, dirs, tmax, n, rs, woop_o, woop_d, n_tris, base, n_rows,
       prim_base, occlusion, t_out, kind_out, prim_out, u_out, v_out,
       tmax_out, occ_out);
   return (int)cudaGetLastError();

@@ -24,7 +24,13 @@
 // writes each output only where a reader reads it (the masks over its
 // flag bits in shade_kernel.py's docstring): a miss or a dead lane gets its
 // flag and shadow_tmax = 0, and reads nothing but the parts' t and the
-// base's kind; S3 reads nothing else of such a lane.
+// base's kind; S3 reads nothing else of such a lane. S2 reads the ray's
+// rows at a row stride (rs: a prefix of the bounce loop's state, where
+// the rows lie).
+//
+// S3 can also write the next segment's tmax row (a segment plan's,
+// ops/segment_plan.py): seg_tmax where the ray goes on, 0 where it ends,
+// on the lanes it updates; a lane dead before keeps its 0.
 //
 // What bounds them on an H100 SXM (80 GB HBM3, 700 W): bytes. S2 reads the
 // parts' t (4-8 B a part), and for a hit the ray (24 B) and the rows its
@@ -99,7 +105,8 @@ __device__ __forceinline__ float blend(int w, float fx, float fy,
 
 __global__ void __launch_bounds__(kThreads) shade_hit(
     const float* __restrict__ origins, const float* __restrict__ dirs, int n,
-    const float* __restrict__ b_t, const int* __restrict__ b_kind,
+    long long rs, const float* __restrict__ b_t,
+    const int* __restrict__ b_kind,
     const int* __restrict__ b_prim, const float* __restrict__ b_u,
     const float* __restrict__ b_v, const float* __restrict__ k_t,
     const int* __restrict__ k_idx, const float* __restrict__ k_u,
@@ -155,7 +162,7 @@ __global__ void __launch_bounds__(kThreads) shade_hit(
   float hp[3];
 #pragma unroll
   for (int a = 0; a < 3; ++a)
-    hp[a] = origins[a * N + i] + tc * dirs[a * N + i];
+    hp[a] = origins[a * rs + i] + tc * dirs[a * rs + i];
 
   // the winner's rows (shade_kernel.shade_attrs): a triangle's from the
   // loose tail's tables where it is a loose row (at its u, v), else from
@@ -284,7 +291,7 @@ __global__ void __launch_bounds__(kSpan) shade_finish(
     const int* __restrict__ q1, const float* __restrict__ srgb,
     const float* __restrict__ consts, int first, int more,
     unsigned long long* __restrict__ rays, bool* __restrict__ spans,
-    int* __restrict__ count) {
+    int* __restrict__ count, float* __restrict__ tmax_next, float seg_tmax) {
   const int i = blockIdx.x * kSpan + threadIdx.x;
   const bool act = i < nb && active[i];
   bool next = false, shadow_ray = false;
@@ -373,6 +380,8 @@ __global__ void __launch_bounds__(kSpan) shade_finish(
       }
     }
     active[i] = next;
+    // the next segment's tmax row: a dead lane's stays 0
+    if (tmax_next != nullptr) tmax_next[i] = next ? seg_tmax : 0.0f;
   }
   const int traced = __syncthreads_count(act) +
                      __syncthreads_count(act && shadow_ray);
@@ -387,7 +396,8 @@ __global__ void __launch_bounds__(kSpan) shade_finish(
 }  // namespace
 
 extern "C" int trt_shade_hit(
-    const float* origins, const float* dirs, int n, const float* b_t,
+    const float* origins, const float* dirs, int n, long long rs,
+    const float* b_t,
     const int* b_kind, const int* b_prim, const float* b_u, const float* b_v,
     const float* k_t, const int* k_idx, const float* k_u, const float* k_v,
     int tri_off, const float* q_t, const float* tri, const float* tor,
@@ -399,8 +409,8 @@ extern "C" int trt_shade_hit(
     int* tex_i0, int* tex_i1, bool* tex_valid, void* stream) {
   const int blocks = (n + kThreads - 1) / kThreads;
   shade_hit<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      origins, dirs, n, b_t, b_kind, b_prim, b_u, b_v, k_t, k_idx, k_u, k_v,
-      tri_off, q_t, tri, tor, la0, la1, la2, n_cols, loose_base, n_loose,
+      origins, dirs, n, rs, b_t, b_kind, b_prim, b_u, b_v, k_t, k_idx, k_u,
+      k_v, tri_off, q_t, tri, tor, la0, la1, la2, n_cols, loose_base, n_loose,
       consts, light_point, intensity, pixel_spread, tex_off, tex_sizes,
       tex_levels, n_lv, shadow_o, shadow_d, shadow_tmax, block, flags,
       tex_i0, tex_i1, tex_valid);
@@ -412,10 +422,12 @@ extern "C" int trt_shade_finish(
     const unsigned char* flags, const float* shadow_o, const float* shadow_d,
     const bool* occluded, const int* q0, const int* q1, const float* srgb,
     const float* consts, int first, int more, unsigned long long* rays,
-    bool* spans, int* count, void* stream) {
+    bool* spans, int* count, float* tmax_next, float seg_tmax,
+    void* stream) {
   const int blocks = (nb + kSpan - 1) / kSpan;
   shade_finish<<<blocks, kSpan, 0, (cudaStream_t)stream>>>(
       state, lanes, active, nb, block, flags, shadow_o, shadow_d, occluded,
-      q0, q1, srgb, consts, first, more, rays, spans, count);
+      q0, q1, srgb, consts, first, more, rays, spans, count, tmax_next,
+      seg_tmax);
   return (int)cudaGetLastError();
 }

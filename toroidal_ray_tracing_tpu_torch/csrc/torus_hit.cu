@@ -246,13 +246,13 @@ __device__ __forceinline__ void torus_world_normal(const float* w,
 }
 
 __device__ __forceinline__ void load_ray(const float* origins,
-                                         const float* dirs, int n, int i,
-                                         float o[3], float d[3],
+                                         const float* dirs, long long rs,
+                                         int i, float o[3], float d[3],
                                          float inv[3]) {
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    o[a] = origins[(size_t)a * n + i];
-    d[a] = dirs[(size_t)a * n + i];
+    o[a] = origins[a * rs + i];
+    d[a] = dirs[a * rs + i];
     inv[a] = trt::inv_dir(d[a]);
   }
 }
@@ -334,7 +334,8 @@ __device__ __forceinline__ void quartic_round(
 
 __global__ void __launch_bounds__(128) torus_closest_hit(
     const float* __restrict__ origins, const float* __restrict__ dirs,
-    const float* __restrict__ tmax, int n, const float* __restrict__ w2o,
+    const float* __restrict__ tmax, int n, long long rs,
+    const float* __restrict__ w2o,
     const float* __restrict__ rad, const float* __restrict__ tree_lo,
     const float* __restrict__ tree_hi, const int* __restrict__ tree_link,
     int n_nodes, const int* __restrict__ rank, int chunk,
@@ -347,7 +348,7 @@ __global__ void __launch_bounds__(128) torus_closest_hit(
   const int lane = threadIdx.x & 31;
   PairQueue& q = queues[threadIdx.x >> 5];
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
+  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, rs, i);
   trt::Work w;
   bool done = !(r.tm > TRT_TMIN);  // pad and dead rays take part in no test
   float best = TRT_BIG;            // the ray's t as of the last round
@@ -418,7 +419,8 @@ constexpr int kParams = 32;  // [w2o (12), Rmaj, rmin, lo (3), hi (3), mat (12)]
 template <bool kCount, bool kOcc>
 __global__ void torus_closest_hit_small(
     const float* __restrict__ origins, const float* __restrict__ dirs,
-    const float* __restrict__ tmax, int n, const float* __restrict__ par,
+    const float* __restrict__ tmax, int n, long long rs,
+    const float* __restrict__ par,
     int K, int occlusion, float* __restrict__ t_out,
     int* __restrict__ idx_out, float* __restrict__ attr_out,
     long long* __restrict__ counters, bool* __restrict__ occ_out,
@@ -429,7 +431,7 @@ __global__ void torus_closest_hit_small(
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float o[3], d[3], inv[3];
-  load_ray(origins, dirs, n, i, o, d, inv);
+  load_ray(origins, dirs, rs, i, o, d, inv);
   const float tm = tmax[i];
   unsigned box = 1, prim = 0;  // the twin's counts: the union box, then
                                // the walk's slab tests and quartics
@@ -500,7 +502,7 @@ __global__ void torus_closest_hit_small(
 
 extern "C" int trt_torus_closest_hit(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* w2o, const float* rad, const float* tree_lo,
+    long long rs, const float* w2o, const float* rad, const float* tree_lo,
     const float* tree_hi, const int* tree_link, int n_nodes, int depth,
     const int* rank, int chunk, const float* mat, int occlusion,
     float* t_out, int* idx_out, float* attr_out, long long* counters,
@@ -508,17 +510,17 @@ extern "C" int trt_torus_closest_hit(
   if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
   const int blocks = (n + 127) / 128;
   torus_closest_hit<<<blocks, 128, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, w2o, rad, tree_lo, tree_hi, tree_link, n_nodes,
-      rank, chunk, mat, occlusion, t_out, idx_out, attr_out, counters,
-      occ_out, occ_or);
+      origins, dirs, tmax, n, rs, w2o, rad, tree_lo, tree_hi, tree_link,
+      n_nodes, rank, chunk, mat, occlusion, t_out, idx_out, attr_out,
+      counters, occ_out, occ_or);
   return (int)cudaGetLastError();
 }
 
 extern "C" int trt_torus_closest_hit_small(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* par, int K, int occlusion, float* t_out, int* idx_out,
-    float* attr_out, long long* counters, bool* occ_out, int occ_or,
-    void* stream) {
+    long long rs, const float* par, int K, int occlusion, float* t_out,
+    int* idx_out, float* attr_out, long long* counters, bool* occ_out,
+    int occ_or, void* stream) {
   if (K < 1 || K > kSmallMaxK) return (int)cudaErrorInvalidValue;
   const int threads = 128;
   const int blocks = (n + threads - 1) / threads;
@@ -530,7 +532,7 @@ extern "C" int trt_torus_closest_hit_small(
           : (occ ? torus_closest_hit_small<false, true>
                  : torus_closest_hit_small<false, false>);
   kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, par, K, occlusion, t_out, idx_out, attr_out,
-      counters, occ_out, occ_or);
+      origins, dirs, tmax, n, rs, par, K, occlusion, t_out, idx_out,
+      attr_out, counters, occ_out, occ_or);
   return (int)cudaGetLastError();
 }

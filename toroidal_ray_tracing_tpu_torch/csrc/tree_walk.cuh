@@ -48,17 +48,20 @@ struct Ray {
   float o[3], d[3], inv[3], tm;
 };
 
-// Ray i of the (3, n) rows; a pad lane (i >= n) gets an all-zero ray, whose
-// tmax of 0 keeps it out of every test.
+// Ray i of the (3, n) rows, row a at origins + a * rs (rs = n for a
+// contiguous (3, n) tensor, the state's lanes for a prefix of the bounce
+// loop's state); a pad lane (i >= n) gets an all-zero ray, whose tmax of 0
+// keeps it out of every test.
 __device__ __forceinline__ Ray load_ray(const float* origins,
                                         const float* dirs,
-                                        const float* tmax, int n, int i) {
+                                        const float* tmax, int n,
+                                        long long rs, int i) {
   Ray r;
   const bool live = i < n;
 #pragma unroll
   for (int a = 0; a < 3; ++a) {
-    r.o[a] = live ? origins[(size_t)a * n + i] : 0.0f;
-    r.d[a] = live ? dirs[(size_t)a * n + i] : 0.0f;
+    r.o[a] = live ? origins[a * rs + i] : 0.0f;
+    r.d[a] = live ? dirs[a * rs + i] : 0.0f;
     r.inv[a] = live ? inv_dir(r.d[a]) : 0.0f;
   }
   r.tm = live ? tmax[i] : 0.0f;

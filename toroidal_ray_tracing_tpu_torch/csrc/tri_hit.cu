@@ -39,7 +39,8 @@ namespace {
 
 __global__ void __launch_bounds__(128) tri_closest_hit(
     const float* __restrict__ origins, const float* __restrict__ dirs,
-    const float* __restrict__ tmax, int n, const float* __restrict__ wrows,
+    const float* __restrict__ tmax, int n, long long rs,
+    const float* __restrict__ wrows,
     int n_tris, const float* __restrict__ tree_lo,
     const float* __restrict__ tree_hi, const int* __restrict__ tree_link,
     int n_nodes, const int* __restrict__ rank, int cluster, int box_test,
@@ -50,7 +51,7 @@ __global__ void __launch_bounds__(128) tri_closest_hit(
     long long* __restrict__ counters, float* __restrict__ tmax_out,
     bool* __restrict__ occ_out, int occ_or) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
+  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, rs, i);
   trt::Best b;
   trt::Work w;
   b.done = !(r.tm > TRT_TMIN);  // pad and dead rays take part in no test
@@ -69,7 +70,7 @@ __global__ void __launch_bounds__(128) tri_closest_hit(
 
 extern "C" int trt_tri_closest_hit(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* wrows, int n_tris, const float* tree_lo,
+    long long rs, const float* wrows, int n_tris, const float* tree_lo,
     const float* tree_hi, const int* tree_link, int n_nodes, int depth,
     const int* rank, int cluster, int box_test, const float* a0,
     const float* a1, const float* a2, int occlusion, float* t_out,
@@ -79,7 +80,7 @@ extern "C" int trt_tri_closest_hit(
   if (depth > trt::kStack) return (int)cudaErrorInvalidValue;
   const int blocks = (n + 127) / 128;
   tri_closest_hit<<<blocks, 128, 0, (cudaStream_t)stream>>>(
-      origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
+      origins, dirs, tmax, n, rs, wrows, n_tris, tree_lo, tree_hi, tree_link,
       n_nodes, rank, cluster, box_test, a0, a1, a2, occlusion, t_out, idx_out,
       u_out, v_out, attr_out, counters, tmax_out, occ_out, occ_or);
   return (int)cudaGetLastError();

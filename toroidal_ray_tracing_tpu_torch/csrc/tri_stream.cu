@@ -55,8 +55,9 @@ constexpr int kMaxSbRows = 512;
 
 #define TRT_STREAM_ARGS                                                       \
   const float *__restrict__ origins, const float *__restrict__ dirs,         \
-      const float *__restrict__ tmax, int n, const float *__restrict__ wrows, \
-      int n_tris, const float *__restrict__ tree_lo,                          \
+      const float *__restrict__ tmax, int n, long long rs,                    \
+      const float *__restrict__ wrows, int n_tris,                            \
+      const float *__restrict__ tree_lo,                                      \
       const float *__restrict__ tree_hi, const int *__restrict__ tree_link,   \
       int n_nodes, const int *__restrict__ rank,                              \
       const float *__restrict__ clo, const float *__restrict__ chi, int g,    \
@@ -68,13 +69,13 @@ constexpr int kMaxSbRows = 512;
       bool *__restrict__ occ_out, int occ_or
 
 #define TRT_STREAM_PASS                                                      \
-  origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,        \
+  origins, dirs, tmax, n, rs, wrows, n_tris, tree_lo, tree_hi, tree_link,    \
       n_nodes, rank, clo, chi, g, cluster, a0, a1, a2, occlusion, t_out,     \
       idx_out, u_out, v_out, attr_out, counters, tmax_out, occ_out, occ_or
 
 __global__ void __launch_bounds__(128) tri_closest_hit_stream(TRT_STREAM_ARGS) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
+  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, rs, i);
   trt::Best b;
   trt::Work w;
   b.done = !(r.tm > TRT_TMIN);  // pad and dead rays take part in no test
@@ -129,7 +130,7 @@ __global__ void __launch_bounds__(kGroupRays)
   __shared__ int stack[trt::kStack];
   const int tid = threadIdx.x;
   const int i = blockIdx.x * kGroupRays + tid;
-  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, i);
+  const trt::Ray r = trt::load_ray(origins, dirs, tmax, n, rs, i);
   trt::Best b;
   trt::Work w;
   b.done = !(r.tm > TRT_TMIN);  // pad and dead rays take part in no test
@@ -198,7 +199,7 @@ __global__ void __launch_bounds__(kGroupRays)
 
 extern "C" int trt_tri_closest_hit_stream(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* wrows, int n_tris, const float* tree_lo,
+    long long rs, const float* wrows, int n_tris, const float* tree_lo,
     const float* tree_hi, const int* tree_link, int n_nodes, int depth,
     const int* rank,
     const float* clo, const float* chi, int g, int cluster, const float* a0,
@@ -215,7 +216,7 @@ extern "C" int trt_tri_closest_hit_stream(
 
 extern "C" int trt_tri_closest_hit_stream_grouped(
     const float* origins, const float* dirs, const float* tmax, int n,
-    const float* wrows, int n_tris, const float* tree_lo,
+    long long rs, const float* wrows, int n_tris, const float* tree_lo,
     const float* tree_hi, const int* tree_link, int n_nodes, int depth,
     const int* rank,
     const float* clo, const float* chi, int g, int cluster, const float* a0,

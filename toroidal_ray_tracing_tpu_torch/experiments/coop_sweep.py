@@ -152,7 +152,7 @@ def main(argv) -> int:
         fn = entry(libs[value])
 
         def run(oo, dd, tt, occl, rank, out):
-            args = (oo, dd, tt, n, tb.wrows, tb.wrows.shape[0], tb.tree_lo,
+            args = (oo, dd, tt, n, n, tb.wrows, tb.wrows.shape[0], tb.tree_lo,
                     tb.tree_hi, tb.tree_link, tb.tree_lo.shape[0], tb.depth,
                     rank, tb.clo, tb.chi, tb.g, cs,
                     *((None,) * 3 if occl else attrs), int(occl), *out[:4],

@@ -99,7 +99,7 @@ def main(argv) -> int:
                 attrs = None if occl else torch.empty((15, n), device=dev)
 
                 def run(counters=None):
-                    args = (o, d, tm, n, tb.w2o_rows, tb.rad, tb.tree_lo,
+                    args = (o, d, tm, n, n, tb.w2o_rows, tb.rad, tb.tree_lo,
                             tb.tree_hi, tb.tree_link, tb.tree_lo.shape[0],
                             tb.depth, rank, tb.chunk,
                             None if occl else tb.mat, int(occl), *out, attrs,

@@ -68,9 +68,9 @@ def recorded(module, fn):
     seen = []
     real = module.launch
 
-    def rec(name, *args):
+    def rec(name, *args, **kw):
         seen.append((name, args))
-        return real(name, *args)
+        return real(name, *args, **kw)
 
     module.launch = rec
     try:
@@ -178,19 +178,21 @@ def ranked_segment(num: int, dev):
     calls = []
     real = tk.visit_ranks
 
-    def rec(o, n_batch, sets):
-        out = real(o, n_batch, sets)
+    def rec(o, n_batch, sets, out=None):
+        got = real(o, n_batch, sets, out=out)
         if sets and not calls:
-            calls.append((o.clone(), n_batch, sets))
-        return out
+            calls.append((o.clone(), n_batch, list(sets)))
+        return got
 
-    tk.visit_ranks = rec
+    # the segment plan calls V1 through its module, `segment_ranks` through
+    # the name trace_kernel imported
+    tk.visit_ranks = vk.visit_ranks = rec
     try:
         rd.render(scene, sc.camera_at(0), w, h, sc.settings(),
                   backend="kernel", spp=sc.spp, device=dev)
         torch.cuda.synchronize()
     finally:
-        tk.visit_ranks = real
+        tk.visit_ranks = vk.visit_ranks = real
     return calls[0]
 
 

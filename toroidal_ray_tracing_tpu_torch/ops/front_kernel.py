@@ -37,6 +37,7 @@ import numpy as np
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (F32, I32,
+                                                              SEG_TMAX,
                                                               check_args,
                                                               launch)
 
@@ -178,13 +179,16 @@ def span_lanes(order):
 
 
 def span_gather_plain(cur, spare, act_in, act_out, spans, count, orig_in,
-                      orig_out, slot, nb: int, fit: int) -> None:
+                      orig_out, slot, nb: int, fit: int,
+                      tmax_out=None) -> None:
     """Plain twin of G1: the prefix's nb // 128 spans into `spare` in the
     stable live-first order, the spans past it in their slots; lanes
     [0, fit) (the new prefix) get rows 0-11 and the active mask, the rest
     only origin and color (`KEPT_ROWS`, the rows read there again);
     orig_out[p] = orig_in[order[p]] (identity for orig_in None) and
-    slot[orig_out[p]] = p. count is G1's; the twin needs no count."""
+    slot[orig_out[p]] = p; with tmax_out, the new prefix's tmax row
+    (SEG_TMAX where active, else 0). count is G1's; the twin needs no
+    count."""
     s_old, s_total = nb // SPAN, cur.shape[1] // SPAN
     dev = cur.device
     perm = torch.cat([span_order(spans[:s_old]),
@@ -193,6 +197,8 @@ def span_gather_plain(cur, spare, act_in, act_out, spans, count, orig_in,
     spare[:MOVED_ROWS, :fit] = cur[:MOVED_ROWS].index_select(1, idx[:fit])
     spare[KEPT_ROWS, fit:] = cur[KEPT_ROWS].index_select(1, idx[fit:])
     act_out[:fit] = act_in.index_select(0, idx[:fit])
+    if tmax_out is not None:
+        tmax_out[:fit] = torch.where(act_out[:fit], SEG_TMAX, 0.0)
     orig = (torch.arange(s_total, dtype=I32, device=dev) if orig_in is None
             else orig_in)
     orig_out.copy_(orig[perm])
@@ -323,7 +329,7 @@ def raygen_state(kind: int, params, width: int, height: int, jitter,
 
 
 def span_gather(cur, spare, act_in, act_out, spans, count, orig_in,
-                orig_out, slot, nb: int, fit: int) -> None:
+                orig_out, slot, nb: int, fit: int, tmax_out=None) -> None:
     """G1 wrapper, on a bucket shrink of the nb-lane prefix to its first
     `fit` lanes (whole numbers of spans; fit >= 128 x count). cur / spare:
     (15, lanes) float32 state buffers (spare gets the moved rows: 0-11 on
@@ -332,8 +338,10 @@ def span_gather(cur, spare, act_in, act_out, spans, count, orig_in,
     S3's live flags (>= nb / 128), count: S3's int32 0-d live-span count of
     the prefix, orig_in: (lanes / 128,) int32 each slot's original span or
     None (nothing moved yet), orig_out and slot: (lanes / 128,) int32,
-    written. CUDA tensors launch the kernel (or raise); CPU tensors run
-    `span_gather_plain`."""
+    written. tmax_out: optional (lanes,) float32 row (a segment plan's
+    tmax), written on [0, fit): `kernel_common.SEG_TMAX` where act_out
+    holds, else 0. CUDA tensors launch the kernel (or raise); CPU tensors
+    run `span_gather_plain`."""
     lanes = cur.shape[1]
     s_total = lanes // SPAN
     dev = cur.device
@@ -343,7 +351,8 @@ def span_gather(cur, spare, act_in, act_out, spans, count, orig_in,
                act_out=(act_out, (lanes,), torch.bool),
                count=(count, (), I32), orig_in=(orig_in, (s_total,), I32),
                orig_out=(orig_out, (s_total,), I32),
-               slot=(slot, (s_total,), I32))
+               slot=(slot, (s_total,), I32),
+               tmax_out=(tmax_out, (lanes,), F32))
     if lanes % SPAN or nb % SPAN or fit % SPAN or not 0 < nb <= lanes \
             or not 0 <= fit <= nb:
         raise ValueError(f"prefix {nb} -> {fit} of {lanes} lanes: want "
@@ -353,10 +362,11 @@ def span_gather(cur, spare, act_in, act_out, spans, count, orig_in,
         raise ValueError(f"spans: want >= {nb // SPAN} contiguous bools")
     if not cur.is_cuda:
         span_gather_plain(cur, spare, act_in, act_out, spans, count, orig_in,
-                          orig_out, slot, nb, fit)
+                          orig_out, slot, nb, fit, tmax_out)
         return
     launch("trt_span_gather", cur, spare, act_in, act_out, spans, count,
-           orig_in, orig_out, slot, nb // SPAN, fit // SPAN, s_total, lanes)
+           orig_in, orig_out, slot, nb // SPAN, fit // SPAN, s_total, lanes,
+           tmax_out, SEG_TMAX)
 
 
 def frame_finish(kind: int, params, width: int, height: int, block: int,

@@ -1,7 +1,8 @@
 """Shared pieces of the trace kernels: constants, the slab-test reciprocal
 and pass rule, front-to-back visit order, the plain twins' work counts,
-input checks, launch counters, and the nvcc build + ctypes loader of the
-hand-written CUDA kernels in `csrc/`.
+input checks, the outputs a segment plan hands a wrapper (`Planned`),
+launch counters, and the nvcc build + ctypes loader of the hand-written
+CUDA kernels in `csrc/`.
 
 Build: every `csrc/*.cu` compiles with its own nvcc process (all started
 together) and the objects link into ONE shared library with a plain C
@@ -32,6 +33,7 @@ import torch
 
 BIG = 3.0e38          # "no hit" t (float32 value)
 TMIN = 1.0e-3         # raytrace.rgen:61
+SEG_TMAX = 10000.0    # raytrace.rgen:62: a live ray's tmax in a segment
 SAH_BINS = 16         # build_tree's centroid bins per split
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -274,11 +276,63 @@ def check_args(device, **args):
             raise ValueError(f"{name} is not contiguous")
 
 
-def check_rays(origins, dirs, tmax):
-    """Validate the (3, N) float32 ray rows + (N,) tmax every kernel takes."""
+def check_rays(origins, dirs, tmax) -> int:
+    """Validate the (3, N) float32 ray rows + (N,) tmax every kernel takes
+    (tmax None: the rays alone) and return the rows' stride. origins and
+    dirs may be row views of a larger buffer (a prefix of the bounce loop's
+    (15, lanes) state): each row contiguous, both at one row stride, which
+    the kernels take."""
     n = origins.shape[-1]
-    check_args(origins.device, origins=(origins, (3, n), F32),
-               dirs=(dirs, (3, n), F32), tmax=(tmax, (n,), F32))
+    dev = origins.device
+    rs = origins.stride(0) if origins.dim() == 2 else 0
+    for name, a in (("origins", origins), ("dirs", dirs)):
+        if a.device != dev:
+            raise ValueError(f"{name} on {a.device}, rays on {dev}")
+        if tuple(a.shape) != (3, n):
+            raise ValueError(f"{name}: shape {tuple(a.shape)}, want (3, {n})")
+        if a.dtype != F32:
+            raise TypeError(f"{name}: dtype {a.dtype}, want {F32}")
+        if (n > 1 and a.stride(1) != 1) or a.stride(0) != rs:
+            raise ValueError(f"{name}: each row contiguous, origins and "
+                             "dirs at one row stride")
+    check_args(dev, tmax=(tmax, (n,), F32))
+    return rs
+
+
+def ray_rows(origins, dirs):
+    """(origins, dirs) as the kernels take them: as they are when each row
+    is contiguous and both share a row stride (a prefix of the bounce
+    loop's state), else contiguous copies (the transposed (N, 3) rays of
+    `trace_rays_fixed`)."""
+    ok = all(a.dim() == 2 and (a.shape[1] <= 1 or a.stride(1) == 1)
+             and a.stride(0) == origins.stride(0) for a in (origins, dirs))
+    return (origins, dirs) if ok else (origins.contiguous(),
+                                       dirs.contiguous())
+
+
+class Planned(tuple):
+    """A wrapper's outputs from a segment plan (`ops.segment_plan`), passed
+    as `out=`: views of the plan's workspace, in the order the wrapper
+    returns them (None for an output the call does not write), and the raw
+    CUDA stream its launch goes on (None on the CPU); keyword extras are a
+    kernel's scratch buffers. The plan ran the wrapper's checks on these
+    arguments once, when it was built, so a wrapper handed one checks
+    nothing and allocates nothing. On CPU tensors the twin runs and its
+    results are copied into the views (`fill`)."""
+
+    def __new__(cls, views, stream=None, **extra):
+        out = super().__new__(cls, views)
+        out.stream = stream
+        out.__dict__.update(extra)
+        return out
+
+
+def fill(out: Planned, results) -> Planned:
+    """A twin's results copied into a plan's views; returns the views."""
+    for view, r in zip(out, results):
+        if view is not None:
+            view.copy_(r)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -294,60 +348,67 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
-    # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
-    # n_nodes, depth, rank, cluster, box_test, a0, a1, a2, occlusion, t,
-    # idx, u, v, attrs, counters, tmax_out, occ_out, occ_or, stream
-    "trt_tri_closest_hit": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I, _I, _P,
-                            _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P,
-                            _P, _P, _I, _P],
-    # origins, dirs, tmax, n, w2o, rad, tree_lo, tree_hi, tree_link, n_nodes,
-    # depth, rank, chunk, mat, occlusion, t, idx, attrs, counters, occ_out,
+    # origins, dirs, tmax, n, ray row stride, wrows, n_tris, tree_lo,
+    # tree_hi, tree_link, n_nodes, depth, rank, cluster, box_test, a0, a1,
+    # a2, occlusion, t, idx, u, v, attrs, counters, tmax_out, occ_out,
     # occ_or, stream
-    "trt_torus_closest_hit": [_P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _I,
-                              _P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _P],
-    # origins, dirs, tmax, n, par, K, occlusion, t, idx, attrs, counters,
-    # occ_out, occ_or, stream
-    "trt_torus_closest_hit_small": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _P,
-                                    _P, _P, _I, _P],
+    "trt_tri_closest_hit": [_P, _P, _P, _I, _L, _P, _I, _P, _P, _P, _I, _I,
+                            _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
+                            _P, _P, _P, _I, _P],
+    # origins, dirs, tmax, n, ray row stride, w2o, rad, tree_lo, tree_hi,
+    # tree_link, n_nodes, depth, rank, chunk, mat, occlusion, t, idx,
+    # attrs, counters, occ_out, occ_or, stream
+    "trt_torus_closest_hit": [_P, _P, _P, _I, _L, _P, _P, _P, _P, _P, _I,
+                              _I, _P, _I, _P, _I, _P, _P, _P, _P, _P, _I,
+                              _P],
+    # origins, dirs, tmax, n, ray row stride, par, K, occlusion, t, idx,
+    # attrs, counters, occ_out, occ_or, stream
+    "trt_torus_closest_hit_small": [_P, _P, _P, _I, _L, _P, _I, _I, _P, _P,
+                                    _P, _P, _P, _I, _P],
     # data4q, n_texels, f0, f1, valid, n, q0, q1, stream
     "trt_quad_gather": [_P, _I, _P, _P, _P, _I, _P, _P, _P],
-    # origins, dirs, tmax, n, wrows, n_tris, tree_lo, tree_hi, tree_link,
-    # n_nodes, depth, rank, clo, chi, g, cluster, a0, a1, a2, occlusion, t,
-    # idx, u, v, attrs, counters, tmax_out, occ_out, occ_or, stream
-    "trt_tri_closest_hit_stream": [_P, _P, _P, _I, _P, _I, _P, _P, _P, _I,
-                                   _I, _P, _P, _P, _I, _I, _P, _P, _P, _I,
-                                   _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    "trt_tri_closest_hit_stream_grouped": [_P, _P, _P, _I, _P, _I, _P, _P,
-                                           _P, _I, _I, _P, _P, _P, _I, _I,
-                                           _P, _P, _P, _I, _P, _P, _P, _P,
-                                           _P, _P, _P, _P, _I, _P],
+    # origins, dirs, tmax, n, ray row stride, wrows, n_tris, tree_lo,
+    # tree_hi, tree_link, n_nodes, depth, rank, clo, chi, g, cluster, a0,
+    # a1, a2, occlusion, t, idx, u, v, attrs, counters, tmax_out, occ_out,
+    # occ_or, stream
+    "trt_tri_closest_hit_stream": [_P, _P, _P, _I, _L, _P, _I, _P, _P, _P,
+                                   _I, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                                   _I, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                   _P],
+    "trt_tri_closest_hit_stream_grouped": [_P, _P, _P, _I, _L, _P, _I, _P,
+                                           _P, _P, _I, _I, _P, _P, _P, _I,
+                                           _I, _P, _P, _P, _I, _P, _P, _P,
+                                           _P, _P, _P, _P, _P, _I, _P],
     # out, n, k1, k2, stream
     "trt_threefry_uniform": [_P, ctypes.c_int64, ctypes.c_uint32,
                              ctypes.c_uint32, _P],
-    # origins, dirs, tmax, n, woop_o, woop_d, n_tris, base, n_rows,
-    # prim_base, occlusion, t, kind, prim, u, v, tri_tmax, occ_out, stream
-    "trt_loose_hit": [_P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _P, _P,
-                      _P, _P, _P, _P, _P, _P],
-    # origins, dirs, n, base t, kind, prim, u, v, tri t, idx, u, v,
-    # tri_off, tor t, tri, tor, la0, la1, la2, n_cols, loose_base, n_loose,
-    # consts, light_point, intensity, pixel_spread, tex_off, tex_sizes,
-    # tex_levels, n_lv, shadow_o, shadow_d, shadow_tmax, block, flags,
-    # tex_i0, tex_i1, tex_valid, stream
-    "trt_shade_hit": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                      _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F, _F,
-                      _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # origins, dirs, tmax, n, ray row stride, woop_o, woop_d, n_tris, base,
+    # n_rows, prim_base, occlusion, t, kind, prim, u, v, tri_tmax, occ_out,
+    # stream
+    "trt_loose_hit": [_P, _P, _P, _I, _L, _P, _P, _I, _I, _I, _I, _I, _P,
+                      _P, _P, _P, _P, _P, _P, _P],
+    # origins, dirs, n, ray row stride, base t, kind, prim, u, v, tri t,
+    # idx, u, v, tri_off, tor t, tri, tor, la0, la1, la2, n_cols,
+    # loose_base, n_loose, consts, light_point, intensity, pixel_spread,
+    # tex_off, tex_sizes, tex_levels, n_lv, shadow_o, shadow_d, shadow_tmax,
+    # block, flags, tex_i0, tex_i1, tex_valid, stream
+    "trt_shade_hit": [_P, _P, _I, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _I, _F,
+                      _F, _P, _P, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
+                      _P],
     # state, lanes, active, nb, block, flags, shadow_o, shadow_d, occluded,
-    # q0, q1, srgb, consts, first, more, rays, spans, count, stream
+    # q0, q1, srgb, consts, first, more, rays, spans, count, tmax_next,
+    # seg_tmax, stream
     "trt_shade_finish": [_P, _I, _P, _I, _P, _P, _P, _P, _P, _P, _P, _P,
-                         _P, _I, _I, _P, _P, _P, _P],
+                         _P, _I, _I, _P, _P, _P, _P, _F, _P],
     # cam, kind, width, height, block, jitter, n, tail, o, d, row_stride,
     # elem_stride, rest, lanes, active, stream
     "trt_raygen": [_P, _I, _I, _I, _I, _P, _I, _I, _P, _P, _L, _I, _P, _L,
                    _P, _P],
     # cur, spare, act_in, act_out, live, count, orig_in, orig_out, slot,
-    # s_old, s_fit, s_total, lanes, stream
+    # s_old, s_fit, s_total, lanes, tmax_out, seg_tmax, stream
     "trt_span_gather": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L,
-                        _P],
+                        _P, _F, _P],
     # cam, kind, width, height, block, hv, slot, lanes, off, hp, img, s,
     # spp, hp_out, o_out, d_out, chw, stream
     "trt_frame_finish": [_P, _I, _I, _I, _I, _P, _P, _L, _L, _P, _P, _I, _I,
@@ -442,15 +503,28 @@ def library():
         return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Call C entry point `name` on the current CUDA stream; raise if the
-    launch reports an error (cudaGetLastError != 0). Tensor arguments pass
-    as device pointers (None -> NULL)."""
-    fn = getattr(library(), name)
-    conv = [a.data_ptr() if isinstance(a, torch.Tensor)
-            else (None if a is None else a) for a in args]
-    stream = torch.cuda.current_stream().cuda_stream
-    rc = fn(*conv, stream)
+_entries: dict = {}   # C entry point name -> its ctypes function
+
+
+def entry(name: str):
+    """The ctypes function of C entry point `name`, resolved once (the
+    library is built and loaded at the first)."""
+    fn = _entries.get(name)
+    if fn is None:
+        fn = _entries[name] = getattr(library(), name)
+    return fn
+
+
+def launch(name: str, *args, stream=None) -> None:
+    """Call C entry point `name` on `stream` (a raw CUDA stream handle, a
+    segment plan's; default the current stream); raise if the launch
+    reports an error (cudaGetLastError != 0). Tensor arguments pass as
+    device pointers (None -> NULL)."""
+    fn = _entries.get(name) or entry(name)
+    if stream is None:
+        stream = torch.cuda.current_stream().cuda_stream
+    rc = fn(*[a.data_ptr() if isinstance(a, torch.Tensor) else a
+              for a in args], stream)
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
-    LAUNCHES[name[len("trt_"):]] += 1
+    LAUNCHES[name[4:]] += 1

@@ -26,8 +26,8 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.geom.triangle import woop_dots, woop_hit
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    BIG, F32, I32, TMIN, check_args, check_folds, check_rays, fold_outputs,
-    launch)
+    BIG, F32, I32, TMIN, check_args, check_folds, check_rays, fill,
+    fold_outputs, launch)
 
 LOOSE_MAX = 16      # scene/build.py LOOSE_TOTAL_MAX, the kernel's row cap
 
@@ -52,15 +52,11 @@ def loose_hit_plain(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
             torch.where(hit, v.gather(0, r)[0], 0.0), tri_tmax)
 
 
-def loose_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
-              prim_base: int, occlusion: bool = False, occ_out=None):
-    """S1 wrapper. origins/dirs: (3, N) rows; tmax (N,); woop_o (3, 4, T)
-    and woop_d (3, 3, T): the Woop tables, whose rows [base, base + L) are
-    the loose tail, 1 <= L <= 16; prim_base: the global index of row base.
-    occ_out: in occlusion mode, an optional (N,) bool tensor the kernel
-    writes the query's occlusion byte (t < BIG) into. Returns (t, kind,
-    prim, u, v, tri_tmax), each (N,): kind and prim int32."""
-    check_rays(origins, dirs, tmax)
+def check_loose_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
+                    occlusion: bool = False, occ_out=None, out=None) -> int:
+    """`loose_hit`'s argument checks (a segment plan runs them once on its
+    own arguments and outputs); returns the rays' row stride."""
+    rs = check_rays(origins, dirs, tmax)
     n, T = origins.shape[1], woop_o.shape[2]
     check_args(origins.device, woop_o=(woop_o, (3, 4, T), F32),
                woop_d=(woop_d, (3, 3, T), F32))
@@ -68,15 +64,43 @@ def loose_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
     if not (1 <= L <= LOOSE_MAX and 0 <= base and base + L <= T):
         raise ValueError(f"loose rows [{base}, {base + L}) of {T}: the "
                          f"kernel takes 1 to {LOOSE_MAX} rows of the table")
+    if out is not None:
+        check_args(origins.device, **{
+            f"out{k}": (a, (n,), I32 if k in (1, 2) else F32)
+            for k, a in enumerate(out)})
+    return rs
+
+
+def loose_hit(origins, dirs, tmax, woop_o, woop_d, base: int, L: int,
+              prim_base: int, occlusion: bool = False, occ_out=None,
+              out=None):
+    """S1 wrapper. origins/dirs: (3, N) rows, each row contiguous, at one
+    row stride (a prefix of the bounce loop's state is fine); tmax (N,);
+    woop_o (3, 4, T) and woop_d (3, 3, T): the Woop tables, whose rows
+    [base, base + L) are the loose tail, 1 <= L <= 16; prim_base: the
+    global index of row base. occ_out: in occlusion mode, an optional (N,)
+    bool tensor the kernel writes the query's occlusion byte (t < BIG)
+    into. out: the six outputs from a segment plan
+    (`kernel_common.Planned`; no check, no allocation). Returns (t, kind,
+    prim, u, v, tri_tmax), each (N,): kind and prim int32."""
+    n, T = origins.shape[1], woop_o.shape[2]
+    if out is None:
+        rs = check_loose_hit(origins, dirs, tmax, woop_o, woop_d, base, L,
+                             occlusion, occ_out)
+    else:
+        rs = origins.stride(0)
     if not origins.is_cuda:
-        return loose_hit_plain(origins, dirs, tmax, woop_o, woop_d, base, L,
-                               prim_base, occlusion, occ_out)
-    f32 = dict(dtype=F32, device=origins.device)
-    i32 = dict(dtype=I32, device=origins.device)
-    out = (torch.empty((n,), **f32), torch.empty((n,), **i32),
-           torch.empty((n,), **i32), torch.empty((n,), **f32),
-           torch.empty((n,), **f32), torch.empty((n,), **f32))
+        got = loose_hit_plain(origins, dirs, tmax, woop_o, woop_d, base, L,
+                              prim_base, occlusion, occ_out)
+        return got if out is None else fill(out, got)
+    if out is None:
+        f32 = dict(dtype=F32, device=origins.device)
+        i32 = dict(dtype=I32, device=origins.device)
+        out = (torch.empty((n,), **f32), torch.empty((n,), **i32),
+               torch.empty((n,), **i32), torch.empty((n,), **f32),
+               torch.empty((n,), **f32), torch.empty((n,), **f32))
     if n:
-        launch("trt_loose_hit", origins, dirs, tmax, n, woop_o, woop_d, T,
-               int(base), L, int(prim_base), int(occlusion), *out, occ_out)
+        launch("trt_loose_hit", origins, dirs, tmax, n, rs, woop_o, woop_d,
+               T, int(base), L, int(prim_base), int(occlusion), *out,
+               occ_out, stream=getattr(out, "stream", None))
     return out

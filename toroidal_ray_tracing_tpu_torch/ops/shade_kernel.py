@@ -57,10 +57,9 @@ from typing import Optional
 import torch
 import torch.nn.functional as F_
 
-from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (F32, I32,
-                                                              check_args,
-                                                              launch)
-from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import merge_parts
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
+    F32, I32, SEG_TMAX, check_args, check_rays, launch)
+from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import _kept, merge_parts
 from toroidal_ray_tracing_tpu_torch.scene.types import (LIGHT_POINT,
                                                         RenderSettings, Scene,
                                                         srgb_table)
@@ -112,6 +111,22 @@ def shade_params(scene: Scene, settings: RenderSettings) -> ShadeParams:
         intensity=float(settings.light.intensity),
         pixel_spread=float(settings.pixel_spread), atlas=atlas,
         srgb=srgb_table(lpos.device) if atlas is not None else None)
+
+
+def kept_shade_params(scene: Scene, settings: RenderSettings) -> ShadeParams:
+    """`shade_params`, kept on the scene (`ops.trace_kernel._kept`) for the
+    settings' tensors and numbers: made again only when a light position or
+    clear color tensor was replaced or changed in place, or a number
+    changed. The front doors hand equal settings the same device tensors
+    (`render.renderer`), so a closed-loop client's frames compute it
+    once."""
+    return _kept(scene, "shade_params", (),
+                 (settings.light.position, settings.clear_color,
+                  scene.textures.data4q),
+                 lambda: shade_params(scene, settings),
+                 numbers=(int(settings.light.type),
+                          float(settings.light.intensity).hex(),
+                          float(settings.pixel_spread).hex()))
 
 
 @dataclasses.dataclass
@@ -276,10 +291,12 @@ def live_spans(active):
 
 def shade_finish_plain(state, active, nb: int, s2: ShadeRays, occluded,
                        quads, params: ShadeParams, depth: int,
-                       max_depth: int, rays, spans, count) -> None:
+                       max_depth: int, rays, spans, count,
+                       tmax_next=None) -> None:
     """Plain PyTorch twin of S3: shade()'s arithmetic after its shadow
     query (`trace/shade.py:252-284`) and the bounce loop's update
-    (`trace/wavefront.py`), in place."""
+    (`trace/wavefront.py`), in place; with tmax_next, the next segment's
+    tmax row on the prefix (SEG_TMAX where a ray goes on, else 0)."""
     s = state[:, :nb]
     act = active[:nb]
     o, d, att, hv = s[_O], s[_D], s[_AT], s[_HV]
@@ -322,6 +339,8 @@ def shade_finish_plain(state, active, nb: int, s2: ShadeRays, occluded,
     rays += act.sum() + (act & need_shadow).sum()
     act = act & reflective & (depth + 1 < max_depth)
     active[:nb] = act
+    if tmax_next is not None:
+        tmax_next[:nb] = torch.where(act, SEG_TMAX, 0.0)
     torch.where(act[None, :], world_pos, o, out=o)
     torch.where(act[None, :], next_dir, d, out=d)
     live = live_spans(act)
@@ -334,12 +353,10 @@ def shade_finish_plain(state, active, nb: int, s2: ShadeRays, occluded,
 # ---------------------------------------------------------------------------
 
 
-def shade_hit(origins, dirs, rows: AttrRows,
-              params: ShadeParams) -> ShadeRays:
-    """S2 wrapper. origins/dirs: (3, N) rows; rows: a closest-hit query's
-    `AttrRows` with its hit parts (`closest_hit(..., merge=False)`, or
-    `base_rows` of a merged hit); params: `shade_params`. The outputs are
-    defined on the lanes the module's contract gives (`defined_entries`)."""
+def check_shade_hit(origins, dirs, rows: AttrRows, params: ShadeParams,
+                    out=None) -> int:
+    """`shade_hit`'s argument checks (a segment plan runs them once on its
+    own arguments and outputs); returns the rays' row stride."""
     n, dev = origins.shape[1], origins.device
     base, tri_hit, tor_hit = rows.base, rows.tri_hit, rows.tor_hit
     b = base if base is not None else (None,) * 5
@@ -347,8 +364,8 @@ def shade_hit(origins, dirs, rows: AttrRows,
     q = tor_hit if tor_hit is not None else (None,) * 2
     T = rows.loose[0].shape[1] if rows.loose is not None else 0
     la = rows.loose if rows.loose is not None else (None,) * 3
-    check_args(dev, origins=(origins, (3, n), F32),
-               dirs=(dirs, (3, n), F32), t=(b[0], (n,), F32),
+    rs = check_rays(origins, dirs, None)
+    check_args(dev, t=(b[0], (n,), F32),
                kind=(b[1], (n,), I32), prim=(b[2], (n,), I32),
                u=(b[3], (n,), F32), v=(b[4], (n,), F32),
                tri_t=(k[0], (n,), F32),
@@ -361,47 +378,92 @@ def shade_hit(origins, dirs, rows: AttrRows,
     if rows.loose is not None and not (
             0 <= rows.loose_base <= T - rows.n_loose):
         raise ValueError("loose rows lie outside the tables")
-    if not origins.is_cuda:
-        return shade_hit_plain(origins, dirs, rows, params)
-    f32 = dict(dtype=F32, device=dev)
-    out = ShadeRays(
-        shadow_o=torch.empty((3, n), **f32),
-        shadow_d=torch.empty((3, n), **f32),
-        shadow_tmax=torch.empty((n,), **f32),
-        block=torch.empty((N_BLOCK, n), **f32),
-        flags=torch.empty((n,), dtype=torch.uint8, device=dev), tex=None)
     at = params.atlas
     if at is not None:
         n_tex, n_lv = at.offsets.shape
         check_args(dev, offsets=(at.offsets, (n_tex, n_lv), I32),
                    sizes=(at.sizes, (n_tex, n_lv, 2), I32),
                    n_levels=(at.n_levels, (n_tex,), I32))
-        out.tex = (torch.empty((n,), dtype=I32, device=dev),
-                   torch.empty((n,), dtype=I32, device=dev),
-                   torch.empty((n,), dtype=torch.bool, device=dev))
+    if out is not None:
+        shapes = [((3, n), F32), ((3, n), F32), ((n,), F32),
+                  ((N_BLOCK, n), F32), ((n,), torch.uint8)]
+        if at is not None:
+            shapes += [((n,), I32), ((n,), I32), ((n,), torch.bool)]
+        if len(out) != len(shapes):
+            raise ValueError(f"out: {len(out)} outputs, want {len(shapes)}")
+        check_args(dev, **{f"out{j}": (a, *shape)
+                           for j, (a, shape) in enumerate(zip(out, shapes))})
+    return rs
+
+
+def _shade_rays(views) -> ShadeRays:
+    return ShadeRays(shadow_o=views[0], shadow_d=views[1],
+                     shadow_tmax=views[2], block=views[3], flags=views[4],
+                     tex=tuple(views[5:8]) if len(views) > 5 else None)
+
+
+def shade_hit(origins, dirs, rows: AttrRows, params: ShadeParams,
+              out=None) -> ShadeRays:
+    """S2 wrapper. origins/dirs: (3, N) rows, each row contiguous, at one
+    row stride (a prefix of the bounce loop's state is fine); rows: a
+    closest-hit query's `AttrRows` with its hit parts (`closest_hit(...,
+    merge=False)`, or `base_rows` of a merged hit); params:
+    `shade_params`. out: the outputs from a segment plan
+    (`kernel_common.Planned`: shadow_o, shadow_d, shadow_tmax, block,
+    flags, and K4's three on textured scenes; no check, no allocation).
+    The outputs are defined on the lanes the module's contract gives
+    (`defined_entries`)."""
+    n, dev = origins.shape[1], origins.device
+    if out is None:
+        rs = check_shade_hit(origins, dirs, rows, params)
+    else:
+        rs = origins.stride(0)
+    if not origins.is_cuda:
+        got = shade_hit_plain(origins, dirs, rows, params)
+        if out is None:
+            return got
+        sr = _shade_rays(out)
+        for view, full in zip(out, (got.shadow_o, got.shadow_d,
+                                    got.shadow_tmax, got.block, got.flags,
+                                    *(got.tex or ()))):
+            view.copy_(full)
+        return sr
+    at = params.atlas
+    if out is None:
+        f32 = dict(dtype=F32, device=dev)
+        out = (torch.empty((3, n), **f32), torch.empty((3, n), **f32),
+               torch.empty((n,), **f32), torch.empty((N_BLOCK, n), **f32),
+               torch.empty((n,), dtype=torch.uint8, device=dev))
+        if at is not None:
+            out += (torch.empty((n,), dtype=I32, device=dev),
+                    torch.empty((n,), dtype=I32, device=dev),
+                    torch.empty((n,), dtype=torch.bool, device=dev))
+    sr = _shade_rays(out)
+    base, tri_hit, tor_hit = rows.base, rows.tri_hit, rows.tor_hit
+    b = base if base is not None else (None,) * 5
+    k = tri_hit if tri_hit is not None else (None,) * 4
+    la = rows.loose if rows.loose is not None else (None,) * 3
     if n:
-        launch("trt_shade_hit", origins, dirs, n, *b, *k,
-               int(rows.tri_offset), q[0], rows.tri, rows.tor, *la, T,
+        launch("trt_shade_hit", origins, dirs, n, rs, *b, *k,
+               int(rows.tri_offset),
+               tor_hit[0] if tor_hit is not None else None, rows.tri,
+               rows.tor, *la,
+               rows.loose[0].shape[1] if rows.loose is not None else 0,
                int(rows.loose_base), int(rows.n_loose), params.consts,
                int(params.light_type == LIGHT_POINT), params.intensity,
                params.pixel_spread,
                *((at.offsets, at.sizes, at.n_levels, at.offsets.shape[1])
                  if at is not None else (None, None, None, 0)),
-               out.shadow_o, out.shadow_d, out.shadow_tmax, out.block,
-               out.flags, *(out.tex or (None,) * 3))
-    return out
+               *out[:5], *(out[5:8] if at is not None else (None,) * 3),
+               stream=getattr(out, "stream", None))
+    return sr
 
 
-def shade_finish(state, active, nb: int, s2: ShadeRays, occluded, quads,
-                 params: ShadeParams, depth: int, max_depth: int, rays,
-                 spans, count) -> None:
-    """S3 wrapper, in place. state: the (15, lanes) bounce state (rows
-    origin, direction, color, attenuation, first hit); active: (lanes,)
-    bool; nb: the lanes this segment traced (its prefix); s2: S2's
-    outputs; occluded: (nb,) bool, the shadow query; quads: K4's (q0, q1)
-    on textured scenes, else None; depth, max_depth: the segment and the
-    cap; rays: the int64 0-d ray counter; spans: (>= ceil(nb / 128),)
-    bool, count: int32 0-d holding 0, the live spans this writes."""
+def check_shade_finish(state, active, nb: int, s2: ShadeRays, occluded,
+                       quads, params: ShadeParams, rays, spans, count,
+                       out=None) -> None:
+    """`shade_finish`'s argument checks (a segment plan runs them once on
+    its own arguments and outputs)."""
     lanes = state.shape[1]
     dev = state.device
     check_args(dev, state=(state, (15, lanes), F32),
@@ -421,13 +483,35 @@ def shade_finish(state, active, nb: int, s2: ShadeRays, occluded, quads,
         check_args(dev, q0=(quads[0], (3, nb), I32),
                    q1=(quads[1], (3, nb), I32),
                    srgb=(params.srgb, (256,), F32))
+    if out is not None:
+        check_args(dev, tmax_next=(out[0], (lanes,), F32))
+
+
+def shade_finish(state, active, nb: int, s2: ShadeRays, occluded, quads,
+                 params: ShadeParams, depth: int, max_depth: int, rays,
+                 spans, count, out=None) -> None:
+    """S3 wrapper, in place. state: the (15, lanes) bounce state (rows
+    origin, direction, color, attenuation, first hit); active: (lanes,)
+    bool; nb: the lanes this segment traced (its prefix); s2: S2's
+    outputs; occluded: (nb,) bool, the shadow query; quads: K4's (q0, q1)
+    on textured scenes, else None; depth, max_depth: the segment and the
+    cap; rays: the int64 0-d ray counter; spans: (>= ceil(nb / 128),)
+    bool, count: int32 0-d holding 0, the live spans this writes. out:
+    from a segment plan (`kernel_common.Planned`; no check), the (lanes,)
+    float32 tmax row of the next segment, which S3 writes on the lanes it
+    updates: `kernel_common.SEG_TMAX` where the ray goes on, else 0."""
+    if out is None:
+        check_shade_finish(state, active, nb, s2, occluded, quads, params,
+                           rays, spans, count)
+    tmax_next = out[0] if out is not None else None
     if not state.is_cuda:
         shade_finish_plain(state, active, nb, s2, occluded, quads, params,
-                           depth, max_depth, rays, spans, count)
+                           depth, max_depth, rays, spans, count, tmax_next)
         return
     if nb:
-        launch("trt_shade_finish", state, lanes, active, nb, s2.block,
-               s2.flags, s2.shadow_o, s2.shadow_d, occluded,
+        launch("trt_shade_finish", state, state.shape[1], active, nb,
+               s2.block, s2.flags, s2.shadow_o, s2.shadow_d, occluded,
                *(quads if quads is not None else (None, None)), params.srgb,
                params.consts, int(depth == 0),
-               int(depth + 1 < max_depth), rays, spans, count)
+               int(depth + 1 < max_depth), rays, spans, count, tmax_next,
+               SEG_TMAX, stream=getattr(out, "stream", None))

@@ -20,7 +20,7 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (I32,
                                                               check_args,
-                                                              launch)
+                                                              fill, launch)
 
 
 def quad_gather_plain(data4q, f0, f1, valid):
@@ -34,17 +34,33 @@ def quad_gather_plain(data4q, f0, f1, valid):
     return tuple(out)
 
 
-def quad_gather(data4q, f0, f1, valid):
-    """K4 wrapper. data4q: (T, 3) int32; f0/f1: (N,) int32 flat texel
-    indices; valid: (N,) bool. Returns (q0, q1), each (3, N) int32."""
+def check_quad_gather(data4q, f0, f1, valid, out=None) -> None:
+    """`quad_gather`'s argument checks (a segment plan runs them once on
+    its own arguments and outputs)."""
     n = f0.shape[0]
     T = data4q.shape[0]
     check_args(f0.device, data4q=(data4q, (T, 3), I32), f0=(f0, (n,), I32),
                f1=(f1, (n,), I32), valid=(valid, (n,), torch.bool))
+    if out is not None:
+        check_args(f0.device, q0=(out[0], (3, n), I32),
+                   q1=(out[1], (3, n), I32))
+
+
+def quad_gather(data4q, f0, f1, valid, out=None):
+    """K4 wrapper. data4q: (T, 3) int32; f0/f1: (N,) int32 flat texel
+    indices; valid: (N,) bool. out: (q0, q1) from a segment plan
+    (`kernel_common.Planned`; no check, no allocation). Returns (q0, q1),
+    each (3, N) int32."""
+    n = f0.shape[0]
+    if out is None:
+        check_quad_gather(data4q, f0, f1, valid)
     if not f0.is_cuda:
-        return quad_gather_plain(data4q, f0, f1, valid)
-    q0 = torch.empty((3, n), dtype=I32, device=f0.device)
-    q1 = torch.empty((3, n), dtype=I32, device=f0.device)
+        got = quad_gather_plain(data4q, f0, f1, valid)
+        return got if out is None else fill(out, got)
+    if out is None:
+        out = (torch.empty((3, n), dtype=I32, device=f0.device),
+               torch.empty((3, n), dtype=I32, device=f0.device))
     if n:
-        launch("trt_quad_gather", data4q, T, f0, f1, valid, n, q0, q1)
-    return q0, q1
+        launch("trt_quad_gather", data4q, data4q.shape[0], f0, f1, valid, n,
+               *out, stream=getattr(out, "stream", None))
+    return out

@@ -43,7 +43,7 @@ import torch
 from toroidal_ray_tracing_tpu_torch.geom.torus import quartic_min_positive
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_folds,
-    check_rays, count, fold_outputs, launch, round_up, slab, tree_rank,
+    check_rays, count, fill, fold_outputs, launch, round_up, slab, tree_rank,
     tree_tensors)
 from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 
@@ -362,26 +362,30 @@ def _check_tables(name: str, tables, want_attrs: bool) -> None:
                          "table")
 
 
-def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
-                              want_attrs: bool = False,
-                              occlusion: bool = False,
-                              n_batch: int | None = None, counters=None,
-                              rank=None, occ_out=None,
-                              occ_or: bool = False):
-    """K2 wrapper. origins/dirs (3, N); tmax (N,); tables: the scene's
-    `torus_tables`. n_batch: batch size the chunk visit order averages
-    origins over (default N). counters: optional (2,) int64 CUDA tensor the
-    kernel adds its (ray, box) slab tests and (ray, torus) quartics to.
-    rank: the (C,) int32 visit rank of the chunks (default: V1 on these
-    rays). occ_out: in occlusion mode, an optional (N,) bool occlusion byte
-    the kernel writes (or, with occ_or, ORs its hits into)."""
+def _hit_outputs(out, n: int, attrs: bool, device) -> None:
+    """Check a torus kernel's planned outputs: (t, idx) (N,) and, with
+    attrs, the (15, N) rows."""
+    shapes = [((n,), F32), ((n,), I32)] + ([((N_ATTR, n), F32)] if attrs
+                                           else [])
+    if len(out) != len(shapes):
+        raise ValueError(f"out: {len(out)} outputs, want {len(shapes)}")
+    check_args(device, **{f"out{k}": (a, *shape)
+                          for k, (a, shape) in enumerate(zip(out, shapes))})
+
+
+def check_torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
+                                    want_attrs: bool = False,
+                                    occlusion: bool = False, counters=None,
+                                    rank=None, occ_out=None,
+                                    occ_or: bool = False, out=None) -> int:
+    """`torus_closest_hit_chunked`'s argument checks (a segment plan runs
+    them once on its own arguments and outputs; rank None: V1 makes it);
+    returns the rays' row stride."""
     _check_tables("torus_closest_hit_chunked", tables, want_attrs)
-    check_rays(origins, dirs, tmax)
+    rs = check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
     Kp, C, M = tb.w2o_rows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
-    if rank is None:
-        rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
     mat = tb.mat if want_attrs else None
     check_args(origins.device, w2o=(tb.w2o_rows, (Kp, 12), F32),
                rad=(tb.rad, (Kp, 2), F32), tor_lo=(tb.tor_lo, (Kp, 3), F32),
@@ -392,62 +396,125 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
                rank=(rank, (C,), I32), mat=(mat, (Kp, 12), F32),
                counters=(counters, (2,), torch.int64))
     check_folds(origins.device, n, occlusion, occ_out=occ_out, occ_or=occ_or)
+    if out is not None:
+        _hit_outputs(out, n, want_attrs, origins.device)
+    return rs
+
+
+def _torus_out(n: int, want_attrs: bool, device):
+    out = (torch.empty((n,), dtype=torch.float32, device=device),
+           torch.empty((n,), dtype=torch.int32, device=device))
+    if want_attrs:
+        out += (torch.empty((N_ATTR, n), dtype=torch.float32,
+                            device=device),)
+    return out
+
+
+def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
+                              want_attrs: bool = False,
+                              occlusion: bool = False,
+                              n_batch: int | None = None, counters=None,
+                              rank=None, occ_out=None,
+                              occ_or: bool = False, out=None):
+    """K2 wrapper. origins/dirs (3, N), each row contiguous, at one row
+    stride (a prefix of the bounce loop's state is fine); tmax (N,);
+    tables: the scene's `torus_tables`. n_batch: batch size the chunk
+    visit order averages origins over (default N). counters: optional (2,)
+    int64 CUDA tensor the kernel adds its (ray, box) slab tests and (ray,
+    torus) quartics to. rank: the (C,) int32 visit rank of the chunks
+    (default: V1 on these rays). occ_out: in occlusion mode, an optional
+    (N,) bool occlusion byte the kernel writes (or, with occ_or, ORs its
+    hits into). out: (t, idx[, attrs]) from a segment plan
+    (`kernel_common.Planned`; no check, no allocation)."""
+    n = origins.shape[1]
+    tb = tables
+    if out is None:
+        rs = check_torus_closest_hit_chunked(origins, dirs, tmax, tb,
+                                             want_attrs, occlusion, counters,
+                                             rank, occ_out, occ_or)
+    else:
+        rs = origins.stride(0)
+    if rank is None:
+        rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
+    mat = tb.mat if want_attrs else None
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernel's work")
-        return torus_chunked_plain(origins, dirs, tmax, tb.w2o_rows, tb.rad,
-                                   tb.tor_lo, tb.tor_hi, tb.clo, tb.chi,
-                                   tree_rank(rank), tb.chunk, mat, occlusion,
-                                   occ_out=occ_out, occ_or=occ_or)
+        got = torus_chunked_plain(origins, dirs, tmax, tb.w2o_rows, tb.rad,
+                                  tb.tor_lo, tb.tor_hi, tb.clo, tb.chi,
+                                  tree_rank(rank), tb.chunk, mat, occlusion,
+                                  occ_out=occ_out, occ_or=occ_or)
+        return got if out is None else fill(out, got)
 
     # the entry point refuses a tree deeper than the kernel's stack, with an
     # error that `launch` raises
-    t = torch.empty((n,), dtype=torch.float32, device=origins.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    attrs = (torch.empty((N_ATTR, n), dtype=torch.float32,
-                         device=origins.device) if want_attrs else None)
+    if out is None:
+        out = _torus_out(n, want_attrs, origins.device)
     if n:
-        launch("trt_torus_closest_hit", origins, dirs, tmax, n, tb.w2o_rows,
-               tb.rad, tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth,
-               rank, tb.chunk, mat, int(occlusion), t, idx, attrs, counters,
-               occ_out, int(occ_or))
-    return (t, idx) + ((attrs,) if attrs is not None else ())
+        launch("trt_torus_closest_hit", origins, dirs, tmax, n, rs,
+               tb.w2o_rows, tb.rad, tb.tree_lo, tb.tree_hi, tb.tree_link,
+               tb.tree_lo.shape[0], tb.depth, rank, tb.chunk, mat,
+               int(occlusion), out[0], out[1],
+               out[2] if want_attrs else None, counters, occ_out,
+               int(occ_or), stream=getattr(out, "stream", None))
+    return out
+
+
+def check_torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
+                                  want_attrs: bool = False,
+                                  occlusion: bool = False, counters=None,
+                                  occ_out=None, occ_or: bool = False,
+                                  out=None) -> int:
+    """`torus_closest_hit_small`'s argument checks (a segment plan runs
+    them once on its own arguments and outputs); returns the rays' row
+    stride."""
+    _check_tables("torus_closest_hit_small", tables, want_attrs)
+    rs = check_rays(origins, dirs, tmax)
+    n = origins.shape[1]
+    K = tables.K
+    if tables.par is None:
+        raise ValueError(f"K3 takes 1..{TORUS_SMALL_MAX_K} tori, got {K}")
+    check_args(origins.device, par=(tables.par, (K, 32), F32),
+               counters=(counters, (2,), torch.int64))
+    check_folds(origins.device, n, occlusion, occ_out=occ_out, occ_or=occ_or)
+    if out is not None:
+        _hit_outputs(out, n, want_attrs, origins.device)
+    return rs
 
 
 def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
                             want_attrs: bool = False,
                             occlusion: bool = False, counters=None,
-                            occ_out=None, occ_or: bool = False):
+                            occ_out=None, occ_or: bool = False, out=None):
     """K3 wrapper (K <= TORUS_SMALL_MAX_K tori); same contract as K2.
     counters: optional (2,) int64 CUDA tensor the kernel adds its (ray,
     box) slab tests and (ray, torus) quartics to, as the twin's `counts`
-    counts them. occ_out, occ_or: the occlusion byte, as K2's."""
-    _check_tables("torus_closest_hit_small", tables, want_attrs)
-    check_rays(origins, dirs, tmax)
+    counts them. occ_out, occ_or, out: as K2's."""
     n = origins.shape[1]
-    K = tables.K
-    if tables.par is None:
-        raise ValueError(f"K3 takes 1..{TORUS_SMALL_MAX_K} tori, got {K}")
-    par = tables.par
-    check_args(origins.device, par=(par, (K, 32), F32),
-               counters=(counters, (2,), torch.int64))
-    check_folds(origins.device, n, occlusion, occ_out=occ_out, occ_or=occ_or)
+    if out is None:
+        rs = check_torus_closest_hit_small(origins, dirs, tmax, tables,
+                                           want_attrs, occlusion, counters,
+                                           occ_out, occ_or)
+    else:
+        rs = origins.stride(0)
+    K, par = tables.K, tables.par
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernel's work")
-        return torus_small_plain(origins, dirs, tmax, par, want_attrs,
-                                 occlusion, occ_out=occ_out, occ_or=occ_or)
+        got = torus_small_plain(origins, dirs, tmax, par, want_attrs,
+                                occlusion, occ_out=occ_out, occ_or=occ_or)
+        return got if out is None else fill(out, got)
 
-    t = torch.empty((n,), dtype=torch.float32, device=origins.device)
-    idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    attrs = (torch.empty((N_ATTR, n), dtype=torch.float32,
-                         device=origins.device) if want_attrs else None)
+    if out is None:
+        out = _torus_out(n, want_attrs, origins.device)
     if n:
-        launch("trt_torus_closest_hit_small", origins, dirs, tmax, n, par, K,
-               int(occlusion), t, idx, attrs, counters, occ_out, int(occ_or))
-    return (t, idx) + ((attrs,) if attrs is not None else ())
+        launch("trt_torus_closest_hit_small", origins, dirs, tmax, n, rs,
+               par, K, int(occlusion), out[0], out[1],
+               out[2] if want_attrs else None, counters, occ_out,
+               int(occ_or), stream=getattr(out, "stream", None))
+    return out
 
 
 def use_small_kernel(n_batch: int, K: int) -> bool:
@@ -461,11 +528,12 @@ def use_small_kernel(n_batch: int, K: int) -> bool:
 def torus_closest_hit(origins, dirs, tmax, tables: TorusTables,
                       want_attrs: bool = False, occlusion: bool = False,
                       n_batch: int | None = None, rank=None, occ_out=None,
-                      occ_or: bool = False, small: bool | None = None):
+                      occ_or: bool = False, small: bool | None = None,
+                      out=None):
     """Route to K3 or K2 as the TPU launcher does, then run it (rank: K2's
     visit rank, K3 has none; occ_out, occ_or: the occlusion byte; small:
     the route where the caller decided it, default
-    `use_small_kernel(n_batch, K)`)."""
+    `use_small_kernel(n_batch, K)`; out: the kernel's planned outputs)."""
     n_batch = n_batch or origins.shape[1]
     if small is None:
         small = use_small_kernel(n_batch, tables.K)
@@ -473,9 +541,9 @@ def torus_closest_hit(origins, dirs, tmax, tables: TorusTables,
         return torus_closest_hit_small(origins, dirs, tmax, tables,
                                        want_attrs=want_attrs,
                                        occlusion=occlusion, occ_out=occ_out,
-                                       occ_or=occ_or)
+                                       occ_or=occ_or, out=out)
     return torus_closest_hit_chunked(origins, dirs, tmax, tables,
                                      want_attrs=want_attrs,
                                      occlusion=occlusion, n_batch=n_batch,
                                      rank=rank, occ_out=occ_out,
-                                     occ_or=occ_or)
+                                     occ_or=occ_or, out=out)

@@ -32,7 +32,10 @@ built at a scene's first query on a device and kept in
 segment (`segment_ranks`, the visit-rank kernel V1 once for both of a
 bounce-loop segment's queries) or, for any other caller, per query. An
 entry is rebuilt when a tensor it was built from changed in
-place (an optimizer step on `tori.minor_radius`) or was replaced.
+place (an optimizer step on `tori.minor_radius`) or was replaced. On a
+segment plan's route (`ops.segment_plan`) the segment's `Ranks` carry each
+query's outputs (`QueryOut`, views of the plan's workspace): the kernels
+write there and check nothing, and the query resolves no route or table.
 
 A query on one rank's slice of the primitives (`GeomSlice` with offsets,
 `parallel.sharding`) returns global indices, skips the loose hoist (the
@@ -52,7 +55,9 @@ from typing import Optional
 
 import torch
 
-from toroidal_ray_tracing_tpu_torch.ops.kernel_common import BIG, round_up
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (BIG,
+                                                              ray_rows,
+                                                              round_up)
 from toroidal_ray_tracing_tpu_torch.ops.loose_kernel import loose_hit
 from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import (
     TorusTables, torus_closest_hit, torus_tables, use_small_kernel)
@@ -99,17 +104,18 @@ def _tri_attr_tables(scene: Scene):
     return a0.contiguous(), a1.contiguous(), a2.contiguous()
 
 
-def _kept(scene: Scene, name: str, part: tuple, sources, make):
-    """The table make() builds from the tensors `sources`, kept in
-    scene.kernel_tables[(name, device)] for the whole table, [(name,
-    device, offset, size)] for a slice. The entry holds its source tensors
-    (so no other tensor takes their memory while it lives) and is rebuilt
-    when one of them was replaced (other memory, shape or strides) or
-    changed in place since (its `_version` moved: an optimizer step on
-    `tori.minor_radius`)."""
+def _kept(scene: Scene, name: str, part: tuple, sources, make,
+          numbers: tuple = ()):
+    """The table make() builds from the tensors `sources` (and the Python
+    `numbers`), kept in scene.kernel_tables[(name, device)] for the whole
+    table, [(name, device, offset, size)] for a slice. The entry holds its
+    source tensors (so no other tensor takes their memory while it lives)
+    and is rebuilt when one of them was replaced (other memory, shape or
+    strides) or changed in place since (its `_version` moved: an optimizer
+    step on `tori.minor_radius`), or a number changed."""
     key = (name, scene.device, *part)
     stamp = tuple((s.data_ptr(), s.shape, s.stride(), s._version)
-                  for s in sources)
+                  for s in sources) + (numbers,)
     entry = scene.kernel_tables.get(key)
     if entry is None or entry[0] != stamp:
         entry = (stamp, tuple(sources), make())
@@ -249,15 +255,48 @@ def _route(scene: Scene, geom, n_batch: int) -> _Route:
                   small=tor is not None and use_small_kernel(n_batch, tor.K))
 
 
+def _kept_attr_tables(scene: Scene, plan: _TriPlan):
+    """The triangle attribute tables of the geometry's rows, kept."""
+    tris = scene.triangles
+    off, T = plan.off, plan.T
+    return _kept(
+        scene, "tri_attrs", plan.part,
+        (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
+         tris.uv0, tris.uv1, tris.uv2, tris.mat_id,
+         *_material_sources(scene)),
+        lambda: tuple(a[:, off:off + T].contiguous()
+                      for a in _tri_attr_tables(scene)))
+
+
+@dataclasses.dataclass
+class QueryOut:
+    """One query's outputs at a segment plan's bucket (`ops.segment_plan`):
+    each kernel's `out` (`kernel_common.Planned`, None where the route runs
+    no such kernel), the triangle kernel's next tmax, the occlusion byte
+    (any-hit), the triangle attribute tables, and the `AttrRows` those
+    views make up (the parts; the closest query's attribute rows and loose
+    tables too), which the query returns as the default route would."""
+
+    s1: Optional[tuple]
+    tri: Optional[tuple]
+    tor: Optional[tuple]
+    tmax_next: Optional[torch.Tensor]
+    occ: Optional[torch.Tensor]
+    tables: Optional[tuple]
+    rows: Optional[_isect.AttrRows]
+
+
 @dataclasses.dataclass
 class Ranks:
     """A segment's route and visit ranks (`segment_ranks`), for both of its
     queries: the rank of each box set they walk (None: a set no query
-    walks)."""
+    walks); on a segment plan's route, also each query's outputs
+    (closest, any-hit)."""
 
     route: _Route
     tri: Optional[torch.Tensor]      # K1's clusters or K5's superblocks
     tor: Optional[torch.Tensor]      # K2's chunks
+    out: Optional[tuple] = None      # (QueryOut, QueryOut) from a plan
 
 
 def segment_ranks(scene: Scene, geom, origins, n_batch: int,
@@ -291,35 +330,35 @@ def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
     and, in occlusion mode, the query's occlusion byte (the first kernel
     writes it, the later ones OR into it). ranks: the segment's route and
     visit ranks (None: the query decides its route, and each tree kernel
-    ranks its own set). Returns (rows, occ): the
-    parts unmerged in an `AttrRows` (with the kernels' attribute rows and
-    the loose tables where want_attrs), and in occlusion mode the (N,)
-    occlusion byte (else None)."""
-    origins = origins.contiguous()
-    dirs = dirs.contiguous()
+    ranks its own set), and on a segment plan's route the outputs each
+    kernel writes (`Ranks.out`). Rays whose rows are contiguous at one
+    stride (a prefix of the bounce loop's state) go to the kernels as they
+    are, others as contiguous copies (`kernel_common.ray_rows`). Returns
+    (rows, occ): the parts unmerged in an `AttrRows` (with the kernels'
+    attribute rows and the loose tables where want_attrs), and in
+    occlusion mode the (N,) occlusion byte (else None)."""
     n = origins.shape[1]
     dev = origins.device
     n_batch = round_up(max(n, 1), RAY_TILE)
     route = ranks.route if ranks is not None else _route(scene, geom, n_batch)
-    rows = _isect.AttrRows()
+    q = ranks.out[occlusion] if ranks is not None and ranks.out else None
+    if q is None:
+        origins, dirs = ray_rows(origins, dirs)
+    rows = _isect.AttrRows() if q is None else q.rows
     tri_tmax = tmax   # the next kernel's tmax: below every hit so far
-    occ = (torch.empty((n,), dtype=torch.bool, device=dev) if occlusion
-           else None)
+    occ = None
+    if occlusion:
+        occ = (q.occ if q is not None
+               else torch.empty((n,), dtype=torch.bool, device=dev))
     first = True      # no kernel wrote occ yet
 
     plan, tor = route.tri, route.tor
     if plan is not None:
-        off, T = plan.off, plan.T
+        off = plan.off
         tables = None
         if want_attrs:
-            tris = scene.triangles
-            tables = _kept(
-                scene, "tri_attrs", plan.part,
-                (tris.v0, tris.e1, tris.e2, tris.n0, tris.n1, tris.n2,
-                 tris.uv0, tris.uv1, tris.uv2, tris.mat_id,
-                 *_material_sources(scene)),
-                lambda: tuple(a[:, off:off + T].contiguous()
-                              for a in _tri_attr_tables(scene)))
+            tables = (q.tables if q is not None
+                      else _kept_attr_tables(scene, plan))
 
         # S1 writes the base hit the triangle kernels start from and their
         # tmax (0 where it occludes)
@@ -327,19 +366,22 @@ def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
             *hit, tri_tmax = loose_hit(origins, dirs, tmax, geom.woop_o,
                                        geom.woop_d, plan.base, plan.L,
                                        plan.base + off, occlusion,
-                                       occ_out=occ)
+                                       occ_out=occ,
+                                       out=q.s1 if q is not None else None)
             first = False
-            rows.base = tuple(hit)
-            if want_attrs:
-                rows.loose, rows.loose_base, rows.n_loose = (tables,
-                                                             plan.base,
-                                                             plan.L)
+            if q is None:
+                rows.base = tuple(hit)
+                if want_attrs:
+                    rows.loose, rows.loose_base, rows.n_loose = (
+                        tables, plan.base, plan.L)
 
         if plan.mesh is not None:
             # the torus query's tmax comes out of the triangle kernel (S1's
             # hit is in the tmax it starts from)
-            nxt = (torch.empty((n,), dtype=torch.float32, device=dev)
-                   if tor is not None else None)
+            nxt = None
+            if tor is not None:
+                nxt = (q.tmax_next if q is not None else
+                       torch.empty((n,), dtype=torch.float32, device=dev))
             hit_fn = (tri_closest_hit_stream if plan.stream
                       else tri_closest_hit)
             out = hit_fn(origins, dirs, tri_tmax, plan.mesh,
@@ -347,11 +389,13 @@ def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
                          n_batch=n_batch,
                          rank=ranks.tri if ranks is not None else None,
                          tmax_out=nxt, occ_out=occ,
-                         occ_or=occlusion and not first)
+                         occ_or=occlusion and not first,
+                         out=q.tri if q is not None else None)
             first = False
-            rows.tri_hit, rows.tri_offset = tuple(out[:4]), off
-            if want_attrs:
-                rows.tri = out[4]
+            if q is None:
+                rows.tri_hit, rows.tri_offset = tuple(out[:4]), off
+                if want_attrs:
+                    rows.tri = out[4]
             if tor is not None:
                 tri_tmax = nxt
 
@@ -360,11 +404,13 @@ def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
                                 want_attrs=want_attrs, occlusion=occlusion,
                                 n_batch=n_batch, small=route.small,
                                 rank=ranks.tor if ranks is not None else None,
-                                occ_out=occ, occ_or=occlusion and not first)
+                                occ_out=occ, occ_or=occlusion and not first,
+                                out=q.tor if q is not None else None)
         first = False
-        rows.tor_hit, rows.tor_offset = tuple(out[:2]), geom.tor_offset
-        if want_attrs:
-            rows.tor = out[2]
+        if q is None:
+            rows.tor_hit, rows.tor_offset = tuple(out[:2]), geom.tor_offset
+            if want_attrs:
+                rows.tor = out[2]
     if occlusion and first:
         occ.zero_()    # no primitive to occlude
     return rows, occ

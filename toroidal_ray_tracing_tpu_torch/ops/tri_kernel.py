@@ -44,7 +44,7 @@ import torch
 from toroidal_ray_tracing_tpu_torch.geom.triangle import woop_dots, woop_hit
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     BIG, F32, I32, TMIN, _inv_dir, box_pass, check_args, check_folds,
-    check_rays, count, fold_outputs, launch, tree_rank, tree_tensors,
+    check_rays, count, fill, fold_outputs, launch, tree_rank, tree_tensors,
     walk_bound)
 from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 
@@ -179,66 +179,107 @@ def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi,
                          (1,), dtype=I32, device=clo.device))
 
 
-def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
-                    attr_tables=None, occlusion: bool = False,
-                    n_batch: int | None = None, counters=None, rank=None,
-                    tmax_out=None, occ_out=None, occ_or: bool = False):
-    """K1 wrapper. origins/dirs: (3, N) rows; tmax: (N,); tables: the
-    mesh's `tri_tables`. attr_tables: optional ((21, T), (8, T), (8, T))
-    interpolation tables. n_batch: the batch size the visit order averages
-    origins over (the caller's padded batch; default N). counters: optional
-    (2,) int64 CUDA tensor the kernel adds its (ray, box) slab tests and
-    (ray, triangle) Woop tests to. rank: the (C,) int32 visit rank of the
-    clusters (default: V1 on these rays, `ops.visit_kernel.visit_rank`).
-    tmax_out: optional (N,) float32 the kernel writes the next kernel's
-    tmax into; occ_out: in occlusion mode, an optional (N,) bool occlusion
-    byte the kernel writes (or, with occ_or, ORs its hits into)
-    (`kernel_common.fold_outputs`). Returns (t, idx, u, v[, attrs (21,
-    N)]) — t is BIG on a miss, idx int32."""
+def hit_outputs(out, n: int, attrs: bool, device):
+    """Check a triangle kernel's planned outputs: (t, idx, u, v) (N,) and,
+    with attrs, the (21, N) rows."""
+    shapes = [((n,), F32), ((n,), I32), ((n,), F32), ((n,), F32)]
+    if attrs:
+        shapes.append(((N_ATTR, n), F32))
+    if len(out) != len(shapes):
+        raise ValueError(f"out: {len(out)} outputs, want {len(shapes)}")
+    check_args(device, **{f"out{k}": (a, *shape)
+                          for k, (a, shape) in enumerate(zip(out, shapes))})
+
+
+def check_tri_closest_hit(origins, dirs, tmax, tables: TriTables,
+                          attr_tables=None, occlusion: bool = False,
+                          counters=None, rank=None, tmax_out=None,
+                          occ_out=None, occ_or: bool = False,
+                          out=None) -> int:
+    """`tri_closest_hit`'s argument checks (a segment plan runs them once
+    on its own arguments and outputs; rank None: V1 makes it); returns the
+    rays' row stride."""
     if not isinstance(tables, TriTables):
         raise TypeError("tri_closest_hit takes the mesh's prebuilt "
                         "TriTables (tri_tables)")
-    check_rays(origins, dirs, tmax)
+    rs = check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
     T, C, M = tb.wrows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
-    if not tb.box_test:
-        rank = tb.one_rank
-    elif rank is None:
-        rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
                clo=(tb.clo, (C, 3), F32), chi=(tb.chi, (C, 3), F32),
                tree_lo=(tb.tree_lo, (M, 3), F32),
                tree_hi=(tb.tree_hi, (M, 3), F32),
                tree_link=(tb.tree_link, (M, 3), I32),
-               rank=(rank, (C,), I32),
+               rank=(rank if tb.box_test else tb.one_rank, (C,), I32),
                a0=(a0, (N_ATTR, T), F32), a1=(a1, (8, T), F32),
                a2=(a2, (8, T), F32), counters=(counters, (2,), torch.int64))
     check_folds(origins.device, n, occlusion, tmax_out, occ_out, occ_or)
+    if out is not None:
+        hit_outputs(out, n, attr_tables is not None, origins.device)
+    return rs
+
+
+def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
+                    attr_tables=None, occlusion: bool = False,
+                    n_batch: int | None = None, counters=None, rank=None,
+                    tmax_out=None, occ_out=None, occ_or: bool = False,
+                    out=None):
+    """K1 wrapper. origins/dirs: (3, N) rows, each row contiguous, at one
+    row stride (a prefix of the bounce loop's state is fine); tmax: (N,);
+    tables: the mesh's `tri_tables`. attr_tables: optional ((21, T), (8,
+    T), (8, T)) interpolation tables. n_batch: the batch size the visit
+    order averages origins over (the caller's padded batch; default N).
+    counters: optional (2,) int64 CUDA tensor the kernel adds its (ray,
+    box) slab tests and (ray, triangle) Woop tests to. rank: the (C,)
+    int32 visit rank of the clusters (default: V1 on these rays,
+    `ops.visit_kernel.visit_rank`). tmax_out: optional (N,) float32 the
+    kernel writes the next kernel's tmax into; occ_out: in occlusion mode,
+    an optional (N,) bool occlusion byte the kernel writes (or, with
+    occ_or, ORs its hits into) (`kernel_common.fold_outputs`). out: (t,
+    idx, u, v[, attrs]) from a segment plan (`kernel_common.Planned`; no
+    check, no allocation). Returns (t, idx, u, v[, attrs (21, N)]) — t is
+    BIG on a miss, idx int32."""
+    n = origins.shape[1]
+    tb = tables
+    if out is None:
+        rs = check_tri_closest_hit(origins, dirs, tmax, tb, attr_tables,
+                                   occlusion, counters, rank, tmax_out,
+                                   occ_out, occ_or)
+    else:
+        rs = origins.stride(0)
+    if not tb.box_test:
+        rank = tb.one_rank
+    elif rank is None:
+        rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernel's work")
-        return tri_closest_hit_plain(origins, dirs, tmax, tb.wrows, tb.clo,
-                                     tb.chi, tree_rank(rank), tb.cluster,
-                                     tb.box_test, attr_tables, occlusion,
-                                     tmax_out=tmax_out, occ_out=occ_out,
-                                     occ_or=occ_or)
+        got = tri_closest_hit_plain(origins, dirs, tmax, tb.wrows, tb.clo,
+                                    tb.chi, tree_rank(rank), tb.cluster,
+                                    tb.box_test, attr_tables, occlusion,
+                                    tmax_out=tmax_out, occ_out=occ_out,
+                                    occ_or=occ_or)
+        return got if out is None else fill(out, got)
 
+    if out is None:
+        f32 = dict(dtype=torch.float32, device=origins.device)
+        out = (torch.empty((n,), **f32),
+               torch.empty((n,), dtype=torch.int32, device=origins.device),
+               torch.empty((n,), **f32), torch.empty((n,), **f32))
+        if attr_tables is not None:
+            out += (torch.empty((N_ATTR, n), **f32),)
+    a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     # the entry point refuses a tree deeper than the kernel's stack, with an
     # error that `launch` raises
-    f32 = dict(dtype=torch.float32, device=origins.device)
-    t = torch.empty((n,), **f32)
-    idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    u = torch.empty((n,), **f32)
-    v = torch.empty((n,), **f32)
-    attrs = (torch.empty((N_ATTR, n), **f32) if attr_tables is not None
-             else None)
     if n:
-        launch("trt_tri_closest_hit", origins, dirs, tmax, n, tb.wrows, T,
-               tb.tree_lo, tb.tree_hi, tb.tree_link, M, tb.depth, rank,
-               tb.cluster, int(tb.box_test), a0, a1, a2, int(occlusion), t,
-               idx, u, v, attrs, counters, tmax_out, occ_out, int(occ_or))
-    out = (t, idx, u, v)
-    return out + ((attrs,) if attrs is not None else ())
+        launch("trt_tri_closest_hit", origins, dirs, tmax, n, rs, tb.wrows,
+               tb.wrows.shape[0], tb.tree_lo, tb.tree_hi, tb.tree_link,
+               tb.tree_lo.shape[0], tb.depth, rank, tb.cluster,
+               int(tb.box_test), a0, a1, a2, int(occlusion), *out[:4],
+               out[4] if attr_tables is not None else None, counters,
+               tmax_out, occ_out, int(occ_or),
+               stream=getattr(out, "stream", None))
+    return out

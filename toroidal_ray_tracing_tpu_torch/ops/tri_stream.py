@@ -57,9 +57,10 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     BIG, F32, I32, box_pass, check_args, check_folds, check_rays, count,
-    fold_outputs, launch, tree_rank, tree_tensors, walk_bound)
+    fill, fold_outputs, launch, tree_rank, tree_tensors, walk_bound)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (
-    N_ATTR, fold_block, walk_start, winner_attrs, woop_block, woop_rows)
+    N_ATTR, fold_block, hit_outputs, walk_start, winner_attrs, woop_block,
+    woop_rows)
 from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 
 TRI_STREAM_MIN = 65536     # triangles: above this the orchestrator streams
@@ -180,30 +181,19 @@ def tri_closest_hit_stream_plain(origins, dirs, tmax, wrows, sb_lo, sb_hi,
     return state + (winner_attrs(attr_tables, *state),)
 
 
-def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
-                           attr_tables=None, occlusion: bool = False,
-                           n_batch: int | None = None,
-                           group: int | None = None, counters=None,
-                           rank=None, tmax_out=None, occ_out=None,
-                           occ_or: bool = False):
-    """K5/K6 wrapper, K1's contract. origins/dirs (3, N); tmax (N,);
-    tables: the mesh's `stream_tables`. attr_tables: optional ((21, T), (8,
-    T), (8, T)). n_batch: the batch size the superblock rank averages
-    origins over (the caller's padded batch; default N). group: K6 when > 1
-    (default: the module's STREAM_GROUP). counters: optional (2,) int64
-    CUDA tensor the kernel adds its (ray, box) slab tests and (ray,
-    triangle) Woop tests to. rank: the (S,) int32 visit rank of the
-    superblocks (default: V1 on these rays). tmax_out, occ_out, occ_or:
-    the folds, as `tri_closest_hit`'s. Returns (t, idx, u, v[, attrs (21,
-    N)])."""
-    check_rays(origins, dirs, tmax)
+def check_tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
+                                 attr_tables=None, occlusion: bool = False,
+                                 counters=None, rank=None, tmax_out=None,
+                                 occ_out=None, occ_or: bool = False,
+                                 out=None) -> int:
+    """`tri_closest_hit_stream`'s argument checks (a segment plan runs them
+    once on its own arguments and outputs; rank None: V1 makes it);
+    returns the rays' row stride."""
+    rs = check_rays(origins, dirs, tmax)
     n = origins.shape[1]
     tb = tables
-    group = STREAM_GROUP if group is None else group
     T, S, Cp, M = (tb.wrows.shape[0], tb.sb_lo.shape[0], tb.clo.shape[0],
                    tb.tree_lo.shape[0])
-    if rank is None:
-        rank = visit_rank(origins, n_batch or n, tb.sb_lo, tb.sb_hi)
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
                sb_lo=(tb.sb_lo, (S, 3), F32), sb_hi=(tb.sb_hi, (S, 3), F32),
@@ -216,30 +206,67 @@ def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
                a2=(a2, (8, T), F32),
                counters=(counters, (2,), torch.int64))
     check_folds(origins.device, n, occlusion, tmax_out, occ_out, occ_or)
+    if out is not None:
+        hit_outputs(out, n, attr_tables is not None, origins.device)
+    return rs
+
+
+def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
+                           attr_tables=None, occlusion: bool = False,
+                           n_batch: int | None = None,
+                           group: int | None = None, counters=None,
+                           rank=None, tmax_out=None, occ_out=None,
+                           occ_or: bool = False, out=None):
+    """K5/K6 wrapper, K1's contract. origins/dirs (3, N), strided rows as
+    K1's; tmax (N,); tables: the mesh's `stream_tables`. attr_tables:
+    optional ((21, T), (8, T), (8, T)). n_batch: the batch size the
+    superblock rank averages origins over (the caller's padded batch;
+    default N). group: K6 when > 1 (default: the module's STREAM_GROUP).
+    counters: optional (2,) int64 CUDA tensor the kernel adds its (ray,
+    box) slab tests and (ray, triangle) Woop tests to. rank: the (S,)
+    int32 visit rank of the superblocks (default: V1 on these rays).
+    tmax_out, occ_out, occ_or, out: as `tri_closest_hit`'s. Returns (t,
+    idx, u, v[, attrs (21, N)])."""
+    n = origins.shape[1]
+    tb = tables
+    group = STREAM_GROUP if group is None else group
+    if out is None:
+        rs = check_tri_closest_hit_stream(origins, dirs, tmax, tb,
+                                          attr_tables, occlusion, counters,
+                                          rank, tmax_out, occ_out, occ_or)
+    else:
+        rs = origins.stride(0)
+    if rank is None:
+        rank = visit_rank(origins, n_batch or n, tb.sb_lo, tb.sb_hi)
 
     if not origins.is_cuda:
         if counters is not None:
             raise ValueError("counters count the CUDA kernels' work")
-        return tri_closest_hit_stream_plain(
+        got = tri_closest_hit_stream_plain(
             origins, dirs, tmax, tb.wrows, tb.sb_lo, tb.sb_hi,
             tree_rank(rank), tb.clo, tb.chi, tb.g, tb.cluster, attr_tables,
             occlusion, tmax_out=tmax_out, occ_out=occ_out, occ_or=occ_or)
+        return got if out is None else fill(out, got)
 
     # the entry points refuse a tree deeper than the kernels' stack, and K6
     # a superblock of more than STREAM_MAX_SB rows (48 KB staged), with an
     # error that `launch` raises
-    f32 = dict(dtype=torch.float32, device=origins.device)
-    t = torch.empty((n,), **f32)
-    idx = torch.empty((n,), dtype=torch.int32, device=origins.device)
-    u = torch.empty((n,), **f32)
-    v = torch.empty((n,), **f32)
-    attrs = (torch.empty((N_ATTR, n), **f32) if attr_tables is not None
-             else None)
+    if out is None:
+        f32 = dict(dtype=torch.float32, device=origins.device)
+        out = (torch.empty((n,), **f32),
+               torch.empty((n,), dtype=torch.int32, device=origins.device),
+               torch.empty((n,), **f32), torch.empty((n,), **f32))
+        if attr_tables is not None:
+            out += (torch.empty((N_ATTR, n), **f32),)
+    a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     if n:
-        args = (origins, dirs, tmax, n, tb.wrows, T, tb.tree_lo, tb.tree_hi,
-                tb.tree_link, M, tb.depth, rank, tb.clo, tb.chi, tb.g,
-                tb.cluster, a0, a1, a2, int(occlusion), t, idx, u, v, attrs,
-                counters, tmax_out, occ_out, int(occ_or))
+        args = (origins, dirs, tmax, n, rs, tb.wrows, tb.wrows.shape[0],
+                tb.tree_lo, tb.tree_hi, tb.tree_link, tb.tree_lo.shape[0],
+                tb.depth, rank, tb.clo, tb.chi, tb.g, tb.cluster, a0, a1, a2,
+                int(occlusion), *out[:4],
+                out[4] if attr_tables is not None else None, counters,
+                tmax_out, occ_out, int(occ_or))
         launch("trt_tri_closest_hit_stream"
-               + ("_grouped" if group > 1 else ""), *args)
-    return (t, idx, u, v) + ((attrs,) if attrs is not None else ())
+               + ("_grouped" if group > 1 else ""), *args,
+               stream=getattr(out, "stream", None))
+    return out

@@ -27,7 +27,8 @@ from __future__ import annotations
 import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-    F32, I32, batch_anchor, check_args, launch, tree_rank, visit_order)
+    F32, I32, Planned, batch_anchor, check_args, launch, tree_rank,
+    visit_order)
 
 CLUSTER = 8               # csrc/visit.cu kCluster: the CTAs that rank a
                           # set above ONE_CTA_BOXES
@@ -76,10 +77,13 @@ def _rows(origins):
     return lanes, origins.stride(0)
 
 
-def _buffers(dev):
+def _buffers(dev, stream=None):
     """The kernel's per-(device, stream) partial sums and ticket counter
-    (zero once; every launch leaves it zero)."""
-    key = (dev, torch.cuda.current_stream(dev).cuda_stream)
+    (zero once; every launch leaves it zero); stream: a raw handle, default
+    the current stream."""
+    if stream is None:
+        stream = torch.cuda.current_stream(dev).cuda_stream
+    key = (dev, stream)
     buf = _scratch.get(key)
     if buf is None:
         buf = (torch.empty((_PARTIALS,), dtype=torch.float64, device=dev),
@@ -88,12 +92,9 @@ def _buffers(dev):
     return buf
 
 
-def visit_ranks(origins, n_batch: int, sets):
-    """V1 wrapper. origins: (3, lanes) float32 rows (each row contiguous);
-    n_batch: the anchor's divisor (the caller's padded batch); sets: up to
-    two (lo (M, 3), hi (M, 3)) float32 box sets on the origins' device.
-    Returns (anchor (3,) float32, [rank (M,) int32 per set])."""
-    sets = list(sets)
+def check_visit_ranks(origins, n_batch: int, sets) -> tuple:
+    """`visit_ranks`' argument checks (a segment plan runs them once on its
+    own arguments); returns (lanes, the rows' stride)."""
     if len(sets) > 2:
         raise ValueError(f"V1 ranks at most two box sets, got {len(sets)}")
     lanes, row_stride = _rows(origins)
@@ -103,25 +104,65 @@ def visit_ranks(origins, n_batch: int, sets):
         m = lo.shape[0]
         check_args(origins.device, **{f"lo{k}": (lo, (m, 3), F32),
                                       f"hi{k}": (hi, (m, 3), F32)})
-    if not origins.is_cuda:
-        return visit_ranks_plain(origins, n_batch, sets)
+    return lanes, row_stride
 
-    dev = origins.device
-    anchor = torch.empty((3,), dtype=F32, device=dev)
-    ranks = [torch.empty((lo.shape[0],), dtype=I32, device=dev)
-             for lo, _ in sets]
+
+def slab_keys(sets) -> int:
+    """The int64 words of global scratch V1 needs for these box sets (0:
+    every set's shares fit shared memory)."""
     m = [lo.shape[0] for lo, _ in sets] + [0, 0]
     c = cluster_for(m)
-    slab = sum(c * share_keys(k, c) for k in m[:2]
+    return sum(c * share_keys(k, c) for k in m[:2]
                if c * share_keys(k, c) > SLAB_KEYS)
-    scratch = (torch.empty((slab,), dtype=torch.int64, device=dev)
-               if slab else None)
+
+
+def planned_outputs(sets, device, stream, views=None) -> Planned:
+    """V1's outputs for these box sets, as a segment plan hands them
+    (`out=`): the anchor (3,) and a rank (M,) int32 a set, from `views`
+    where given (the plan's workspace) else new; the stream's partial sums
+    and ticket and the slab scratch as extras."""
+    if views is None:
+        views = (torch.empty((3,), dtype=F32, device=device),
+                 *(torch.empty((lo.shape[0],), dtype=I32, device=device)
+                   for lo, _ in sets))
+    slab = slab_keys(sets)
+    partial, ticket = (_buffers(device, stream) if device.type == "cuda"
+                       else (None, None))
+    return Planned(views, stream, partial=partial, ticket=ticket,
+                   scratch=(torch.empty((slab,), dtype=torch.int64,
+                                        device=device) if slab else None))
+
+
+def visit_ranks(origins, n_batch: int, sets, out=None):
+    """V1 wrapper. origins: (3, lanes) float32 rows (each row contiguous);
+    n_batch: the anchor's divisor (the caller's padded batch); sets: up to
+    two (lo (M, 3), hi (M, 3)) float32 box sets on the origins' device.
+    out: `planned_outputs` of these sets, from a segment plan (no check,
+    no allocation). Returns (anchor (3,) float32, [rank (M,) int32 per
+    set])."""
+    if out is None:
+        sets = list(sets)
+        lanes, row_stride = check_visit_ranks(origins, n_batch, sets)
+    else:
+        lanes, row_stride = origins.shape[1], origins.stride(0)
+    if not origins.is_cuda:
+        anchor, ranks = visit_ranks_plain(origins, n_batch, sets)
+        if out is None:
+            return anchor, ranks
+        out[0].copy_(anchor)
+        for view, r in zip(out[1:], ranks):
+            view.copy_(r)
+        return out[0], list(out[1:])
+
+    if out is None:
+        out = planned_outputs(sets, origins.device, None)
+    anchor, ranks = out[0], list(out[1:])
+    m = [r.shape[0] for r in ranks] + [0, 0]
     args = [a for k in range(2) for a in (
         (*sets[k], m[k], ranks[k]) if k < len(sets) else (None, None, 0,
                                                           None))]
-    partial, ticket = _buffers(dev)
     launch("trt_visit_rank", origins, row_stride, lanes, int(n_batch), *args,
-           anchor, partial, ticket, scratch)
+           anchor, out.partial, out.ticket, out.scratch, stream=out.stream)
     return anchor, ranks
 
 

@@ -84,7 +84,8 @@ def _trace_frames(scene, settings, cams, width, height, backend, jitter_key,
             raygen_state(cam.KIND, params, width, height, jitter, block,
                          state, active, g * n,
                          lanes - total if g == len(cams) - 1 else 0)
-    return trace_state(scene, settings, state, active, total, backend)
+    return trace_state(scene, settings, state, active, total, backend,
+                       planned=True)
 
 
 def _finish(traced, cam, params, width, height, off, outs, s, spp,
@@ -161,14 +162,40 @@ def check_device(device) -> torch.device:
     return device
 
 
+def settings_to(settings: RenderSettings, device,
+                kept: dict) -> RenderSettings:
+    """settings on `device`. Its two host tensors (clear color, light
+    position) are uploaded once for their values and kept in `kept` (the
+    scene's `kernel_tables`, one entry a device, replaced by other
+    values): a closed-loop client hands equal settings every call, which
+    then share one device copy (and the scene's kept shading constants,
+    `ops.shade_kernel.kept_shade_params`). Tensors that need a gradient, or
+    are not on the host, go as `RenderSettings.to` takes them."""
+    cc, lp = settings.clear_color, settings.light.position
+    if (device.type == "cpu" or cc.device.type != "cpu"
+            or lp.device.type != "cpu" or cc.requires_grad
+            or lp.requires_grad):
+        return settings.to(device)
+    values = tuple((t.dtype, tuple(t.shape), t.numpy().tobytes())
+                   for t in (cc, lp))
+    entry = kept.get(("settings", device))
+    if entry is None or entry[0] != values:
+        entry = kept[("settings", device)] = (values, cc.to(device),
+                                              lp.to(device))
+    return dataclasses.replace(
+        settings, clear_color=entry[1],
+        light=dataclasses.replace(settings.light, position=entry[2]))
+
+
 def _setup(scene, settings, camera, width, height, device):
     """Check the device and move the scene (once per scene object, see
-    `Scene.to`) and settings onto it."""
+    `Scene.to`) and settings (`settings_to`) onto it."""
     device = check_device(device)
     if settings is None:
         settings = RenderSettings.default()
     settings = autofill_pixel_spread(settings, camera, width, height)
-    return scene.to(device), settings.to(device), device
+    scene = scene.to(device)
+    return scene, settings_to(settings, device, scene.kernel_tables), device
 
 
 def _spp_frame(scene, settings, camera, width, height, backend, spp,

@@ -158,6 +158,10 @@ def _tmax(tmax, origins):
     if tmax is None:
         return torch.full((n,), TMAX, dtype=torch.float32,
                           device=origins.device)
+    if (isinstance(tmax, torch.Tensor) and tmax.dtype == torch.float32
+            and tmax.shape == (n,) and tmax.device == origins.device
+            and tmax.is_contiguous()):
+        return tmax       # a bounce segment's row, as it is
     return torch.broadcast_to(torch.as_tensor(
         tmax, dtype=torch.float32, device=origins.device), (n,)).contiguous()
 

@@ -39,6 +39,15 @@ loop), `trt.segment` (one pass) and within it `trt.segment.ranks` (V1),
 outside `utils.profiling.recording`. Each host read adds one to
 `utils.profiling.COUNTERS["host_reads"]`.
 
+The kernels read a prefix's rows where they lie in the state (they take
+its row stride). A front door's kernel-backend loop (`trace_state(...,
+planned=True)`, unsharded) runs from a segment plan (`ops.segment_plan`:
+each bucket's route, checked arguments and outputs in one workspace, kept
+on the scene; `COUNTERS["plan_segments"]` counts its segments), where S3
+and G1 write the next segment's tmax row, so no ATen operation runs
+between V1 and S3. `trace_rays` (the banded and sharded paths) and the
+torch backend make each call's checks and outputs as they go.
+
 `trace_rays_fixed` is the differentiable variant: a fixed number of
 segments, autograd through shading and (on the kernel backend)
 `closest_hit_diff`'s recompute.
@@ -54,11 +63,13 @@ import torch
 
 from toroidal_ray_tracing_tpu_torch.ops.front_kernel import (  # noqa: F401
     fill_state_plain, span_gather, span_lanes, span_order, unpermute_rows)
-from toroidal_ray_tracing_tpu_torch.ops.kernel_common import round_up
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (SEG_TMAX,
+                                                              round_up)
+from toroidal_ray_tracing_tpu_torch.ops.segment_plan import segment_plan
 # live_spans: the 128-lane spans that hold a live ray (S3 writes them on
 # the kernel backend; kept here beside span_order and span_lanes)
 from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import (  # noqa: F401
-    base_rows, live_spans, shade_finish, shade_hit, shade_params)
+    base_rows, kept_shade_params, live_spans, shade_finish, shade_hit)
 from toroidal_ray_tracing_tpu_torch.ops.tex_kernel import quad_gather
 from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (RAY_TILE,
                                                              segment_ranks)
@@ -68,8 +79,6 @@ from toroidal_ray_tracing_tpu_torch.trace.intersect import (
 from toroidal_ray_tracing_tpu_torch.trace.shade import shade
 from toroidal_ray_tracing_tpu_torch.utils.collectives import MAX, all_reduce
 from toroidal_ray_tracing_tpu_torch.utils.profiling import COUNTERS, span
-
-SEG_TMAX = 10000.0   # raytrace.rgen:62
 
 COMPACT_SPAN = 128   # compaction moves whole spans of this many rays
 COMPACT_FACTORS = tuple(
@@ -176,13 +185,17 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
 
 def trace_state(scene: Scene, settings: RenderSettings, state, active,
                 n: int, backend: str = "torch", geom=None, prim_group=None,
-                ray_group=None) -> Traced:
+                ray_group=None, planned: bool = False) -> Traced:
     """The bounce loop on a filled (15, lanes) state of n rays and its
     active mask (`trace_rays`' arguments and module docstring), lanes =
     `lane_count(n, backend)`. On a bucket shrink G1
     (`ops.front_kernel.span_gather`) moves the prefix's spans into a spare
     buffer, which becomes the state: the result names the buffer that
-    holds the color rows and the one that holds the first hit."""
+    holds the color rows and the one that holds the first hit. planned:
+    run the segments from the scene's segment plan for these lanes
+    (`ops.segment_plan`; the front doors' batches), where the loop is the
+    kernel backend's and unsharded (no geom, no group); the results are
+    the same bits."""
     dev = state.device
     max_depth = int(settings.max_depth)
     kernel = backend == "kernel"
@@ -201,13 +214,21 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
         nb = lanes              # lanes this segment traces
         any_active = True
         depth = 0
-        rays = torch.zeros((), dtype=torch.int64, device=dev)
+        plan = bucket = None
         if kernel:
-            params = shade_params(scene, settings)
-            spans = torch.empty((-(-lanes // COMPACT_SPAN),),
-                                dtype=torch.bool, device=dev)
-            counts = torch.zeros((max(max_depth, 1),), dtype=torch.int32,
-                                 device=dev)
+            params = kept_shade_params(scene, settings)
+            if planned and geom is None and group is None:
+                plan = segment_plan(scene, state, active, sizes, params)
+            spans = (plan.spans if plan is not None else
+                     torch.empty((-(-lanes // COMPACT_SPAN),),
+                                 dtype=torch.bool, device=dev))
+            # the ray counter (int64, S3 adds to it) and each segment's
+            # live-span count, zeroed by one fill
+            tally = torch.zeros((2 + max(max_depth, 1),), dtype=torch.int32,
+                                device=dev)
+            rays, counts = tally[:2].view(torch.int64)[0], tally[2:]
+        else:
+            rays = torch.zeros((), dtype=torch.int64, device=dev)
 
         # do-while (rgen:75-108): the primary segment is traced even when
         # max_depth <= 0
@@ -215,21 +236,27 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
             with span("trt.segment"):
                 s = state[:, :nb]
                 act = active[:nb]
+                if plan is not None:
+                    bucket = plan.buckets[nb]
+                    COUNTERS["plan_segments"] += 1
                 if kernel:
                     # the segment's visit ranks, from the whole state's
                     # anchor, for both of its queries (V1, one launch)
                     with span("trt.segment.ranks"):
-                        ranks = segment_ranks(
-                            scene, geom or geom_from_scene(scene), state[_O],
-                            n_batch, nb)
+                        ranks = (plan.ranks(state, bucket, n_batch)
+                                 if plan is not None else segment_ranks(
+                                     scene, geom or geom_from_scene(scene),
+                                     state[_O], n_batch, nb))
                 else:
                     ranks = None
                 with span("trt.segment.query"):
-                    # (rows of a compacted prefix are strided: the kernels
-                    # take them contiguous)
-                    o, d = s[_O].contiguous(), s[_D].contiguous()
-                    # dead rays trace with tmax = 0: every kernel skips them
-                    seg_tmax = torch.where(act, SEG_TMAX, 0.0)
+                    # the prefix's rows where they lie in the state (the
+                    # kernels take its row stride)
+                    o, d = s[_O], s[_D]
+                    # dead rays trace with tmax = 0: every kernel skips
+                    # them (a plan's row: S3 and G1 wrote it)
+                    seg_tmax = (plan.tmax[:nb] if plan is not None
+                                else torch.where(act, SEG_TMAX, 0.0))
                     # the kernel backend's unsharded query hands S2 its
                     # parts unmerged; a sharded one merges over the ranks
                     # first
@@ -245,8 +272,11 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
                     # spans in place
                     with span("trt.segment.shade"):
                         sr = shade_hit(o, d, hit.attrs if hit.t is None
-                                       else base_rows(hit), params)
-                        quads = (quad_gather(scene.textures.data4q, *sr.tex)
+                                       else base_rows(hit), params,
+                                       out=bucket.s2 if bucket else None)
+                        quads = (quad_gather(scene.textures.data4q, *sr.tex,
+                                             out=bucket.k4 if bucket
+                                             else None)
                                  if sr.tex is not None else None)
                     # (a missed lane's shadow ray is undefined, its tmax 0:
                     # the visit ranks are the segment's; S3 reads the
@@ -260,7 +290,8 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
                         local = counts[depth]
                         shade_finish(state, active, nb, sr, occluded, quads,
                                      params, depth, max_depth, rays, spans,
-                                     local)
+                                     local,
+                                     out=bucket.s3 if bucket else None)
                     count = local
                 else:
                     with span("trt.segment.finish"):
@@ -290,7 +321,8 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
                                                    device=dev)
                             slot = torch.empty_like(orig_out)
                         span_gather(state, spare, active, spare_act, spans,
-                                    local, orig_in, orig_out, slot, nb, fit)
+                                    local, orig_in, orig_out, slot, nb, fit,
+                                    plan.tmax if plan is not None else None)
                         state, spare = spare, state
                         active, spare_act = spare_act, active
                         orig_in, orig_out = orig_out, (

@@ -21,9 +21,10 @@ Here:
   `torch.profiler.record_function` inside a `recording` block and a shared
   no-op outside one, so a profiler run inside `recording` shows them as
   user annotations on the device trace's clock.
-* `COUNTERS` — frames F1 finished and the card path's device-to-host
-  reads, always counted; `recording(out)` turns the spans on for its
-  block and writes each counter's change over it into `out`.
+* `COUNTERS` — frames F1 finished, the card path's device-to-host
+  reads, and the bounce loop's segment plans built and segments run from
+  one, always counted; `recording(out)` turns the spans on for its block
+  and writes each counter's change over it into `out`.
 
 The JAX module's `enable_compile_cache` (XLA's persistent compilation
 cache) has no counterpart: nothing here compiles per shape, and the CUDA
@@ -43,8 +44,12 @@ import torch
 # F1 finished (its last sample of each; the banded path and
 # `render_sharded` run no F1 and count none); "host_reads", each
 # device-to-host read the bounce loop makes (a segment's stop test, the
-# ray total), counted at the read.
-COUNTERS = {"frames": 0, "host_reads": 0}
+# ray total), counted at the read; "plan_builds", the segment plans built
+# (`ops.segment_plan`); "plan_segments", the segments run from one (a
+# front door's kernel-backend loop; `trace_rays`, which the banded and
+# sharded paths run, and the torch backend count none).
+COUNTERS = {"frames": 0, "host_reads": 0, "plan_builds": 0,
+            "plan_segments": 0}
 
 _recording = False
 _OFF = contextlib.nullcontext()   # every span outside `recording`

@@ -46,6 +46,7 @@ from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     check_rays, count, fill, fold_outputs, launch, round_up, slab, tree_rank,
     tree_tensors)
 from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
+from toroidal_ray_tracing_tpu_torch.utils import profiling
 
 TORUS_CHUNK = 8           # tori per chunk, K <= 64
 GATED_TORUS_CHUNK = 16    # tori per chunk, K > 64
@@ -437,6 +438,11 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
     if rank is None:
         rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
     mat = tb.mat if want_attrs else None
+    if profiling.HIT_CALLS is not None and n:
+        profiling.HIT_CALLS.append(profiling.HitCall(
+            "torus_closest_hit", n, bool(want_attrs), False,
+            occ_out is not None, bool(occ_or), tb.tree_lo.shape[0],
+            tb.clo.shape[0], 0, tb.w2o_rows.shape[0]))
 
     if not origins.is_cuda:
         if counters is not None:
@@ -499,6 +505,10 @@ def torus_closest_hit_small(origins, dirs, tmax, tables: TorusTables,
     else:
         rs = origins.stride(0)
     K, par = tables.K, tables.par
+    if profiling.HIT_CALLS is not None and n:
+        profiling.HIT_CALLS.append(profiling.HitCall(
+            "torus_closest_hit_small", n, bool(want_attrs), False,
+            occ_out is not None, bool(occ_or), 0, 0, 0, K))
 
     if not origins.is_cuda:
         if counters is not None:

@@ -37,6 +37,11 @@ segment plan's route (`ops.segment_plan`) the segment's `Ranks` carry each
 query's outputs (`QueryOut`, views of the plan's workspace): the kernels
 write there and check nothing, and the query resolves no route or table.
 
+Inside a `utils.profiling.record_segments` block each hit-kernel wrapper
+(K1, K2, K3, K5/K6) appends a `utils.profiling.HitCall` for each launch
+to `profiling.HIT_CALLS`, the latest segment's list (on CPU tensors, for
+each call of its twin); outside one that is None and nothing is recorded.
+
 A query on one rank's slice of the primitives (`GeomSlice` with offsets,
 `parallel.sharding`) returns global indices, skips the loose hoist (the
 loose tail is the whole table's), and reads its own columns of the

@@ -47,6 +47,7 @@ from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     check_rays, count, fill, fold_outputs, launch, tree_rank, tree_tensors,
     walk_bound)
 from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
+from toroidal_ray_tracing_tpu_torch.utils import profiling
 
 N_ATTR = 21
 
@@ -253,6 +254,11 @@ def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
         rank = tb.one_rank
     elif rank is None:
         rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
+    if profiling.HIT_CALLS is not None and n:
+        profiling.HIT_CALLS.append(profiling.HitCall(
+            "tri_closest_hit", n, attr_tables is not None,
+            tmax_out is not None, occ_out is not None, bool(occ_or),
+            tb.tree_lo.shape[0], rank.shape[0], 0, 0))
 
     if not origins.is_cuda:
         if counters is not None:

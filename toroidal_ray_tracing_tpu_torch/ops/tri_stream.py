@@ -62,6 +62,7 @@ from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (
     N_ATTR, fold_block, hit_outputs, walk_start, winner_attrs, woop_block,
     woop_rows)
 from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
+from toroidal_ray_tracing_tpu_torch.utils import profiling
 
 TRI_STREAM_MIN = 65536     # triangles: above this the orchestrator streams
 STREAM_GATE_BOXES = 512    # superblock-count target (tri_stream.py:31)
@@ -238,6 +239,12 @@ def tri_closest_hit_stream(origins, dirs, tmax, tables: StreamTables,
         rs = origins.stride(0)
     if rank is None:
         rank = visit_rank(origins, n_batch or n, tb.sb_lo, tb.sb_hi)
+    if profiling.HIT_CALLS is not None and n:
+        profiling.HIT_CALLS.append(profiling.HitCall(
+            "tri_closest_hit_stream" + ("_grouped" if group > 1 else ""), n,
+            attr_tables is not None, tmax_out is not None,
+            occ_out is not None, bool(occ_or), tb.tree_lo.shape[0],
+            tb.sb_lo.shape[0], tb.clo.shape[0], 0))
 
     if not origins.is_cuda:
         if counters is not None:

@@ -13,9 +13,10 @@ Here:
   (on a CUDA device) CUDA activities, written as a Chrome/Perfetto trace
   `trace.json` into `log_dir` (the NSight-capture analog).
 * `record_segments(out)` — each segment the bounce loop traces in the
-  enclosed block, as [lanes traced, live spans among them]: what live-ray
-  compaction did (it reads the live mask, so it synchronizes once a
-  segment; leave it out of timed runs).
+  enclosed block, as [lanes traced, live spans among them, its hit-kernel
+  calls]: what live-ray compaction did (it reads the live mask, so it
+  synchronizes once a segment; leave it out of timed runs), and a
+  `HitCall` for each launch of K1, K2, K3, K5 or K6 its queries made.
 * `span(name)` — the program's stage spans (`trt.door.*`, `trt.raygen`,
   `trt.loop`, `trt.segment.*`, `trt.finish`), each a
   `torch.profiler.record_function` inside a `recording` block and a shared
@@ -37,6 +38,7 @@ from __future__ import annotations
 import contextlib
 import os
 import time
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +55,29 @@ COUNTERS = {"frames": 0, "host_reads": 0, "plan_builds": 0,
 
 _recording = False
 _OFF = contextlib.nullcontext()   # every span outside `recording`
+
+
+class HitCall(NamedTuple):
+    """One launch of a hit kernel (on CPU tensors: one call of its twin),
+    with what sets the bytes its contract moves."""
+
+    kernel: str       # the kernel's name on the device
+    lanes: int        # rays in
+    attrs: bool       # the attribute rows written
+    tmax_out: bool    # the next kernel's tmax written
+    occ_out: bool     # the occlusion byte written
+    occ_or: bool      # ... read first and ORed into
+    nodes: int        # tree nodes (K3: none)
+    ranked: int       # boxes the visit rank orders: K1's clusters (1
+    #                   without box test), K5/K6's superblocks, K2's chunks
+    boxes: int        # K5/K6's cluster boxes, which a superblock's walk tests
+    tori: int         # K2's padded torus rows, K3's tori
+
+
+# The hit-kernel calls of the open `record_segments` block's latest
+# segment: the kernels' wrappers append a `HitCall` for each launch while
+# it is a list; None outside such a block (and before its first segment).
+HIT_CALLS = None
 
 
 def span(name: str):
@@ -147,16 +172,24 @@ def trace_to(log_dir: str, device="cuda"):
 
 @contextlib.contextmanager
 def record_segments(out: list):
-    """Append [lanes traced, live spans among them] to `out` for every
-    segment `trace.wavefront.trace_rays` traces inside the block (a span
-    is `COMPACT_SPAN` lanes; a partial last span counts)."""
+    """Append [lanes traced, live spans among them, hit-kernel calls] to
+    `out` for every segment `trace.wavefront.trace_rays` traces inside the
+    block (a span is `COMPACT_SPAN` lanes; a partial last span counts).
+    The calls are a list of `HitCall`, one a launch, from the segment's
+    closest query on: every launch after a segment's entry is appended
+    belongs to it (its any-hit query's too)."""
+    global HIT_CALLS
     from toroidal_ray_tracing_tpu_torch.trace import wavefront
 
     real = wavefront.closest_hit
+    outer = HIT_CALLS
 
     def recorded(*a, **k):
+        global HIT_CALLS
         live = wavefront.live_spans(k["tmax"] > 0)
-        out.append([int(k["tmax"].shape[0]), int(live.sum())])
+        entry = [int(k["tmax"].shape[0]), int(live.sum()), []]
+        out.append(entry)
+        HIT_CALLS = entry[2]
         return real(*a, **k)
 
     wavefront.closest_hit = recorded
@@ -164,3 +197,4 @@ def record_segments(out: list):
         yield out
     finally:
         wavefront.closest_hit = real
+        HIT_CALLS = outer

@@ -198,7 +198,7 @@ Phases, each printed on its own lines with its wall seconds:
      its twin (`batch_anchor`, `visit_order`, `tree_rank`) on every
      segment of a `render` of configs 3, 4, 6, 7, 8 (through K5, and
      through K6), 5 (3840x2160, 2 spp) and the capture at their main-path
-     sizes, recorded as `segment_ranks` hands it the state's origin rows:
+     sizes, recorded as the segment plan hands it the state's origin rows:
      the anchor and every rank bit-equal (an anchor that differs is
      printed); its per-call route (K1's and K2's wrappers given no rank
      launch V1 once, and hit as on the twin's rank); on the same renders
@@ -216,13 +216,14 @@ Phases, each printed on its own lines with its wall seconds:
      segment, beside the eager route it replaces;
  16. the bounce loop's segment plan (`ops.segment_plan`): configs 3, 5
      (3840x2160, 2 spp), 6, 7 (textured) and 8 and the capture frame (config 6 in the
-     toroidal camera, rho 4, depth 10) render through the plan and through
-     the wrappers' default route, image, dumps and ray count bit-equal,
-     `plan_segments` equal to the frame's segments; S1, K1, K5, K2, K3
-     and S2 give the same bits with their rays' rows at another row
-     stride; then each wrapper's first call of each route is replayed
-     alone, the host microseconds a call takes with the plan's outputs
-     and without (`host_us_plan`, `host_us`);
+     toroidal camera, rho 4, depth 10) render through the plan, each
+     wrapper call (V1, S1, K1, K5, K2, K3, S2, K4, S3) bit-equal to the
+     same wrapper's standalone call on clones of its arguments
+     (`PlanSpy`), `plan_segments` equal to the frame's segments; S1, K1,
+     K5, K2, K3 and S2 give the same bits with their rays' rows at
+     another row stride; then each wrapper's first call is replayed
+     alone, the host microseconds a call takes standalone and planned
+     (`host_us`, `host_us_plan`);
  17. K5 and K6 on config 8 (1.18M triangles): a contiguous block-major
      patch of 32,768 of its 1080p primary rays (closest with attrs, and
      any-hit on their shadow rays) against the flat twin (its slab / Woop
@@ -2958,9 +2959,9 @@ SEGMENT_TOL = 1e-6        # libm-parted values: |diff| <= tol * max(1, |ref|)
 
 class SegmentGuard:
     """While entered, checks each kernel-backend segment that
-    `trace.wavefront.trace_rays` traces on the card, from its visit ranks
-    (`segment_ranks`, or a segment plan's `ranks`) to the return of its
-    S3: V1 launched at most once,
+    `trace.wavefront.trace_state` traces on the card, from its visit ranks
+    (the segment plan's `ranks`) to the return of its S3: V1 launched at
+    most once,
     S2 and S3 once, S1 twice where the query tests the scene's loose rows
     (the closest and the any-hit query: a scene with loose rows, its whole
     triangle table), and no call of `trace.shade.shade` inside it, of a
@@ -2984,8 +2985,7 @@ class SegmentGuard:
         eager = [(m, n) for m in (kc, vk, trk, tok, tsk)
                  for n in ("batch_anchor", "visit_order", "tree_rank",
                            "visit_ranks_plain") if hasattr(m, n)]
-        self.spots = [(wf, "segment_ranks", self._ranks),
-                      (sp.SegmentPlan, "ranks", self._ranks),
+        self.spots = [(sp.SegmentPlan, "ranks", self._ranks),
                       (wf, "closest_hit", self._closest_hit),
                       (wf, "shade_finish", self._shade_finish),
                       (wf, "shade", self._stray(lambda a: self.open)),
@@ -3799,15 +3799,14 @@ def phase_front_kernels(torch, results):
             continue
         a = calls[want]
         cur, _, act_in, _, spans, count, orig_in, _, _, nb, fit = a[:11]
-        tmax_row = a[11] if len(a) > 11 else None   # a segment plan's
         lanes = cur.shape[1]
         # both start from the same buffers: every entry equal, those the
         # contract leaves unwritten too
         kern, twin = list(_cloned(a)), list(_cloned(a))
         fk.span_gather(*kern)
         fk.span_gather_plain(*twin)
-        same = all(nan_equal(torch, kern[i], twin[i]) for i in (
-            1, 3, 7, 8, *((11,) if tmax_row is not None else ())))
+        same = all(nan_equal(torch, kern[i], twin[i])
+                   for i in (1, 3, 7, 8, 11))
         live = int(count)
         s_old, s_total = nb // 128, lanes // 128
         name = (f"G1 span_gather {label}: the {nb}-lane prefix of {lanes} "
@@ -3819,8 +3818,8 @@ def phase_front_kernels(torch, results):
         idx = fk.span_lanes(perm[:s_old])
         # 12 rows and the active byte of a lane landing in the new prefix,
         # read and written; origin and color of every other lane; the live
-        # flags; the span maps
-        nb_ = (fit * (98 if tmax_row is None else 102) + (lanes - fit) * 48
+        # flags; the span maps; the new prefix's tmax row
+        nb_ = (fit * 102 + (lanes - fit) * 48
                + s_old + s_total * (12 if orig_in is not None else 8))
         front_row(results, "span_gather", G1, name, same,
                   (lambda: fk.span_gather(*kern),
@@ -4008,7 +4007,7 @@ def phase_visit_ranks(torch, results):
     for num in V1_CELLS:
         label, scene, cam, st, w, h, spp, group = v1_cell(num)
         calls, folds_off, seen = [], [], {}
-        real_ranks, real_query = tk.visit_ranks, tk._query
+        real_ranks, real_query = vk.visit_ranks, tk._query
         real_hit = {k: getattr(tk, k) for k in (
             "tri_closest_hit", "tri_closest_hit_stream", "torus_closest_hit")}
 
@@ -4055,8 +4054,7 @@ def phase_visit_ranks(torch, results):
                     folds_off.append("occlusion byte")
             return rows, occ
 
-        tk.visit_ranks, tk._query = ranks, query
-        vk.visit_ranks = ranks     # the segment plan's V1 call
+        vk.visit_ranks, tk._query = ranks, query   # the plan's V1 call
         for k in real_hit:
             setattr(tk, k, rec(k))
         tri_stream.STREAM_GROUP = group
@@ -4065,8 +4063,7 @@ def phase_visit_ranks(torch, results):
                    device=DEVICE)
             sync(torch)
         finally:
-            tk.visit_ranks, tk._query = real_ranks, real_query
-            vk.visit_ranks = real_ranks
+            vk.visit_ranks, tk._query = real_ranks, real_query
             for k, fn in real_hit.items():
                 setattr(tk, k, fn)
             tri_stream.STREAM_GROUP = 0
@@ -4245,10 +4242,52 @@ def plan_cells():
     return cells
 
 
-class CallRecorder:
-    """The first call of each segment wrapper (V1, S1, K1, K5, K2, K3, S2,
-    K4, S3), recorded as (fn, args, kwargs) while a frame renders, for
-    replaying it alone."""
+def same_bits(torch, a, b) -> bool:
+    """Two wrapper results equal bit for bit: tensors by their bits, S2's
+    `ShadeRays` on the entries its contract defines
+    (`shade_kernel.defined_entries`), sequences entry by entry (entries
+    past the shorter one None); anything else by `==`."""
+    import dataclasses
+
+    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
+
+    if a is b:
+        return True
+    if isinstance(a, torch.Tensor):
+        # float32 as its bits: nan_equal's exact branch
+        return isinstance(b, torch.Tensor) and nan_equal(torch, *(
+            x.view(torch.int32) if a.dtype == b.dtype == torch.float32
+            else x for x in (a, b)))
+    if isinstance(a, sk.ShadeRays):
+        return all(same_bits(torch, x[..., m], y[..., m])
+                   for (_, x, m), (_, y, _) in zip(
+                       sk.defined_entries(a, a.tex is not None),
+                       sk.defined_entries(b, b.tex is not None)))
+    if dataclasses.is_dataclass(a) and not isinstance(a, type):
+        return all(same_bits(torch, getattr(a, f.name), getattr(b, f.name))
+                   for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)) and isinstance(b, (tuple, list)):
+        k = min(len(a), len(b))
+        return (all(same_bits(torch, x, y) for x, y in zip(a, b))
+                and all(x is None for x in (*a[k:], *b[k:])))
+    return a == b
+
+
+class PlanSpy:
+    """While entered, runs each segment wrapper (V1, S1, K1, K5, K2, K3,
+    S2, K4, S3) that is handed a segment plan's outputs (`out=`) first
+    alone, without `out=`, on clones of its arguments (its standalone
+    call: its own checks, route and outputs), then as planned, and holds
+    the planned call to it: what it returns, every argument after the call
+    (those it writes in place: the next tmax and the occlusion byte; S3's
+    state, active mask, ray count, live-span count and spans) and S3's
+    planned tmax row (`SEG_TMAX` where the standalone call left a ray
+    active, else 0), all bit for bit (`same_bits`). `calls` counts each
+    wrapper's compared calls, `unplanned` its calls without `out=`, `off`
+    describes the calls that differ, and `first` keeps each wrapper's
+    first (standalone, planned) call as (fn, args, kwargs) for replaying.
+    The clones are of tensors and of the tuples, lists, `AttrRows` and
+    `ShadeRays` holding them; tables and shading constants are shared."""
 
     def __init__(self):
         from toroidal_ray_tracing_tpu_torch.ops import torus_kernel as tok
@@ -4257,7 +4296,6 @@ class CallRecorder:
         from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
 
         self.spots = [(vk, "visit_ranks", "V1 visit_rank"),
-                      (tk, "visit_ranks", "V1 visit_rank"),
                       (tk, "loose_hit", "S1 loose_hit"),
                       (tk, "tri_closest_hit", "K1 tri_closest_hit"),
                       (tk, "tri_closest_hit_stream",
@@ -4270,14 +4308,61 @@ class CallRecorder:
                       (wf, "quad_gather", "K4 quad_gather"),
                       (wf, "shade_finish", "S3 shade_finish")]
         self.calls: dict = {}
+        self.unplanned: dict = {}
+        self.off: list = []
+        self.first: dict = {}
+
+    @staticmethod
+    def _clone(x):
+        import dataclasses
+
+        import torch
+
+        from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import ShadeRays
+        from toroidal_ray_tracing_tpu_torch.trace.intersect import AttrRows
+
+        if isinstance(x, torch.Tensor):
+            return x.clone()
+        if isinstance(x, (tuple, list)):
+            return type(x)(PlanSpy._clone(v) for v in x)
+        if isinstance(x, (AttrRows, ShadeRays)):
+            return dataclasses.replace(x, **{
+                f.name: PlanSpy._clone(getattr(x, f.name))
+                for f in dataclasses.fields(x)})
+        return x
+
+    def _spied(self, fn, name):
+        import torch
+
+        from toroidal_ray_tracing_tpu_torch.ops.kernel_common import SEG_TMAX
+
+        def call(*a, **k):
+            out = k.get("out")
+            if out is None:
+                self.unplanned[name] = self.unplanned.get(name, 0) + 1
+                return fn(*a, **k)
+            ca = self._clone(a)
+            ck = self._clone({key: v for key, v in k.items() if key != "out"})
+            want = fn(*ca, **ck)
+            got = fn(*a, **k)
+            same = (same_bits(torch, got, want) and same_bits(torch, a, ca)
+                    and all(same_bits(torch, k[key], v)
+                            for key, v in ck.items()))
+            if name.startswith("S3"):
+                nb = a[2]
+                same = same and same_bits(torch, out[0][:nb], torch.where(
+                    ca[1][:nb], SEG_TMAX, 0.0))
+            n = self.calls[name] = self.calls.get(name, 0) + 1
+            if not same:
+                self.off.append(f"{name} call {n}")
+            self.first.setdefault(name, ((fn, ca, ck), (fn, a, k)))
+            return got
+        return call
 
     def __enter__(self):
         self.real = [getattr(m, a) for m, a, _ in self.spots]
         for (mod, attr, name), fn in zip(self.spots, self.real):
-            def rec(*a, _fn=fn, _name=name, **k):
-                self.calls.setdefault(_name, (_fn, a, k))
-                return _fn(*a, **k)
-            setattr(mod, attr, rec)
+            setattr(mod, attr, self._spied(fn, name))
         return self
 
     def __exit__(self, *exc):
@@ -4300,27 +4385,11 @@ def host_us(torch, fn, reps: int = PLAN_REPS) -> float:
     return statistics.median(rounds)
 
 
-def same_outputs(torch, a, b) -> bool:
-    """A wrapper's outputs equal bit for bit: tuples entry by entry, S2's
-    `ShadeRays` on the lanes its contract defines."""
-    from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
-
-    if isinstance(a, sk.ShadeRays):
-        return all(nan_equal(torch, x[..., m], y[..., m])
-                   for (_, x, m), (_, y, _) in zip(
-                       sk.defined_entries(a, a.tex is not None),
-                       sk.defined_entries(b, b.tex is not None)))
-    if isinstance(a, torch.Tensor):
-        return nan_equal(torch, a, b)
-    return len(a) == len(b) and all(same_outputs(torch, x, y)
-                                    for x, y in zip(a, b))
-
-
 def strided_twin(torch, fn, a, k):
-    """Whether the wrapper call fn(*a, **k), whose first two arguments are
-    the rays' (3, N) rows, gives the same bits on the rows at another row
-    stride (contiguous rows when they were a state's prefix, else rows
-    inside a wider buffer)."""
+    """Whether the standalone wrapper call fn(*a, **k), whose first two
+    arguments are the rays' (3, N) rows, gives the same bits on the rows
+    at another row stride (contiguous rows when they were a state's
+    prefix, else rows inside a wider buffer)."""
     o, d = a[0], a[1]
     n = o.shape[1]
     if o.is_contiguous():
@@ -4329,77 +4398,55 @@ def strided_twin(torch, fn, a, k):
         o2, d2 = wide[0:3, :n], wide[3:6, :n]
     else:
         o2, d2 = o.contiguous(), d.contiguous()
-    k = {key: v for key, v in k.items() if key != "out"}
-    return same_outputs(torch, fn(*a, **k), fn(o2, d2, *a[2:], **k))
+    return same_bits(torch, fn(*a, **k), fn(o2, d2, *a[2:], **k))
 
 
 def phase_segment_plan(torch, results):
     """Phase 16: the bounce loop's segment plan (`ops.segment_plan`) on the
-    card. Each cell's frame renders through the plan and through the
-    wrappers' default route (`wavefront.segment_plan` giving none): image,
-    dumps and ray count bit-equal, `plan_segments` equal to the planned
-    frame's S3 launches (its segments) and none on the default route. The
-    first call of each ray-reading wrapper (S1, K1, K5, K2, K3, S2) gives
-    the same bits with its rays' rows at another row stride. Then each
-    wrapper's first call of each route is replayed alone: the host
-    microseconds a call takes with the plan's outputs (`out=`) and without
-    (its checks, allocations and route), into the kernels' results as
-    `host_us` / `host_us_plan`."""
+    card. Each cell's frame renders under `PlanSpy`: every wrapper call
+    of the planned frame bit-equal to the same wrapper's standalone call
+    on clones of its arguments, no call without the plan's outputs, and
+    `plan_segments` equal to the frame's S3 calls (its segments). The
+    first standalone call of each ray-reading wrapper (S1, K1, K5, K2, K3,
+    S2) gives the same bits with its rays' rows at another row stride.
+    Then each wrapper's first call is replayed alone, standalone and
+    planned: the host microseconds a call takes without the plan's
+    outputs (its checks, allocations and route) and with them, into the
+    kernels' results as `host_us` / `host_us_plan`."""
     from toroidal_ray_tracing_tpu_torch import render
-    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
-        LAUNCHES, reset_launches)
-    from toroidal_ray_tracing_tpu_torch.trace import wavefront as wf
     from toroidal_ray_tracing_tpu_torch.utils.profiling import COUNTERS
 
     timing: dict = {}
     for name, num, cam, st, w, h, spp in plan_cells():
         _, scene = config(num)
-        outs, calls, segs = {}, {}, {}
-        for route in ("default", "plan"):
-            real = wf.segment_plan
-            if route == "default":
-                wf.segment_plan = lambda *a, **k: None
-            before = COUNTERS["plan_segments"]
-            try:
-                with CallRecorder() as rec:
-                    reset_launches()
-                    outs[route] = render(scene, cam, w, h, st,
-                                         backend="kernel", spp=spp,
-                                         device=DEVICE)
-                    sync(torch)
-                    segs[route] = (LAUNCHES["shade_finish"],
-                                   COUNTERS["plan_segments"] - before)
-            finally:
-                wf.segment_plan = real
-            calls[route] = rec.calls
-        same = all(bit_equal(outs["plan"][k], outs["default"][k])
-                   for k in ("image", "hit_position", "ray_origin",
-                             "ray_dir"))
-        check(same and outs["plan"]["rays_traced"]
-              == outs["default"]["rays_traced"],
-              f"{name}: the plan's frame bit-equal to the default route's "
-              f"(image, dumps), rays {outs['plan']['rays_traced']} / "
-              f"{outs['default']['rays_traced']}")
-        check(segs["plan"][1] == segs["plan"][0] > 0
-              and segs["default"][1] == 0,
-              f"{name}: plan_segments {segs['plan'][1]} = the planned "
-              f"frame's {segs['plan'][0]} segments; default route "
-              f"{segs['default'][1]}")
-        strided = [kernel for kernel, (fn, a, k) in calls["default"].items()
+        before = COUNTERS["plan_segments"]
+        with PlanSpy() as spy:
+            out = render(scene, cam, w, h, st, backend="kernel", spp=spp,
+                         device=DEVICE)
+            sync(torch)
+        segs = COUNTERS["plan_segments"] - before
+        n_calls = sum(spy.calls.values())
+        check(not spy.off and not spy.unplanned and n_calls > 0
+              and out["rays_traced"] > 0,
+              f"{name}: {n_calls} wrapper calls of the planned frame "
+              f"bit-equal to their standalone calls ({spy.calls}); off: "
+              f"{spy.off[:5] or 'none'}; without the plan's outputs: "
+              f"{spy.unplanned or 'none'}")
+        check(segs == spy.calls.get("S3 shade_finish", 0) > 0,
+              f"{name}: plan_segments {segs} = the frame's "
+              f"{spy.calls.get('S3 shade_finish', 0)} segments")
+        strided = [kernel for kernel, ((fn, a, k), _) in spy.first.items()
                    if kernel.split()[0] in ("S1", "K1", "K5", "K2", "K3",
                                             "S2")
                    and not strided_twin(torch, fn, a, k)]
         check(not strided, f"{name}: S1, K1, K5, K2, K3, S2 give the same "
-              f"bits at another row stride ({len(calls['default'])} "
-              f"wrappers called; off: {strided or 'none'})")
-        for kernel, (fn, a, k) in calls["plan"].items():
-            d = calls["default"].get(kernel)
-            if d is None or k.get("out") is None:
-                continue
-            plain = host_us(torch, lambda: d[0](*d[1], **d[2]))
+              f"bits at another row stride ({len(spy.first)} wrappers "
+              f"called; off: {strided or 'none'})")
+        for kernel, ((fn, ca, ck), (_, a, k)) in spy.first.items():
+            alone = host_us(torch, lambda: fn(*ca, **ck))
             planned = host_us(torch, lambda: fn(*a, **k))
-            timing.setdefault(kernel, {})[name] = (plain, planned)
-    print("host us a wrapper call, segment 0, default route -> plan:",
+            timing.setdefault(kernel, {})[name] = (alone, planned)
+    print("host us a wrapper call, first call, standalone -> planned:",
           flush=True)
     for kernel, by_cell in timing.items():
         cells = "; ".join(f"{c} {p:.1f} -> {q:.1f}"
@@ -4572,9 +4619,9 @@ def main(argv=None) -> int:
         done("15. visit ranks V1 and the query folds against their twins")
 
     if want(16):
-        phase("16. the segment plan against the default route")
+        phase("16. the segment plan against the standalone calls")
         phase_segment_plan(torch, results)
-        done("16. the segment plan against the default route")
+        done("16. the segment plan against the standalone calls")
 
     if want(17):
         phase("17. K5 and K6 on config 8 against their twin")

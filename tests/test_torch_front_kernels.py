@@ -29,7 +29,7 @@ from toroidal_ray_tracing_tpu_torch.cameras import (PinholeCamera,
                                                     ToroidalCamera)
 from toroidal_ray_tracing_tpu_torch.cameras.pinhole import pick_block
 from toroidal_ray_tracing_tpu_torch.ops import front_kernel as fk
-from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES
+from toroidal_ray_tracing_tpu_torch.ops.kernel_common import LAUNCHES, SEG_TMAX
 from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings,
                                                   scene_from_numpy,
                                                   settings_from_numpy)
@@ -159,9 +159,10 @@ def test_span_gather_matches_jax_prow(case):
     spans = torch.from_numpy(np.concatenate([live, np.zeros(
         s_total - s_old, bool)]))
     count = torch.tensor(int(live.sum()), dtype=torch.int32)
+    tmax = torch.full((lanes,), float("nan"))
     fk.span_gather(t["cur"], spare, t["act"], spare_act, spans, count,
                    None if orig_in is None else torch.from_numpy(orig_in),
-                   orig_out, slot, nb, fit)
+                   orig_out, slot, nb, fit, tmax)
 
     perm, moved = _jax_prow(live, cur[:12, :nb])
     kept = [0, 1, 2, 6, 7, 8]
@@ -182,6 +183,11 @@ def test_span_gather_matches_jax_prow(case):
     np.testing.assert_array_equal(
         slot.numpy(), np.asarray(jnp.argsort(jnp.asarray(want))))
     assert spare_act[n_live * SPAN:fit].sum() == 0   # dead spans behind
+    # the new prefix's tmax row: SEG_TMAX where active, else 0
+    np.testing.assert_array_equal(
+        tmax[:fit].numpy(),
+        np.where(spare_act[:fit].numpy(), np.float32(SEG_TMAX), np.float32(0)))
+    assert bool(tmax[fit:].isnan().all())
 
 
 @pytest.mark.parametrize("chw", [False, True])

@@ -18,7 +18,7 @@ for sd in (procedural.scene_multi_torus(True), SCENARIOS[7].scene()):
         assert out["image"].shape == (8, 8, 3) and out["rays_traced"] > 0
 import argparse, os, tempfile
 from toroidal_ray_tracing_tpu_torch.experiments import (
-    backend_paths, frame_turns, gtruth, reproject, rho_sweep, scene_args,
+    backend_paths, gtruth, reproject, rho_sweep, scene_args,
     toroidal_experiment)
 from toroidal_ray_tracing_tpu_torch.geom import bvh
 from toroidal_ray_tracing_tpu_torch.io import dumps, native, png
@@ -39,7 +39,7 @@ with tempfile.TemporaryDirectory() as tmp:
     assert len(files) == 2 * 13 + 2, len(files)
 from toroidal_ray_tracing_tpu_torch import bench
 from toroidal_ray_tracing_tpu_torch.experiments import (
-    front_door_turns, microbench, settings_sweep)
+    microbench, settings_sweep)
 from toroidal_ray_tracing_tpu_torch.render import raster
 from toroidal_ray_tracing_tpu_torch.utils import profiling, roofline
 from toroidal_ray_tracing_tpu_torch.trace.intersect import (

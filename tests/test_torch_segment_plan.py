@@ -1,22 +1,26 @@
 """The bounce loop's segment plan (`ops.segment_plan`) on the CPU, through
 the kernels' plain twins, which write into the plan's workspace.
 
-(a) A front door's frame through the plan is bit-equal to the wrappers'
-    default route (`wavefront.segment_plan` patched to give no plan):
-    image, dumps, rays_traced, on the capture's scene layout (tessellated
-    tori over a mirror floor) in a toroidal frame to depth 10 compacting
-    into every bucket (S1, K1, V1); on analytic tori over a mirror plane
-    with K2 on the larger buckets and K3 on the smaller (the route's
-    threshold patched down to the test's sizes); on a mesh over the
-    stream threshold (K5, the threshold patched down); and on a textured
-    scene (K4, K1, K3 with K = 1).
+(a) A front door's frame through the plan holds every wrapper call (V1,
+    S1, K1, K5, K2, K3, S2, K4, S3) to the same wrapper's standalone call
+    on clones of its arguments, bit for bit (`chip_smoke.PlanSpy`), and
+    makes no wrapper call without the plan's outputs: on the capture's
+    scene layout (tessellated tori over a mirror floor) in a toroidal
+    frame to depth 10 compacting into every bucket (S1, K1, V1); on
+    analytic tori over a mirror plane with K2 on the larger buckets and
+    K3 on the smaller (the route's threshold patched down to the test's
+    sizes); on a mesh over the stream threshold (K5, the threshold
+    patched down); and on a textured scene (K4, K1, K3 with K = 1). Each
+    planned query returns the parts the same query returns with its
+    kernels' own outputs.
 (b) Each wrapper that takes the rays' row stride gives the same answer
     on a strided prefix of a state as on its contiguous copy, with its
     own outputs or a plan's (`Planned`); element-strided rows are refused.
 (c) The plan's lifecycle: over several calls of one scene and size it is
     built once and `plan_segments` counts every segment; other lanes
-    replace it; the banded path, `trace_rays` (the sharded path's entry),
-    a geometry slice and the torch backend run no segment from it.
+    replace it; the banded path, `trace_rays` (the sharded path's entry)
+    and a loop on a geometry slice run every segment from one (a sharded
+    rank's repeated frames from one plan), the torch backend none.
 (d) Every C entry point's parameters against `kernel_common._SIGNATURES`;
     host settings uploaded once per device and values; the shading
     constants kept per settings tensors and numbers.
@@ -30,6 +34,7 @@ import re
 import pytest
 import torch
 
+from chip_smoke import PlanSpy
 from toroidal_ray_tracing_tpu_torch import (PinholeCamera, ToroidalCamera,
                                             render, render_frames,
                                             render_sequence)
@@ -37,13 +42,14 @@ from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
 from toroidal_ray_tracing_tpu_torch.ops import segment_plan as sp
 from toroidal_ray_tracing_tpu_torch.ops import shade_kernel as sk
 from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
-from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
 from toroidal_ray_tracing_tpu_torch.ops.loose_kernel import loose_hit
 from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import (
     torus_closest_hit_chunked, torus_closest_hit_small)
 from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import tri_closest_hit
 from toroidal_ray_tracing_tpu_torch.ops.tri_stream import (
     tri_closest_hit_stream)
+from toroidal_ray_tracing_tpu_torch.parallel.sharding import (padded_scene,
+                                                               shard_geometry)
 from toroidal_ray_tracing_tpu_torch.render import renderer
 from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, build_scene,
                                                   procedural)
@@ -112,103 +118,72 @@ def _routes(name, monkeypatch):
         monkeypatch.setattr(wf, "COMPACT_FACTORS", (2, 4))
         monkeypatch.setattr(wf, "COMPACT_MIN", 1024)
     if name == "tori_k2_k3":
-        small = (lambda n_batch, K: K <= 8 and n_batch <= 4096)
-        monkeypatch.setattr(tk, "use_small_kernel", small)
-        monkeypatch.setattr(sp, "use_small_kernel", small)
+        monkeypatch.setattr(tk, "use_small_kernel",
+                            lambda n_batch, K: K <= 8 and n_batch <= 4096)
     if name == "stream_k5":
         monkeypatch.setattr(tk, "TRI_STREAM_MIN", 1024)
 
 
-def _spy(monkeypatch, seen):
-    """Record which kernels run (their wrappers) and each segment's lanes."""
-    import toroidal_ray_tracing_tpu_torch.ops.torus_kernel as tok
-
-    def wrap(mod, attr, key):
-        real = getattr(mod, attr)
-
-        def spied(*a, **k):
-            seen["kernels"].add(key)
-            return real(*a, **k)
-
-        monkeypatch.setattr(mod, attr, spied)
-
-    wrap(tk, "loose_hit", "s1")
-    wrap(tk, "tri_closest_hit", "k1")
-    wrap(tk, "tri_closest_hit_stream", "k5")
-    wrap(tok, "torus_closest_hit_chunked", "k2")
-    wrap(tok, "torus_closest_hit_small", "k3")
-    wrap(wf, "quad_gather", "k4")
-    wrap(vk, "visit_ranks", "v1")
-    wrap(tk, "visit_ranks", "v1")
+def _lanes(monkeypatch, lanes):
+    """Record each segment's lanes (its closest query's rays)."""
     real = wf.closest_hit
 
     def query(scene, o, d, tmax=None, **kw):
-        seen["lanes"].append(int(tmax.shape[0]))
+        lanes.append(int(tmax.shape[0]))
         return real(scene, o, d, tmax=tmax, **kw)
 
     monkeypatch.setattr(wf, "closest_hit", query)
 
 
-def _frame(name, monkeypatch, planned: bool):
-    _, cam, w, h, st, _ = CASES[name]
-    scene = _scene(name)
-    seen = {"kernels": set(), "lanes": []}
-    with monkeypatch.context() as m:
-        _routes(name, m)
-        _spy(m, seen)
-        if not planned:
-            m.setattr(wf, "segment_plan", lambda *a, **k: None)
-        before = dict(profiling.COUNTERS)
-        out = render(scene, cam, w, h, RenderSettings.default(**st),
-                     backend="kernel", device="cpu")
-        got = {k: profiling.COUNTERS[k] - before[k]
-               for k in ("plan_segments", "plan_builds")}
-    return out, seen, got
+def _held(spy):
+    """Whether every wrapper call under the spy was planned and bit-equal
+    to its standalone call; the kernels it saw, named as CASES names
+    them."""
+    assert not spy.off and not spy.unplanned, (spy.off, spy.unplanned)
+    return {name.split()[0].lower() for name in spy.calls}
 
 
 @pytest.mark.parametrize("name", sorted(CASES))
 def test_plan_route_is_bit_equal_to_the_default_route(name, monkeypatch):
-    """(a) The same frame through the plan and through the wrappers'
-    default route: every output bit, the ray count, the segments and
-    their lanes; the plan's kernels are the case's, and on the capture
-    layout its segments trace every bucket."""
-    plain, seen0, got0 = _frame(name, monkeypatch, planned=False)
-    planned, seen1, got1 = _frame(name, monkeypatch, planned=True)
-    assert got0["plan_segments"] == 0
-    assert got1["plan_segments"] == len(seen1["lanes"]) > 0
-    assert seen1["lanes"] == seen0["lanes"]
-    assert seen1["kernels"] == seen0["kernels"] >= CASES[name][5], (
-        name, seen1["kernels"])
-    assert planned["rays_traced"] == plain["rays_traced"] > 0
-    for k in ("image", "hit_position", "ray_origin", "ray_dir"):
-        assert torch.equal(planned[k], plain[k]), (name, k)
+    """(a) A frame through the plan, each wrapper call held to the same
+    wrapper's standalone call on clones of its arguments: every output
+    bit, no call without the plan's outputs, every segment from the plan;
+    the plan's kernels are the case's, and on the capture layout its
+    segments trace every bucket."""
+    _, cam, w, h, st, kernels = CASES[name]
+    scene = _scene(name)
+    lanes = []
+    with monkeypatch.context() as m:
+        _routes(name, m)
+        _lanes(m, lanes)
+        with PlanSpy() as spy:
+            out, got = _count(lambda: render(
+                scene, cam, w, h, RenderSettings.default(**st),
+                backend="kernel", device="cpu"))
+    assert _held(spy) >= kernels, (name, spy.calls)
+    assert (got["plan_segments"] == len(lanes)
+            == spy.calls["S3 shade_finish"] > 0)
+    assert out["rays_traced"] > 0
     if name == "capture_depth10":
         # every bucket: 4,096, 2,048 and 1,024 lanes
-        assert sorted(set(seen1["lanes"])) == [1024, 2048, 4096]
+        assert sorted(set(lanes)) == [1024, 2048, 4096]
 
 
-def test_batched_front_doors_are_bit_equal_through_the_plan(monkeypatch):
+def test_batched_front_doors_are_bit_equal_through_the_plan():
     """(a) Two frames a batch (`render_frames`, channel-major, with dumps)
-    and a sequence, each through the plan and the default route."""
+    and a sequence through the plan, each wrapper call held to its
+    standalone call."""
     scene = _scene("tori_k2_k3")
     cams = [PIN, PinholeCamera(eye=(-8.0, 4.0, 6.0), center=(0.0, 0.5, 0.0))]
     st = RenderSettings.default(max_depth=4)
-
-    def both():
-        return (render_frames(scene, cams, 64, 48, st, backend="kernel",
+    with PlanSpy() as spy:
+        outs = (render_frames(scene, cams, 64, 48, st, backend="kernel",
                               device="cpu", frames_per_batch=2),
                 render_sequence(scene, cams, 64, 48, st, backend="kernel",
                                 device="cpu", frames_per_batch=1))
-
-    planned = both()
-    with monkeypatch.context() as m:
-        m.setattr(wf, "segment_plan", lambda *a, **k: None)
-        plain = both()
-    for a, b in zip(planned, plain):
-        assert a["rays_traced"] == b["rays_traced"] > 0
-        for k, v in a.items():
-            if isinstance(v, torch.Tensor):
-                assert torch.equal(v, b[k]), k
+    assert _held(spy) >= {"s1", "k3", "s2", "s3"}
+    for out in outs:
+        assert out["rays_traced"] > 0
 
 
 # ---------------------------------------------------------------------------
@@ -259,7 +234,7 @@ def test_strided_rows_give_the_contiguous_answer(occlusion):
     stream = build_scene(procedural.scene_multi_torus(analytic=False))
     calls = []
     gt = geom_from_scene(tori)
-    route_t = tk._route(tori, gt, 2048)
+    route_t = tk.segment_routes(tori, gt, (2048,))[2048]
     calls.append(lambda o_, d_, **k: loose_hit(
         o_, d_, tmax, gt.woop_o, gt.woop_d, route_t.tri.base, route_t.tri.L,
         route_t.tri.base, occlusion, **k))
@@ -378,31 +353,81 @@ def test_plan_rebuilds_when_a_table_changes():
     assert torch.equal(out["image"], want["image"])
 
 
-def test_other_routes_run_no_segment_from_a_plan():
-    """(c) The torch backend, the banded path, `trace_rays` (the sharded
-    path's and the banded bands' entry) and a loop on a geometry slice
-    (what a sharded rank passes) keep their route: no plan segment."""
+def _segments(monkeypatch, fn):
+    """fn()'s segments (S3 calls on the kernel backend, `_advance` calls
+    on the torch backend) and its plan counters."""
+    segments = []
+    with monkeypatch.context() as m:
+        for name in ("shade_finish", "_advance"):
+            real = getattr(wf, name)
+            m.setattr(wf, name, lambda *a, _real=real, **k:
+                      segments.append(1) or _real(*a, **k))
+        _, got = _count(fn)
+    return len(segments), got
+
+
+def _rays(n):
+    o = torch.tensor([[8.0], [5.0], [8.0]]) + torch.linspace(
+        -1.0, 1.0, n)[None, :]
+    d = torch.tensor([[0.0], [0.5], [0.0]]) - o
+    return o, d / d.norm(dim=0, keepdim=True)
+
+
+def test_other_routes_run_no_segment_from_a_plan(monkeypatch):
+    """(c) Every kernel-backend loop runs from a plan: the banded path (its
+    shorter last band builds a second plan), `trace_rays` (the sharded
+    path's and the banded bands' entry) and a loop given a geometry (here
+    the scene's own tensors in a new `GeomSlice`: the same plan) count
+    every segment in `plan_segments`; the torch backend runs none."""
     scene = build_scene(capture_like())
     st = RenderSettings.default(max_depth=3)
     n = 64 * 48
-    o = torch.tensor([[8.0], [5.0], [8.0]]).expand(3, n).contiguous()
-    d = -o / o.norm(dim=0, keepdim=True)
-    lanes = wf.lane_count(n, "kernel")
+    o, d = _rays(n)
 
     def sliced():
-        state, active = wf.new_state(lanes, o.device)
-        wf.fill_state_plain(state, active, o, d, 0, lanes - n)
-        return wf.trace_state(scene, st, state, active, n, "kernel",
-                              geom=geom_from_scene(scene), planned=True)
+        return wf.trace_rays(scene, st, o, d, backend="kernel",
+                             geom=geom_from_scene(scene))
 
-    for fn in (lambda: render(scene, PIN, 64, 48, st, backend="torch",
-                              device="cpu"),
-               lambda: render(scene, PIN, 64, 48, st, backend="kernel",
-                              device="cpu", tile_rows=16),
-               lambda: wf.trace_rays(scene, st, o, d, backend="kernel"),
-               sliced):
-        _, got = _count(fn)
-        assert got == {"plan_builds": 0, "plan_segments": 0}
+    for fn, planned, builds in (
+            (lambda: render(scene, PIN, 64, 48, st, backend="torch",
+                            device="cpu"), False, 0),
+            (lambda: render(scene, PIN, 64, 48, st, backend="kernel",
+                            device="cpu", tile_rows=20), True, 2),
+            (lambda: wf.trace_rays(scene, st, o, d, backend="kernel"), True,
+             1),
+            (sliced, True, 0)):
+        segments, got = _segments(monkeypatch, fn)
+        assert segments > 0
+        assert got == {"plan_builds": builds,
+                       "plan_segments": segments if planned else 0}
+
+
+def test_a_sharded_ranks_frames_build_one_plan(monkeypatch):
+    """(c) A loop on one prims rank's slice of a scene padded for two
+    ranks (`shard_geometry`), run twice with the slice's views made anew
+    as `render_sharded` makes them each frame: one plan, every segment
+    from it, each wrapper call bit-equal to its standalone call, and the
+    two frames equal."""
+    scene = padded_scene(build_scene(capture_like()), 2)
+    st = RenderSettings.default(max_depth=3)
+    o, d = _rays(64 * 48)
+
+    def frame():
+        geom = shard_geometry(scene, 2, 0)
+        assert geom.tri_offset == 0 and geom.woop_o.shape[2] < \
+            scene.triangles.count
+        return wf.trace_rays(scene, st, o, d, backend="kernel", geom=geom)
+
+    with PlanSpy() as spy:
+        runs = [_segments(monkeypatch, frame) for _ in range(2)]
+        first = frame()
+        again = frame()
+    assert [got["plan_builds"] for _, got in runs] == [1, 0]
+    for segments, got in runs:
+        assert got["plan_segments"] == segments > 0
+    assert _held(spy) >= {"v1", "k1", "s2", "s3"}
+    for a, b in zip(first, again):
+        assert torch.equal(a, b) if isinstance(a, torch.Tensor) else a == b
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +524,8 @@ def test_plan_checks_its_arguments_once():
     state, active = wf.new_state(lanes, torch.device("cpu"))
     params = sk.kept_shade_params(scene, st)
     with pytest.raises(TypeError):
-        sp.segment_plan(scene, state.double(), active, sizes, params)
+        sp.segment_plan(scene, geom_from_scene(scene), state.double(),
+                        active, sizes, params)
     render(scene, PIN, 48, 48, st, backend="kernel", device="cpu")
     checked = []
     import toroidal_ray_tracing_tpu_torch.ops.loose_kernel as lk
@@ -513,38 +539,42 @@ def test_plan_checks_its_arguments_once():
 
 
 def test_planned_queries_return_the_default_routes_parts(monkeypatch):
-    """(a) Each planned query hands back the parts the default route's
-    query returns (the any-hit query too: its hoist's base, the triangle
-    and torus kernels' hits), bit for bit, on every segment."""
+    """(a) Each planned query hands back the parts (and the closest query's
+    attribute rows) that the same query returns on clones of its rays
+    with the segment's route and visit ranks but its kernels' own outputs
+    (`Ranks.out` None): the any-hit query too (its hoist's base, the
+    triangle and torus kernels' hits, the occlusion byte), bit for bit, on
+    every segment."""
     scene = _scene("tori_k2_k3")
-    got = {True: [], False: []}
+    seen = []
     real = tk._query
 
     def query(scene_, geom, o, d, tmax, want_attrs, occlusion, ranks):
-        rows, occ = real(scene_, geom, o, d, tmax, want_attrs, occlusion,
-                         ranks)
-        got[ranks.out is not None].append((occlusion, [
-            None if p is None else [t.clone() for t in p]
-            for p in (rows.base, rows.tri_hit, rows.tor_hit)],
-            None if occ is None else occ.clone()))
-        return rows, occ
+        alone = real(scene_, geom, o.clone(), d.clone(), tmax.clone(),
+                     want_attrs, occlusion,
+                     dataclasses.replace(ranks, out=None))
+        got = real(scene_, geom, o, d, tmax, want_attrs, occlusion, ranks)
+        seen.append((occlusion, [[
+            None if p is None else [t if t is None else t.clone()
+                                    for t in p]
+            for p in (r.base, r.tri_hit, r.tor_hit, (r.tri,), (r.tor,))]
+            + [None if occ is None else occ.clone()]
+            for r, occ in (alone, got)]))
+        return got
 
     monkeypatch.setattr(tk, "_query", query)
     _routes("tori_k2_k3", monkeypatch)
     st = RenderSettings.default(max_depth=3)
     render(scene, PIN, 96, 96, st, backend="kernel", device="cpu")
-    with monkeypatch.context() as m:
-        m.setattr(wf, "segment_plan", lambda *a, **k: None)
-        render(scene, PIN, 96, 96, st, backend="kernel", device="cpu")
-    assert len(got[True]) == len(got[False]) > 0
-    assert {occl for occl, _, _ in got[True]} == {False, True}
-    for (o1, parts1, occ1), (o0, parts0, occ0) in zip(got[True],
-                                                       got[False]):
-        assert o1 == o0
-        assert (occ1 is None) == (occ0 is None)
-        if occ1 is not None:
-            assert torch.equal(occ1, occ0)
-        for p1, p0 in zip(parts1, parts0):
-            assert (p1 is None) == (p0 is None)
-            for a, b in zip(p1 or (), p0 or ()):
-                assert torch.equal(a, b)
+    assert len(seen) > 0
+    assert {occl for occl, _ in seen} == {False, True}
+    for _, (alone, planned) in seen:
+        assert len(alone) == len(planned)
+        for p0, p1 in zip(alone, planned):
+            assert (p0 is None) == (p1 is None)
+            if isinstance(p0, torch.Tensor):
+                assert torch.equal(p0, p1)
+                continue
+            for a, b in zip(p0 or (), p1 or ()):
+                assert (a is None) == (b is None)
+                assert a is None or torch.equal(a, b)

@@ -23,12 +23,10 @@ the CPU, and the query folds its segment's kernels write beside their hits.
     or `torch.where(occ, 0, tmax)`, the occlusion byte `t < BIG`, ORed
     into the earlier kernels' byte.
 (e) One V1 a segment: `trace_state` on the kernel backend ranks a
-    segment's sets once for both its queries (`segment_ranks`), and no
+    segment's sets once for both its queries (the box sets
+    `trace_kernel.segment_routes` names for the segment's route), and no
     wrapper ranks its own set.
-(f) The turns script's stage split files V1's wrappers under "visit
-    order", `batch_anchor` under "anchor" and `_query`'s ops under "query
-    folds".
-(g) The sweep script's edits of csrc/visit.cu match the source once, and
+(f) The sweep script's edits of csrc/visit.cu match the source once, and
     the wrapper's constants are the source's.
 """
 
@@ -43,8 +41,7 @@ import jax.numpy as jnp
 
 from toroidal_ray_tracing_tpu_torch import render
 from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera
-from toroidal_ray_tracing_tpu_torch.experiments import (config5_turns,
-                                                        v1_cluster_sweep)
+from toroidal_ray_tracing_tpu_torch.experiments import v1_cluster_sweep
 from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
 from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
 from toroidal_ray_tracing_tpu_torch.ops import segment_plan as sp
@@ -407,7 +404,7 @@ def test_trace_state_ranks_once_a_segment(monkeypatch):
     assert tk._tri_plan(scene, geom).mesh.box_test
     calls = {"ranks": [], "per_call": 0, "segments": 0, "routes": 0}
     real_ranks = vk.visit_ranks
-    real_route = tk._route
+    real_route = tk.segment_routes
     real_finish = wf.shade_finish
 
     def ranks(origins, n_batch, sets, out=None):
@@ -426,10 +423,9 @@ def test_trace_state_ranks_once_a_segment(monkeypatch):
         calls["routes"] += 1
         return real_route(*a, **k)
 
-    monkeypatch.setattr(tk, "visit_ranks", ranks)
     monkeypatch.setattr(vk, "visit_ranks", ranks)
-    monkeypatch.setattr(tk, "_route", route)
-    monkeypatch.setattr(sp, "_route", route)
+    monkeypatch.setattr(tk, "segment_routes", route)   # a query's own
+    monkeypatch.setattr(sp, "segment_routes", route)   # the plan's
     monkeypatch.setattr(wf, "shade_finish", finish)
     for mod in ("tri_kernel", "torus_kernel", "tri_stream"):
         monkeypatch.setattr(sys.modules["toroidal_ray_tracing_tpu_torch.ops."
@@ -448,50 +444,29 @@ def test_trace_state_ranks_once_a_segment(monkeypatch):
 
 
 def test_segment_ranks_sets():
-    """Config 6: K1's clusters only; config 4 at 1080p lanes: K2's chunks;
-    config 3 at 512x512 lanes (K3's route): no set, no launch. The route
-    the ranks were made for rides along with them."""
-    o = torch.zeros((3, 8))
-    r6 = tk.segment_ranks(_scene("config6"), geom_from_scene(_scene(
-        "config6")), o, 2048, 1920 * 1080)
-    assert r6.tri.shape == (181,) and r6.tor is None
-    assert r6.route.tri.mesh.box_test
-    r4 = tk.segment_ranks(_scene("config4"), geom_from_scene(_scene(
-        "config4")), o, 2048, 1920 * 1080)
-    assert r4.tri is None and r4.tor.shape == (64,)
-    assert r4.route.tor is not None and not r4.route.small
-    r3 = tk.segment_ranks(_scene("config3"), geom_from_scene(_scene(
-        "config3")), o, 2048, 512 * 512)
-    assert r3.tri is None and r3.tor is None
-    assert r3.route.small
+    """Each route's box sets for V1 (`_Route.tri_set`, `.tor_set`) beside
+    the route they were named
+    for. Config 6: K1's clusters only; config 4 at 1080p lanes: K2's
+    chunks; config 3 at 512x512 lanes (K3's route): no set, no launch."""
+    def route(name, lanes):
+        return tk.segment_routes(_scene(name), geom_from_scene(_scene(name)),
+                                 (lanes,))[lanes]
+
+    r6 = route("config6", 1920 * 1080)
+    tri, tor = r6.tri_set, r6.tor_set
+    assert tri[0].shape == tri[1].shape == (181, 3) and tor is None
+    assert r6.tri.mesh.box_test and tri[0] is r6.tri.mesh.clo
+    r4 = route("config4", 1920 * 1080)
+    tri, tor = r4.tri_set, r4.tor_set
+    assert tri is None and tor[0].shape == (64, 3)
+    assert r4.tor is not None and not r4.small and tor[0] is r4.tor.clo
+    r3 = route("config3", 512 * 512)
+    assert r3.tri_set is None and r3.tor_set is None
+    assert r3.small
 
 
 # ---------------------------------------------------------------------------
-# (f) the stage split
-# ---------------------------------------------------------------------------
-
-def test_stage_split_names_the_new_stages():
-    got = {}
-
-    def probe(key):
-        got[key] = config5_turns.stage_here(sys._getframe(0))
-
-    ns = {"probe": probe}
-    pkg = kc.__file__.rsplit("ops", 1)[0]
-    for func, key in (("visit_order", "vo"), ("batch_anchor", "an"),
-                      ("_query", "qf"), ("visit_ranks", "v1"),
-                      ("shade_hit", "loop")):
-        code = compile(f"def {func}():\n    probe({key!r})\n",
-                       pkg + "ops/probe.py", "exec")
-        exec(code, ns)
-        ns[func]()
-    assert got == {"vo": "visit order", "an": "anchor", "qf": "query folds",
-                   "v1": "visit order", "loop": "loop"}
-    assert "visit_rank" in config5_turns.KERNELS
-
-
-# ---------------------------------------------------------------------------
-# (g) the measurement scripts' builds of csrc/visit.cu
+# (f) the measurement scripts' builds of csrc/visit.cu
 # ---------------------------------------------------------------------------
 
 @pytest.mark.parametrize("build", ["limit", *v1_cluster_sweep.STOPS])

@@ -46,7 +46,6 @@ from toroidal_ray_tracing_tpu_torch.experiments.configs import SCENARIOS
 from toroidal_ray_tracing_tpu_torch.experiments.k3_turns import graph_ms
 from toroidal_ray_tracing_tpu_torch.ops import front_kernel as fk
 from toroidal_ray_tracing_tpu_torch.ops import kernel_common as kc
-from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
 from toroidal_ray_tracing_tpu_torch.ops import visit_kernel as vk
 from toroidal_ray_tracing_tpu_torch.render import renderer as rd
 from toroidal_ray_tracing_tpu_torch.scene import (RenderSettings, build_scene,
@@ -176,7 +175,7 @@ def ranked_segment(num: int, dev):
     w, h = (sc.width, sc.height) if sc.spp > 1 else FULL
     scene = sc.build().to(dev)
     calls = []
-    real = tk.visit_ranks
+    real = vk.visit_ranks
 
     def rec(o, n_batch, sets, out=None):
         got = real(o, n_batch, sets, out=out)
@@ -184,15 +183,14 @@ def ranked_segment(num: int, dev):
             calls.append((o.clone(), n_batch, list(sets)))
         return got
 
-    # the segment plan calls V1 through its module, `segment_ranks` through
-    # the name trace_kernel imported
-    tk.visit_ranks = vk.visit_ranks = rec
+    # the segment plan calls V1 through its module
+    vk.visit_ranks = rec
     try:
         rd.render(scene, sc.camera_at(0), w, h, sc.settings(),
                   backend="kernel", spp=sc.spp, device=dev)
         torch.cuda.synchronize()
     finally:
-        tk.visit_ranks = vk.visit_ranks = real
+        vk.visit_ranks = real
     return calls[0]
 
 

@@ -1,23 +1,22 @@
 """The bounce loop's segment plan: each segment's launches with their checks,
-routes and outputs settled once.
+routes and outputs settled once. Every kernel-backend loop
+(`trace.wavefront.trace_state`) runs its segments from one.
 
-A kernel-backend segment (`trace.wavefront.trace_state`) is V1, the closest
-query (S1, K1/K5, K2/K3), S2, K4 on textured scenes, the any-hit query and
-S3, each through its wrapper. Called on its own, a wrapper checks every
-argument, allocates every output, and the query resolves its route and
-kept tables: tens of microseconds of host time a launch, which the device
-spends idle on a host-paced frame.
+A segment is V1, the closest query (S1, K1/K5, K2/K3), S2, K4 on textured
+scenes, the any-hit query and S3, each through its wrapper. Called on its
+own, a wrapper checks every argument, allocates every output, and the
+query resolves its route and kept tables: tens of microseconds of host
+time a launch, which the device spends idle on a host-paced frame.
 
 `segment_plan` builds a `SegmentPlan` for a loop of `lanes` (its bucket
-sizes, `wavefront.bucket_sizes`) once and keeps it on the scene, one a
-device and stream (`Scene.kernel_tables`, as the kernel tables are kept;
-a loop of other lanes, or after the tables changed, replaces it). Loops
-of one scene on one stream run one after another on the device, so they
-can share its workspace; a loop on another stream gets its own. It
-holds:
+sizes, `wavefront.bucket_sizes`) on a geometry (the scene's, or a sharded
+rank's slice) once and keeps it on the scene, one a device and stream
+(`Scene.kernel_tables`; a loop of other lanes or geometry, or after the
+tables changed, replaces it). Loops of one scene on one stream run one
+after another on the device, so they share its workspace. It holds:
 
-* each bucket's route (K2 or K3 by the bucket's size), the scene's tables
-  and V1's box sets;
+* each bucket's route and V1's box sets (`trace_kernel.segment_routes`:
+  K2 or K3 by the bucket's size), the scene's tables;
 * one workspace (`Workspace`): every output a wrapper writes is a region
   sized for `lanes`, and a bucket of nb lanes takes each region's
   contiguous prefix as a (rows, nb) view. The any-hit query writes into the
@@ -25,13 +24,15 @@ holds:
   occlusion byte and K4's words have their own regions;
 * the loop's tmax row: S3 writes the next segment's where it updates a ray
   and G1 where it moves one (`kernel_common.SEG_TMAX` where active, else
-  0), so between V1 and S3 no ATen operation runs;
+  0), so between V1 and S3 no ATen operation runs but a sharded loop's
+  merges over the primitive ranks (`intersect.combine_hits_over_axis`);
 * the raw stream handle every launch goes on.
 
 The constructor runs each wrapper's checks on the arguments and views it
 will hand the wrapper; the wrappers, handed the views (`out=`,
-`kernel_common.Planned`), check and allocate nothing. The K1 and K2 calls
-still go through `ops.trace_kernel.tri_closest_hit` and
+`kernel_common.Planned`), check and allocate nothing, and give the bits
+their standalone calls give. The K1 and K2 calls still go through
+`ops.trace_kernel.tri_closest_hit` and
 `ops.torus_kernel.torus_closest_hit_chunked`, one call a launch. On CPU
 tensors the wrappers run their twins and copy the results into the views.
 
@@ -53,23 +54,14 @@ from toroidal_ray_tracing_tpu_torch.ops import (loose_kernel, shade_kernel,
                                                 visit_kernel)
 from toroidal_ray_tracing_tpu_torch.ops.kernel_common import (
     F32, I32, SEG_TMAX, Planned, check_args, round_up)
-from toroidal_ray_tracing_tpu_torch.ops.torus_kernel import use_small_kernel
 from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (
-    RAY_TILE, QueryOut, Ranks, _kept_attr_tables, _Route, _route)
-from toroidal_ray_tracing_tpu_torch.ops.tri_stream import StreamTables
+    QueryOut, Ranks, _kept_attr_tables, segment_routes, stamp)
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
 from toroidal_ray_tracing_tpu_torch.trace import intersect as _isect
 from toroidal_ray_tracing_tpu_torch.utils.profiling import COUNTERS
 
 ALIGN = 256          # bytes: each region starts on a 256-B boundary
 N_TOR_ATTR = torus_kernel.N_ATTR
-
-
-def _small(tor, nb: int) -> bool:
-    """Whether K3, not K2, tests the tori of a bucket of nb lanes (the TPU
-    launcher's route on the padded bucket)."""
-    return tor is not None and use_small_kernel(
-        round_up(max(nb, 1), RAY_TILE), tor.K)
 
 
 class Workspace:
@@ -129,17 +121,20 @@ class SegmentPlan:
     """A loop's launches at each of its bucket sizes (the module's
     docstring). Built by `segment_plan`."""
 
-    def __init__(self, scene: Scene, geom, route: _Route, tables, sizes,
-                 state, active, params, stream):
+    def __init__(self, geom, routes: dict, tables, state, active, params,
+                 stream):
         dev = state.device
-        lanes = sizes[0]
-        self.sizes = tuple(sizes)
-        self.geom, self.route, self.tables = geom, route, tables
+        self.sizes = tuple(routes)
+        lanes = self.sizes[0]
+        self.geom, self.tables = geom, tables
         self.atlas = params.atlas
         self.params = params
-        tri, tor = route.tri, route.tor
+        tri, tor = routes[lanes].tri, routes[lanes].tor
         mesh = tri.mesh if tri is not None else None
         loose = tri is not None and tri.L > 0
+        tri_set = routes[lanes].tri_set
+        tor_set = next((r.tor_set for r in routes.values()
+                        if r.tor_set is not None), None)
 
         ws = Workspace(lanes, dev)
         tmax = ws.add(None, F32)
@@ -161,12 +156,6 @@ class SegmentPlan:
               else None)
         occ = ws.add(None, torch.bool)
         # V1: the anchor and each set's rank (the same for every bucket)
-        tri_set = None
-        if isinstance(mesh, StreamTables):
-            tri_set = (mesh.sb_lo, mesh.sb_hi)
-        elif mesh is not None and mesh.box_test:
-            tri_set = (mesh.clo, mesh.chi)
-        tor_set = (tor.clo, tor.chi) if tor is not None else None
         anchor = ws.fixed((3,), F32)
         rank_tri = (ws.fixed((tri_set[0].shape[0],), I32) if tri_set
                     else None)
@@ -175,9 +164,9 @@ class SegmentPlan:
         ws.allocate()
         self.tmax = ws.view(tmax, lanes)
         self.spans = ws.view(spans)
-        self.rank_views = (ws.view(anchor),
-                           ws.view(rank_tri) if rank_tri else None,
-                           ws.view(rank_tor) if rank_tor else None)
+        anchor = ws.view(anchor)
+        rank_tri = ws.view(rank_tri) if rank_tri else None
+        rank_tor = ws.view(rank_tor) if rank_tor else None
 
         def planned(regions, nb, count=None):
             if regions is None:
@@ -186,15 +175,15 @@ class SegmentPlan:
             return Planned(views, stream)
 
         self.buckets = {}
-        for nb in self.sizes:
-            small = _small(tor, nb)
-            sets, rank_out = [], [self.rank_views[0]]
-            if tri_set is not None:
-                sets.append(tri_set)
-                rank_out.append(self.rank_views[1])
-            if tor_set is not None and not small:
-                sets.append(tor_set)
-                rank_out.append(self.rank_views[2])
+        for nb, route in routes.items():
+            tri_b, tor_b = route.tri_set, route.tor_set
+            sets, rank_out = [], [anchor]
+            if tri_b is not None:
+                sets.append(tri_b)
+                rank_out.append(rank_tri)
+            if tor_b is not None:
+                sets.append(tor_b)
+                rank_out.append(rank_tor)
             v1 = (visit_kernel.planned_outputs(sets, dev, stream,
                                                tuple(rank_out))
                   if sets else None)
@@ -223,12 +212,10 @@ class SegmentPlan:
                 tri_offset=closest.rows.tri_offset,
                 tor_hit=closest.rows.tor_hit,
                 tor_offset=closest.rows.tor_offset)
-            ranks = Ranks(
-                route=_Route(tri=tri, tor=tor, small=small),
-                tri=self.rank_views[1] if tri_set is not None else None,
-                tor=(self.rank_views[2] if tor_set is not None and not small
-                     else None),
-                out=(closest, shadow))
+            ranks = Ranks(route=route,
+                          tri=rank_tri if tri_b is not None else None,
+                          tor=rank_tor if tor_b is not None else None,
+                          out=(closest, shadow))
             self.buckets[nb] = Bucket(
                 ranks=ranks, sets=sets, v1=v1,
                 s2=planned(s2, nb), k4=planned(k4, nb),
@@ -243,10 +230,11 @@ class SegmentPlan:
         lanes = self.sizes[0]
         check_args(dev, state=(state, (15, lanes), F32),
                    active=(active, (lanes,), torch.bool))
-        tri, tor, geom = self.route.tri, self.route.tor, self.geom
+        geom = self.geom
         tally = torch.zeros((3,), dtype=I32, device=dev)
         rays, count = tally[:2].view(torch.int64)[0], tally[2]
         for nb, b in self.buckets.items():
+            tri, tor = b.ranks.route.tri, b.ranks.route.tor
             o, d = state[0:3, :nb], state[3:6, :nb]
             tmax = self.tmax[:nb]
             if b.v1 is not None:
@@ -284,6 +272,8 @@ class SegmentPlan:
                             qo, qd, t, tor, not occlusion, occlusion, None,
                             b.ranks.tor, q.occ, occlusion and not first,
                             out=q.tor)
+            # (a sharded loop's S2 rows are checked at each call:
+            # `merged_rows`)
             shade_kernel.check_shade_hit(o, d, closest.rows, params,
                                          out=b.s2)
             quads = None
@@ -295,32 +285,38 @@ class SegmentPlan:
                                             shadow.occ, quads, params, rays,
                                             self.spans, count, out=b.s3)
 
-    def fits(self, sizes, geom, route: _Route, tables, params) -> bool:
-        """Whether this plan runs a loop of these bucket sizes over these
-        tables (the route `_route` gives now: the kept tables are rebuilt
-        when a scene tensor changed) on each bucket's torus route."""
-        mine, now = self.route.tri, route.tri
-        same_tri = (mine is None) == (now is None) and (
-            mine is None or (mine.mesh is now.mesh and mine.L == now.L
-                             and mine.base == now.base
-                             and mine.off == now.off
-                             and mine.stream == now.stream))
+    def fits(self, geom, routes: dict, tables, params) -> bool:
+        """Whether this plan runs a loop of these buckets' routes
+        (`segment_routes`' now: the kept tables are rebuilt when a scene
+        tensor changed) over this geometry (the same tensors, by `stamp`: a
+        sharded rank's slice views are made anew every frame) and these
+        tables."""
         g, h = self.geom, geom
-        smalls = [b.ranks.route.small for b in self.buckets.values()]
-        return (self.sizes == tuple(sizes) and same_tri
-                and self.route.tor is route.tor
-                and smalls == [_small(route.tor, nb) for nb in self.sizes]
+        return (self.sizes == tuple(routes)
+                and all(b.ranks.route == routes[nb]
+                        for nb, b in self.buckets.items())
                 and self.tables is tables
-                and g.woop_o is h.woop_o and g.woop_d is h.woop_d
+                and stamp((g.woop_o, g.woop_d)) == stamp((h.woop_o,
+                                                          h.woop_d))
                 and g.tor_offset == h.tor_offset
                 and (self.atlas is None) == (params.atlas is None)
                 and (self.atlas is None
                      or self.atlas.data4q is params.atlas.data4q))
 
+    def merged_rows(self, o, d, hit, bucket: Bucket):
+        """S2's rows on a sharded loop: the hit merged over the primitive
+        ranks (`intersect.combine_hits_over_axis`) as the base
+        (`shade_kernel.base_rows`). They come out of the merge's
+        collectives, not the plan's views, so S2's checks run on them at
+        each call."""
+        rows = shade_kernel.base_rows(hit)
+        shade_kernel.check_shade_hit(o, d, rows, self.params, out=bucket.s2)
+        return rows
+
     def ranks(self, state, bucket: Bucket, n_batch: int) -> Ranks:
         """V1 into the bucket's rank views from the anchor of the whole
-        state's origin rows (`trace_kernel.segment_ranks`); returns the
-        bucket's `Ranks`."""
+        state's origin rows, the loop's batch padded to `n_batch`; returns
+        the bucket's `Ranks`."""
         if bucket.v1 is not None:
             visit_kernel.visit_ranks(state[0:3], n_batch, bucket.sets,
                                      out=bucket.v1)
@@ -345,27 +341,27 @@ class SegmentPlan:
         torch.mul(active, SEG_TMAX, out=self.tmax)
 
 
-def segment_plan(scene: Scene, state, active, sizes, params) -> SegmentPlan:
+def segment_plan(scene: Scene, geom, state, active, sizes,
+                 params) -> SegmentPlan:
     """The segment plan of a kernel-backend loop over `state` (15, lanes)
-    with these bucket sizes (`wavefront.bucket_sizes`) on the current
-    stream, kept on the scene and replaced when it does not fit
-    (`SegmentPlan.fits`); then started for this loop
-    (`SegmentPlan.start`)."""
+    with these bucket sizes (`wavefront.bucket_sizes`) on the geometry
+    `geom` (the scene's, or a rank's slice) on the current stream. Kept
+    on the scene and replaced when it does not fit (`SegmentPlan.fits`);
+    then started for this loop (`SegmentPlan.start`)."""
     dev = state.device
     stream = (torch.cuda.current_stream(dev).cuda_stream
               if dev.type == "cuda" else None)
-    geom = _isect.geom_from_scene(scene)
-    route = _route(scene, geom, round_up(max(sizes[0], 1), RAY_TILE))
-    tables = (_kept_attr_tables(scene, route.tri)
-              if route.tri is not None else None)
+    routes = segment_routes(scene, geom, sizes)
+    tri = routes[sizes[0]].tri
+    tables = _kept_attr_tables(scene, tri) if tri is not None else None
     key = ("segment_plan", dev, stream)
     plan = scene.kernel_tables.get(key)
-    if plan is None or not plan.fits(sizes, geom, route, tables, params):
+    if plan is None or not plan.fits(geom, routes, tables, params):
         # the old workspace goes before the new one is made
         scene.kernel_tables.pop(key, None)
         plan = None
-        plan = SegmentPlan(scene, geom, route, tables, sizes, state, active,
-                           params, stream)
+        plan = SegmentPlan(geom, routes, tables, state, active, params,
+                           stream)
         scene.kernel_tables[key] = plan
         COUNTERS["plan_builds"] += 1
     plan.start(state, active, params)

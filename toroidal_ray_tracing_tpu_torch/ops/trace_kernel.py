@@ -20,22 +20,22 @@ Per query:
      `.tri_hit`, `.tor_hit`), with want_attrs beside their 21-row
      (triangle) and 15-row (torus) attribute outputs and the loose tail's
      tables. `merge_parts` merges them into a `Hit` for every caller but
-     the bounce loop, whose shading kernel S2 merges them in registers
-     (`closest_hit_kernel(..., merge=False)`); `ops.shade_kernel.
+     the unsharded bounce loop, whose shading kernel S2 merges them in
+     registers (`closest_hit_kernel(..., merge=False)`); `ops.shade_kernel.
      shade_attrs` assembles the rows into `ShadeAttrs`. The shadow query
      (`occluded_kernel`) returns the kernels' occlusion byte.
 
 The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
 `StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
 built at a scene's first query on a device and kept in
-`Scene.kernel_tables`, per geometry slice; only the visit ranks are per
-segment (`segment_ranks`, the visit-rank kernel V1 once for both of a
-bounce-loop segment's queries) or, for any other caller, per query. An
-entry is rebuilt when a tensor it was built from changed in
-place (an optimizer step on `tori.minor_radius`) or was replaced. On a
-segment plan's route (`ops.segment_plan`) the segment's `Ranks` carry each
-query's outputs (`QueryOut`, views of the plan's workspace): the kernels
-write there and check nothing, and the query resolves no route or table.
+`Scene.kernel_tables`, per geometry slice, and rebuilt when a tensor
+they were built from changed in place or was replaced (`stamp`). The
+bounce loop's segments run from a segment plan (`ops.segment_plan`), whose
+buckets take their route and V1's box sets from `segment_routes`; a
+segment's `Ranks` carry them, the visit ranks, and each query's outputs
+(`QueryOut`, views of the plan's workspace), so the query resolves no route
+or table. A query called on its own resolves its route, and each tree
+kernel ranks its own set.
 
 Inside a `utils.profiling.record_segments` block each hit-kernel wrapper
 (K1, K2, K3, K5/K6) appends a `utils.profiling.HitCall` for each launch
@@ -70,7 +70,6 @@ from toroidal_ray_tracing_tpu_torch.ops.tri_kernel import (tri_closest_hit,
                                                            tri_tables)
 from toroidal_ray_tracing_tpu_torch.ops.tri_stream import (
     TRI_STREAM_MIN, StreamTables, stream_tables, tri_closest_hit_stream)
-from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_ranks
 from toroidal_ray_tracing_tpu_torch.scene.types import Scene
 from toroidal_ray_tracing_tpu_torch.trace import intersect as _isect
 
@@ -109,6 +108,13 @@ def _tri_attr_tables(scene: Scene):
     return a0.contiguous(), a1.contiguous(), a2.contiguous()
 
 
+def stamp(sources) -> tuple:
+    """Each tensor's memory, shape, strides and `_version` (an in-place
+    change moves it): equal stamps of live tensors mean the same data."""
+    return tuple((s.data_ptr(), s.shape, s.stride(), s._version)
+                 for s in sources)
+
+
 def _kept(scene: Scene, name: str, part: tuple, sources, make,
           numbers: tuple = ()):
     """The table make() builds from the tensors `sources` (and the Python
@@ -119,11 +125,10 @@ def _kept(scene: Scene, name: str, part: tuple, sources, make,
     strides) or changed in place since (its `_version` moved: an optimizer
     step on `tori.minor_radius`), or a number changed."""
     key = (name, scene.device, *part)
-    stamp = tuple((s.data_ptr(), s.shape, s.stride(), s._version)
-                  for s in sources) + (numbers,)
+    now = stamp(sources) + (numbers,)
     entry = scene.kernel_tables.get(key)
-    if entry is None or entry[0] != stamp:
-        entry = (stamp, tuple(sources), make())
+    if entry is None or entry[0] != now:
+        entry = (now, tuple(sources), make())
         scene.kernel_tables[key] = entry
     return entry[2]
 
@@ -242,22 +247,43 @@ def _torus_tables(scene: Scene, geom):
                      .contiguous()))
 
 
-@dataclasses.dataclass
+@dataclasses.dataclass(eq=False)
 class _Route:
     """What a query of a geometry runs: the triangle plan (None: no
-    triangles), the torus tables (None: no tori) and the torus route."""
+    triangles), the torus tables (None: no tori) and the torus route; and
+    the box sets V1 (`ops.visit_kernel.visit_ranks`) ranks for it. Two
+    routes are equal when they run the same kernels on the same kept
+    tables."""
 
     tri: Optional[_TriPlan]
     tor: Optional[TorusTables]
     small: bool            # K3, not K2, tests the tori
 
+    @property
+    def tri_set(self):
+        """K5's superblock boxes, or K1's cluster boxes where it tests
+        them; None: no triangle kernel ranks a set."""
+        mesh = self.tri.mesh if self.tri is not None else None
+        if isinstance(mesh, StreamTables):
+            return mesh.sb_lo, mesh.sb_hi
+        if mesh is not None and mesh.box_test:
+            return mesh.clo, mesh.chi
+        return None
 
-def _route(scene: Scene, geom, n_batch: int) -> _Route:
-    """The route of a query of `n_batch` rays (the padded batch)."""
-    has_tris, has_tori = _isect.has_prims(scene)
-    tor = _torus_tables(scene, geom) if has_tori else None
-    return _Route(tri=_tri_plan(scene, geom) if has_tris else None, tor=tor,
-                  small=tor is not None and use_small_kernel(n_batch, tor.K))
+    @property
+    def tor_set(self):
+        """K2's chunk boxes where K2, not K3, tests the tori; else None."""
+        if self.tor is None or self.small:
+            return None
+        return self.tor.clo, self.tor.chi
+
+    def __eq__(self, other) -> bool:
+        x, y = self.tri, other.tri
+        return ((x is None) == (y is None)
+                and (x is None or (x.mesh is y.mesh and (
+                    x.T, x.off, x.L, x.base, x.stream) == (
+                    y.T, y.off, y.L, y.base, y.stream)))
+                and self.tor is other.tor and self.small == other.small)
 
 
 def _kept_attr_tables(scene: Scene, plan: _TriPlan):
@@ -280,7 +306,7 @@ class QueryOut:
     no such kernel), the triangle kernel's next tmax, the occlusion byte
     (any-hit), the triangle attribute tables, and the `AttrRows` those
     views make up (the parts; the closest query's attribute rows and loose
-    tables too), which the query returns as the default route would."""
+    tables too), which the query returns as a standalone query would."""
 
     s1: Optional[tuple]
     tri: Optional[tuple]
@@ -293,10 +319,9 @@ class QueryOut:
 
 @dataclasses.dataclass
 class Ranks:
-    """A segment's route and visit ranks (`segment_ranks`), for both of its
-    queries: the rank of each box set they walk (None: a set no query
-    walks); on a segment plan's route, also each query's outputs
-    (closest, any-hit)."""
+    """A segment's route (`segment_routes`) and visit ranks for both of its
+    queries (None: a set no query walks), and each query's outputs
+    (closest, any-hit) from the segment plan."""
 
     route: _Route
     tri: Optional[torch.Tensor]      # K1's clusters or K5's superblocks
@@ -304,28 +329,17 @@ class Ranks:
     out: Optional[tuple] = None      # (QueryOut, QueryOut) from a plan
 
 
-def segment_ranks(scene: Scene, geom, origins, n_batch: int,
-                  lanes: int) -> Ranks:
-    """The route and visit ranks of a bounce-loop segment, decided once for
-    both of its queries of `lanes` rays: V1 (`ops.visit_kernel.
-    visit_ranks`, one launch on the card) from the anchor of the (3, L)
-    origin rows `origins` (the loop's whole state, divided by `n_batch`)
-    over the sets the route walks: K1's cluster boxes (where it tests them)
-    or K5's superblocks, and K2's chunk boxes where K2, not K3, is the
-    torus route. No set, no launch."""
-    route = _route(scene, geom, round_up(max(lanes, 1), RAY_TILE))
-    tri = tor = None
-    mesh = route.tri.mesh if route.tri is not None else None
-    if isinstance(mesh, StreamTables):
-        tri = (mesh.sb_lo, mesh.sb_hi)
-    elif mesh is not None and mesh.box_test:
-        tri = (mesh.clo, mesh.chi)
-    if route.tor is not None and not route.small:
-        tor = (route.tor.clo, route.tor.chi)
-    sets = [s for s in (tri, tor) if s is not None]
-    ranks = iter(visit_ranks(origins, n_batch, sets)[1] if sets else ())
-    return Ranks(route=route, tri=next(ranks) if tri else None,
-                 tor=next(ranks) if tor else None)
+def segment_routes(scene: Scene, geom, sizes) -> dict:
+    """Each bucket's `_Route` in a bounce loop of these bucket sizes (or a
+    standalone query's, one size), decided once for both of a segment's
+    queries: the kept tables, looked up once, and K2 or K3 by the bucket's
+    padded lanes, as the TPU launcher routes. Returns {lanes: route}."""
+    has_tris, has_tori = _isect.has_prims(scene)
+    plan = _tri_plan(scene, geom) if has_tris else None
+    tables = _torus_tables(scene, geom) if has_tori else None
+    return {nb: _Route(plan, tables, tables is not None and use_small_kernel(
+                round_up(max(nb, 1), RAY_TILE), tables.K))
+            for nb in sizes}
 
 
 def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
@@ -333,19 +347,21 @@ def _query(scene: Scene, geom, origins, dirs, tmax, want_attrs: bool,
     """Run a query's kernels, each on the tmax the earlier ones left: S1
     (the loose hoist), K1/K5, K2/K3. Each kernel writes the next one's tmax
     and, in occlusion mode, the query's occlusion byte (the first kernel
-    writes it, the later ones OR into it). ranks: the segment's route and
-    visit ranks (None: the query decides its route, and each tree kernel
-    ranks its own set), and on a segment plan's route the outputs each
-    kernel writes (`Ranks.out`). Rays whose rows are contiguous at one
-    stride (a prefix of the bounce loop's state) go to the kernels as they
-    are, others as contiguous copies (`kernel_common.ray_rows`). Returns
-    (rows, occ): the parts unmerged in an `AttrRows` (with the kernels'
-    attribute rows and the loose tables where want_attrs), and in
-    occlusion mode the (N,) occlusion byte (else None)."""
+    writes it, the later ones OR into it). ranks: a planned segment's
+    route, visit ranks and the outputs each kernel writes (`Ranks.out`;
+    without them, each kernel's own outputs); None: a standalone query,
+    which decides its route, and each tree kernel ranks its own set. Rays
+    whose rows are contiguous at one stride (a prefix of the bounce loop's
+    state) go to the kernels as they are, others as contiguous copies
+    (`kernel_common.ray_rows`). Returns (rows, occ): the parts unmerged in
+    an `AttrRows` (with the kernels' attribute rows and the loose tables
+    where want_attrs), and in occlusion mode the (N,) occlusion byte (else
+    None)."""
     n = origins.shape[1]
     dev = origins.device
     n_batch = round_up(max(n, 1), RAY_TILE)
-    route = ranks.route if ranks is not None else _route(scene, geom, n_batch)
+    route = (ranks.route if ranks is not None
+             else segment_routes(scene, geom, (n,))[n])
     q = ranks.out[occlusion] if ranks is not None and ranks.out else None
     if q is None:
         origins, dirs = ray_rows(origins, dirs)
@@ -426,11 +442,11 @@ def closest_hit_kernel(scene: Scene, geom, origins, dirs, tmax,
                        ranks: Optional[Ranks] = None, merge: bool = True):
     """Closest hit through the kernels. origins/dirs: (3, N) rows; tmax
     (N,). want_attrs: emit Hit.attrs, the kernels' raw `AttrRows`.
-    occlusion: any-hit (only Hit.kind >= 0 is meaningful). ranks: the tree
-    kernels' visit ranks (`segment_ranks`; default: each kernel ranks its
-    set from the batch's mean origin). merge=False (with want_attrs): the
-    parts unmerged in Hit.attrs, what S2 reads, and Hit's own fields None;
-    `merge_parts` merges them."""
+    occlusion: any-hit (only Hit.kind >= 0 is meaningful). ranks: a
+    planned segment's `Ranks` (default: the query decides its route, and
+    each kernel ranks its set from the batch's mean origin). merge=False
+    (with want_attrs): the parts unmerged in Hit.attrs, what S2 reads, and
+    Hit's own fields None; `merge_parts` merges them."""
     if want_attrs and occlusion:
         raise ValueError("want_attrs and occlusion are exclusive")
     if not merge and not want_attrs:

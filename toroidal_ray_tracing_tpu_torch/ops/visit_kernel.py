@@ -17,9 +17,10 @@ set, rank[s] is box s's position in the stable ascending order of its
 clamped distance from the anchor (`kernel_common.box_distance`, NaN after
 every number). The tree kernels take only the rank.
 
-The bounce loop ranks a segment's sets once (`ops.trace_kernel.
-segment_ranks`) and hands them to both of its queries; a kernel wrapper
-that gets no rank launches V1 for its one set.
+The bounce loop ranks a segment's sets once (its segment plan's V1 call,
+over the sets `ops.trace_kernel.segment_routes` names) and hands them to
+both of its queries; a kernel wrapper that gets no rank launches V1 for
+its one set.
 """
 
 from __future__ import annotations

@@ -84,8 +84,7 @@ def _trace_frames(scene, settings, cams, width, height, backend, jitter_key,
             raygen_state(cam.KIND, params, width, height, jitter, block,
                          state, active, g * n,
                          lanes - total if g == len(cams) - 1 else 0)
-    return trace_state(scene, settings, state, active, total, backend,
-                       planned=True)
+    return trace_state(scene, settings, state, active, total, backend)
 
 
 def _finish(traced, cam, params, width, height, off, outs, s, spp,

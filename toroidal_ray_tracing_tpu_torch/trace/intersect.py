@@ -216,8 +216,8 @@ def closest_hit(scene: Scene, origins, dirs, tmax=None,
     semantics — only Hit.kind >= 0 is meaningful then. ranks: kernel
     backend, the tree kernels' visit ranks (`ops.trace_kernel.Ranks`),
     which decide exact ties between boxes (default: each kernel ranks its
-    boxes from the batch's mean origin; `trace_rays` passes a segment's
-    `segment_ranks`, from the whole wavefront's). merge=False (kernel
+    boxes from the batch's mean origin; the bounce loop passes its planned
+    segment's, from the whole wavefront's). merge=False (kernel
     backend, want_attrs, no prim_group): Hit.attrs holds the query's hit
     parts unmerged, what S2 merges, and Hit's own fields are None."""
     if not merge and (backend != "kernel" or prim_group is not None):

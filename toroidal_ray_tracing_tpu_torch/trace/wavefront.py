@@ -20,16 +20,16 @@ them, before any shrink). The color is unpermuted once at the end, by F1
 on the front doors. `backend="torch"` traces every segment whole, as the
 JAX package's jnp path does.
 
-A kernel-backend segment is V1 (`ops.trace_kernel.segment_ranks`: the
-anchor and the tree kernels' visit ranks, once for both queries) -> S1
-(the loose hoist) -> K1/K5 -> K2/K3 (the closest hit's parts unmerged,
-its raw attribute rows; each kernel writes the next one's tmax), S2
-(`ops.shade_kernel.shade_hit`: the merges, shading up to the shadow ray)
--> K4 (textured scenes) -> S1 -> the any-hit kernels (each writes or ORs
-into the query's occlusion byte), then S3 (`shade_finish`: the rest of
-the shading and the state update in place, the ray count and the live
-spans), and G1 when the bucket shrinks. The torch backend shades with
-`trace.shade.shade` and updates the state with tensor ops (`_advance`).
+A kernel-backend segment is V1 (the anchor and the tree kernels' visit
+ranks, once for both queries) -> S1 (the loose hoist) -> K1/K5 -> K2/K3
+(the closest hit's parts unmerged, its raw attribute rows; each kernel
+writes the next one's tmax), S2 (`ops.shade_kernel.shade_hit`: the merges,
+shading up to the shadow ray) -> K4 (textured scenes) -> S1 -> the any-hit
+kernels (each writes or ORs into the query's occlusion byte), then S3
+(`shade_finish`: the rest of the shading and the state update in place,
+the ray count and the live spans), and G1 when the bucket shrinks. The
+torch backend shades with `trace.shade.shade` and updates the state with
+tensor ops (`_advance`).
 
 Each stage runs inside a `utils.profiling.span`: `trt.loop` (the whole
 loop), `trt.segment` (one pass) and within it `trt.segment.ranks` (V1),
@@ -40,13 +40,12 @@ outside `utils.profiling.recording`. Each host read adds one to
 `utils.profiling.COUNTERS["host_reads"]`.
 
 The kernels read a prefix's rows where they lie in the state (they take
-its row stride). A front door's kernel-backend loop (`trace_state(...,
-planned=True)`, unsharded) runs from a segment plan (`ops.segment_plan`:
-each bucket's route, checked arguments and outputs in one workspace, kept
-on the scene; `COUNTERS["plan_segments"]` counts its segments), where S3
-and G1 write the next segment's tmax row, so no ATen operation runs
-between V1 and S3. `trace_rays` (the banded and sharded paths) and the
-torch backend make each call's checks and outputs as they go.
+its row stride). Every kernel-backend loop runs from a segment plan
+(`ops.segment_plan`: each bucket's route, checked arguments and outputs in
+one workspace, kept on the scene; `COUNTERS["plan_segments"]` counts its
+segments), where S3 and G1 write the next segment's tmax row, so no ATen
+operation runs between V1 and S3 unless the closest hit merges over
+primitive ranks before S2 (`SegmentPlan.merged_rows`).
 
 `trace_rays_fixed` is the differentiable variant: a fixed number of
 segments, autograd through shading and (on the kernel backend)
@@ -69,10 +68,9 @@ from toroidal_ray_tracing_tpu_torch.ops.segment_plan import segment_plan
 # live_spans: the 128-lane spans that hold a live ray (S3 writes them on
 # the kernel backend; kept here beside span_order and span_lanes)
 from toroidal_ray_tracing_tpu_torch.ops.shade_kernel import (  # noqa: F401
-    base_rows, kept_shade_params, live_spans, shade_finish, shade_hit)
+    kept_shade_params, live_spans, shade_finish, shade_hit)
 from toroidal_ray_tracing_tpu_torch.ops.tex_kernel import quad_gather
-from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import (RAY_TILE,
-                                                             segment_ranks)
+from toroidal_ray_tracing_tpu_torch.ops.trace_kernel import RAY_TILE
 from toroidal_ray_tracing_tpu_torch.scene.types import RenderSettings, Scene
 from toroidal_ray_tracing_tpu_torch.trace.intersect import (
     any_hit, closest_hit, closest_hit_diff, geom_from_scene)
@@ -185,17 +183,15 @@ def trace_rays(scene: Scene, settings: RenderSettings, origins, dirs,
 
 def trace_state(scene: Scene, settings: RenderSettings, state, active,
                 n: int, backend: str = "torch", geom=None, prim_group=None,
-                ray_group=None, planned: bool = False) -> Traced:
+                ray_group=None) -> Traced:
     """The bounce loop on a filled (15, lanes) state of n rays and its
     active mask (`trace_rays`' arguments and module docstring), lanes =
     `lane_count(n, backend)`. On a bucket shrink G1
     (`ops.front_kernel.span_gather`) moves the prefix's spans into a spare
     buffer, which becomes the state: the result names the buffer that
-    holds the color rows and the one that holds the first hit. planned:
-    run the segments from the scene's segment plan for these lanes
-    (`ops.segment_plan`; the front doors' batches), where the loop is the
-    kernel backend's and unsharded (no geom, no group); the results are
-    the same bits."""
+    holds the color rows and the one that holds the first hit. The kernel
+    backend runs the segments from the scene's segment plan for these
+    lanes and this geometry (`ops.segment_plan`)."""
     dev = state.device
     max_depth = int(settings.max_depth)
     kernel = backend == "kernel"
@@ -214,14 +210,10 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
         nb = lanes              # lanes this segment traces
         any_active = True
         depth = 0
-        plan = bucket = None
         if kernel:
             params = kept_shade_params(scene, settings)
-            if planned and geom is None and group is None:
-                plan = segment_plan(scene, state, active, sizes, params)
-            spans = (plan.spans if plan is not None else
-                     torch.empty((-(-lanes // COMPACT_SPAN),),
-                                 dtype=torch.bool, device=dev))
+            plan = segment_plan(scene, geom or geom_from_scene(scene), state,
+                                active, sizes, params)
             # the ray counter (int64, S3 adds to it) and each segment's
             # live-span count, zeroed by one fill
             tally = torch.zeros((2 + max(max_depth, 1),), dtype=torch.int32,
@@ -236,26 +228,21 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
             with span("trt.segment"):
                 s = state[:, :nb]
                 act = active[:nb]
-                if plan is not None:
+                ranks = None
+                if kernel:
                     bucket = plan.buckets[nb]
                     COUNTERS["plan_segments"] += 1
-                if kernel:
                     # the segment's visit ranks, from the whole state's
                     # anchor, for both of its queries (V1, one launch)
                     with span("trt.segment.ranks"):
-                        ranks = (plan.ranks(state, bucket, n_batch)
-                                 if plan is not None else segment_ranks(
-                                     scene, geom or geom_from_scene(scene),
-                                     state[_O], n_batch, nb))
-                else:
-                    ranks = None
+                        ranks = plan.ranks(state, bucket, n_batch)
                 with span("trt.segment.query"):
                     # the prefix's rows where they lie in the state (the
                     # kernels take its row stride)
                     o, d = s[_O], s[_D]
                     # dead rays trace with tmax = 0: every kernel skips
-                    # them (a plan's row: S3 and G1 wrote it)
-                    seg_tmax = (plan.tmax[:nb] if plan is not None
+                    # them (the plan's row: S3 and G1 wrote it)
+                    seg_tmax = (plan.tmax[:nb] if kernel
                                 else torch.where(act, SEG_TMAX, 0.0))
                     # the kernel backend's unsharded query hands S2 its
                     # parts unmerged; a sharded one merges over the ranks
@@ -272,11 +259,11 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
                     # spans in place
                     with span("trt.segment.shade"):
                         sr = shade_hit(o, d, hit.attrs if hit.t is None
-                                       else base_rows(hit), params,
-                                       out=bucket.s2 if bucket else None)
+                                       else plan.merged_rows(o, d, hit,
+                                                             bucket),
+                                       params, out=bucket.s2)
                         quads = (quad_gather(scene.textures.data4q, *sr.tex,
-                                             out=bucket.k4 if bucket
-                                             else None)
+                                             out=bucket.k4)
                                  if sr.tex is not None else None)
                     # (a missed lane's shadow ray is undefined, its tmax 0:
                     # the visit ranks are the segment's; S3 reads the
@@ -289,9 +276,8 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
                     with span("trt.segment.finish"):
                         local = counts[depth]
                         shade_finish(state, active, nb, sr, occluded, quads,
-                                     params, depth, max_depth, rays, spans,
-                                     local,
-                                     out=bucket.s3 if bucket else None)
+                                     params, depth, max_depth, rays,
+                                     plan.spans, local, out=bucket.s3)
                     count = local
                 else:
                     with span("trt.segment.finish"):
@@ -320,9 +306,9 @@ def trace_state(scene: Scene, settings: RenderSettings, state, active,
                                                    dtype=torch.int32,
                                                    device=dev)
                             slot = torch.empty_like(orig_out)
-                        span_gather(state, spare, active, spare_act, spans,
-                                    local, orig_in, orig_out, slot, nb, fit,
-                                    plan.tmax if plan is not None else None)
+                        span_gather(state, spare, active, spare_act,
+                                    plan.spans, local, orig_in, orig_out,
+                                    slot, nb, fit, plan.tmax)
                         state, spare = spare, state
                         active, spare_act = spare_act, active
                         orig_in, orig_out = orig_out, (

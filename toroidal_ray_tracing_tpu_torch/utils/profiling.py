@@ -47,9 +47,8 @@ import torch
 # `render_sharded` run no F1 and count none); "host_reads", each
 # device-to-host read the bounce loop makes (a segment's stop test, the
 # ray total), counted at the read; "plan_builds", the segment plans built
-# (`ops.segment_plan`); "plan_segments", the segments run from one (a
-# front door's kernel-backend loop; `trace_rays`, which the banded and
-# sharded paths run, and the torch backend count none).
+# (`ops.segment_plan`); "plan_segments", the segments run from one (every
+# kernel-backend loop's; the torch backend counts none).
 COUNTERS = {"frames": 0, "host_reads": 0, "plan_builds": 0,
             "plan_segments": 0}
 

@@ -17,7 +17,12 @@ Phases, each printed on its own lines with its wall seconds:
      the card could take for the same work (bound_ms, from the bytes the
      call must move and the slab / Woop / quartic tests the twin counts):
      K1 on config 6's 1080p rays (a 262,144-ray subset and the full
-     frame; any-hit on the subset's shadow rays), K2 on config 3 and
+     frame, bit-equal; any-hit on the subset's shadow rays; its three
+     counters: slab tests, Woop tests, (warp, group) pairs tested), then
+     K1 as the main path calls it on config 6's and config 7's full
+     frames and in the capture frame, closest and any-hit, its outputs
+     equal to the pinned ones of the leaf before its group boxes
+     (K1_FRAME_PINS) and to the twin on every 63rd ray, K2 on config 3 and
      config 4 (subset and full frame), K3 on
      config 3 at 512x512 (closest with attrs, and any-hit on its shadow
      rays) and on config 7's first 1080p closest+attrs and any-hit calls
@@ -308,6 +313,21 @@ K5_FRAME_PINS = {
     "anyhit": ("a547a55113e6553a", (6635561, 18919040)),
 }
 
+# K1's outputs with their folds (`k1_frames`): config 6's and config 7's
+# full 1080p frames, closest with attrs then any-hit on its shadow rays,
+# and every K1 call of the capture frame by query kind: the fingerprint
+# of the calls' outputs and their slab and Woop tests, as the leaf before
+# its group boxes (the kernel that tested every row of an entered cluster)
+# gave them on an H100 with torch 2.11.0+cu128.
+K1_FRAME_PINS = {
+    "config6_closest": ("4c87ede28c4b60ca", (7053312, 34077184)),
+    "config6_anyhit": ("a421a34b6ebf3924", (2600021, 21372748)),
+    "config7_closest": ("4e90b47262755e7b", (8606784, 187013376)),
+    "config7_anyhit": ("37ddc3b6cb82c2af", (7200443, 170865360)),
+    "capture_closest": ("dd21624057954d18", (29539715, 176594688)),
+    "capture_anyhit": ("2aaf8a754f95e625", (11942321, 75578936)),
+}
+
 # Operations per test, as the kernels' source notes count them.
 SLAB_OPS = 26             # (ray, box) slab test, csrc/common.cuh
 WOOP_OPS = 50             # (ray, triangle) Woop test, csrc/common.cuh
@@ -553,6 +573,105 @@ def refuses_deep_tree(launcher) -> bool:
     return False
 
 
+def k1_frames(torch, n_counters=3, twin=True):
+    """K1 as the main path calls it, with its folds: on config 6's and
+    config 7's full 1080p frames, closest with attrs (tmax 1e4, the kept
+    tables and V1's rank), then any-hit on its shadow rays; and every K1
+    call of the capture frame (config 6 in the toroidal camera, rho 4,
+    depth 10, `plan_cells`), by query kind. Returns {name: (fingerprint,
+    counters)}: the SHA-256 prefix of the outputs and folds of the name's
+    calls in order, and the kernel's counters (n_counters of them) summed
+    over them. With `twin`, every call is also held to the flat twin on
+    every FRAME_STRIDE-th ray, with the call's own rank: the outputs bit
+    for bit (closest), the any-hit masks equal. The pins were taken with
+    n_counters=2 and twin=False on the parent commit's package, whose K1
+    kept two counters."""
+    from toroidal_ray_tracing_tpu_torch import render
+    from toroidal_ray_tracing_tpu_torch.ops import trace_kernel as tk
+    from toroidal_ray_tracing_tpu_torch.ops import tri_kernel as trk
+    from toroidal_ray_tracing_tpu_torch.ops.kernel_common import tree_rank
+    from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
+    from toroidal_ray_tracing_tpu_torch.trace.intersect import geom_from_scene
+
+    dev = torch.device(DEVICE)
+    digests, work = {}, {}
+    real = tk.tri_closest_hit
+
+    def call(name, origins, dirs, tmax, tables, **k):
+        n = origins.shape[1]
+        occl = bool(k.get("occlusion"))
+        if k.get("rank") is None:
+            k["rank"] = visit_rank(origins, k.get("n_batch") or n,
+                                   tables.clo, tables.chi)
+        pick = torch.arange(0, n, FRAME_STRIDE, device=dev)
+        ins = (origins[:, pick].contiguous(), dirs[:, pick].contiguous(),
+               tmax[pick].contiguous())
+        w = torch.zeros(n_counters, dtype=torch.int64, device=dev)
+        out = real(origins, dirs, tmax, tables, counters=w, **k)
+        folds = tuple(k[x] for x in ("tmax_out", "occ_out")
+                      if k.get(x) is not None)
+        h = digests.setdefault(name, hashlib.sha256())
+        h.update(fingerprint(tuple(out) + folds).encode())
+        work[name] = tuple(a + int(b) for a, b in zip(
+            work.get(name, (0,) * n_counters), w.tolist()))
+        if twin:
+            order = (tree_rank(k["rank"]) if tables.box_test
+                     else torch.zeros((1,), dtype=torch.int32, device=dev))
+            ref = trk.tri_closest_hit_plain(
+                *ins, tables.wrows, tables.clo, tables.chi, order,
+                tables.cluster, tables.box_test, k.get("attr_tables"), occl)
+            got = tuple(x[..., pick] for x in out)
+            same = (torch.equal(got[0] < 1e30, ref[0] < 1e30) if occl
+                    else bit_equal(got, ref))
+            check(same, f"K1 {name} (call of {n} rays) against the flat "
+                  f"twin on one ray in {FRAME_STRIDE}")
+        return out
+
+    for num in (6, 7):
+        sc, scene = config(num)
+        plan = tk._tri_plan(scene, geom_from_scene(scene))
+        attrs = tk._kept_attr_tables(scene, plan)
+        o, d = frame_rays(torch, sc.camera_at(0), *FULL)
+        n = o.shape[1]
+        nxt = torch.empty((n,), device=dev)
+        got = call(f"config{num}_closest", o, d,
+                   torch.full((n,), 1e4, device=dev), plan.mesh,
+                   attr_tables=attrs, tmax_out=nxt)
+        so, sd, stm = shadow_rays(torch, o, d, got[0],
+                                  sc.settings().light.position)
+        call(f"config{num}_anyhit", so, sd, stm, plan.mesh, occlusion=True,
+             tmax_out=torch.empty((n,), device=dev),
+             occ_out=torch.empty((n,), dtype=torch.bool, device=dev))
+    name, num, cam, st, w, h, spp = plan_cells()[-1]
+    tk.tri_closest_hit = lambda *a, **k: call(
+        "capture_anyhit" if k.get("occlusion") else "capture_closest", *a,
+        **k)
+    try:
+        render(config(num)[1], cam, w, h, st, backend="kernel", spp=spp,
+               device=DEVICE)
+        sync(torch)
+    finally:
+        tk.tri_closest_hit = real
+    return {key: (h.hexdigest()[:16], work[key])
+            for key, h in digests.items()}
+
+
+def k1_pinned(torch, row):
+    """K1's outputs on the pinned calls (`k1_frames`) equal the pins, the
+    calls against the flat twin on a sample; its three counters beside the
+    pinned leaf's slab and Woop tests."""
+    got = k1_frames(torch)
+    row["frames"] = got
+    for name, (pin, (box0, prim0)) in K1_FRAME_PINS.items():
+        fp, (box, prim, groups) = got[name]
+        print(f"  K1 {name}: outputs {fp} (pinned {pin}); slab tests {box} "
+              f"(pinned leaf {box0}, {box / box0:.3f}x), Woop tests {prim} "
+              f"({prim / prim0:.3f}x), (warp, group) pairs {groups}",
+              flush=True)
+        check(fp == pin, f"K1 {name} outputs equal the pinned ones")
+    check(set(got) == set(K1_FRAME_PINS), f"K1's pinned calls: {sorted(got)}")
+
+
 def phase_kernels(torch, results):
     from toroidal_ray_tracing_tpu_torch import render
     from toroidal_ray_tracing_tpu_torch.cameras import PinholeCamera
@@ -574,8 +693,8 @@ def phase_kernels(torch, results):
     def subset(n, m=SUBSET):
         return torch.randperm(n, generator=gen)[:m].sort().values.to(dev)
 
-    def counters():
-        return torch.zeros(2, dtype=torch.int64, device=dev)
+    def counters(k=2):
+        return torch.zeros(k, dtype=torch.int64, device=dev)
 
     cam36 = PinholeCamera(eye=(8.0, 5.0, 8.0), center=(0.0, 0.5, 0.0))
     o, d = frame_rays(torch, cam36, *FULL)
@@ -592,7 +711,8 @@ def phase_kernels(torch, results):
     cs = scene.cluster_size
     clo, chi, tables = hoisted_tables(torch, scene)
     tb, k1_build_ms = once_ms(torch, lambda: trk.tri_tables(
-        tri.woop_o, tri.woop_d, clo, chi, cs))
+        tri.woop_o, tri.woop_d, clo, chi, cs,
+        (tri.v0, tri.e1, tri.e2, tri.valid)))
     M1 = tb.tree_lo.shape[0]
     print(f"K1 tri_closest_hit (config 6: {tri.count} triangles, "
           f"{clo.shape[0]} clusters; tree of {M1} nodes, {(M1 + 1) // 2} "
@@ -622,14 +742,22 @@ def phase_kernels(torch, results):
         def run(depth=tb.depth):
             launch("trt_tri_closest_hit", o_, d_, tm, n_, n_, tb.wrows,
                    tb.wrows.shape[0], tb.tree_lo, tb.tree_hi, tb.tree_link,
-                   M1, depth, rank, cs, 1, *(tables if attrs else (None,) * 3),
-                   int(occl), *outs, attr, None, None, None, 0)
+                   M1, depth, rank, cs, 1, tb.glo, tb.ghi,
+                   *(tables if attrs else (None,) * 3), int(occl), *outs,
+                   attr, None, None, None, 0)
         return run
 
     def k1_counted(*args, **kw):
-        work = counters()
+        work = counters(3)
         out = k1(*args, work=work, **kw)
         return out, tuple(int(x) for x in work.tolist())
+
+    def k1_groups(label, n_, work):
+        box, prim, groups = work
+        print(f"  {label}: counters (slab tests, Woop tests, (warp, group) "
+              f"pairs tested) {work}: {box / n_:.2f} / {prim / n_:.2f} a ray, "
+              f"{prim / max(1, groups):.2f} Woop tests a group tested",
+              flush=True)
 
     k1_const = nbytes(tb.tree_lo, tb.tree_hi, tb.tree_link) + \
         tb.clo.shape[0] * 4
@@ -642,6 +770,9 @@ def phase_kernels(torch, results):
     ref = k1_plain(os_, ds_, tm_sub, counts=counts)
     err = compare_hits("closest+attrs", got, ref, n_sub, attr_rows=4)
     print(f"  bit-equal rays: {equal_rays(got, ref)} of {n_sub}", flush=True)
+    check(bit_equal(got, ref), "K1 bit-equal to its twin, closest+attrs, "
+          "subset")
+    k1_groups("subset closest+attrs", n_sub, w1s)
     # u/v are the true barycentrics on both sides
     same = (got[0] < 1e30) & (ref[0] < 1e30) & (got[1] == ref[1])
     check(bool(((got[2] - ref[2])[same].abs() <= 1e-4).all()
@@ -666,6 +797,9 @@ def phase_kernels(torch, results):
     got_occ, w1o = k1_counted(so, sd, stm, False, True)
     compare_hits("occlusion (shadow rays)", got_occ, occ, n_sub,
                  occlusion=True)
+    check(torch.equal(got_occ[0] < 1e30, occ[0] < 1e30),
+          "K1 any-hit mask equal to its twin's, subset shadow rays")
+    k1_groups("occlusion", n_sub, w1o)
     occ_ms = cuda_ms(lambda: k1(so, sd, stm, False, True))
     occ_bare = cuda_ms(k1_bare(so, sd, stm, False, True))
     occ_plain = cuda_ms(lambda: k1_plain(so, sd, stm, False, True))
@@ -686,6 +820,9 @@ def phase_kernels(torch, results):
                             attr_rows=4)
     print(f"  bit-equal rays: {equal_rays(got, ref)} of {n_full}",
           flush=True)
+    check(bit_equal(got, ref), "K1 bit-equal to its twin, closest+attrs, "
+          "full frame")
+    k1_groups("full frame closest+attrs", n_full, w1f)
     bf, bf_by = hit_bound(n_full, counts, WOOP_OPS, tri_table_bytes(
         torch, counts, tri, (clo, chi), tables, ref[0], ref[1]), 4 + 21)
     bft, bft_by = work_bound(torch, n_full, w1f, WOOP_OPS, k1_const,
@@ -696,7 +833,8 @@ def phase_kernels(torch, results):
     bare_full = cuda_ms(k1_bare(o, d, tm_full))
     wrows_ms = cuda_ms(lambda: trk.woop_rows(tri.woop_o, tri.woop_d))
     print(f"  full frame: wrapper {ms_full:.3f} ms, bare launch "
-          f"{bare_full:.3f} ms vs plain {plain_full:.1f} ms (once) at "
+          f"{bare_full:.3f} ms (the leaf without group boxes: 0.489 ms, "
+          f"PERF.md) vs plain {plain_full:.1f} ms (once) at "
           f"{n_full} rays; bound {bf:.4f} ms ({bf_by}) from the flat twin's "
           f"work ({flat_work[0] / n_full:.1f} slab / "
           f"{flat_work[1] / n_full:.1f} Woop tests per ray), {bft:.4f} ms "
@@ -714,6 +852,7 @@ def phase_kernels(torch, results):
         subset_flat_bound_ms=b_ms, subset_rays=n_sub, occlusion_ms=occ_ms,
         occlusion_bare_ms=occ_bare, occlusion_plain_ms=occ_plain,
         occlusion_bound_ms=bot, occlusion_flat_bound_ms=bo)
+    k1_pinned(torch, results["tri_closest_hit"])
 
     # --- K2: config 3 tori at 1080p, config 4 tori on a subset and 1080p --
     def torus_tables(sc):

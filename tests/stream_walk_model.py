@@ -2,13 +2,15 @@
 the per-ray state and leaf walk of K1, K5 and K6 (`Walker`, each ray over
 its rows; `WarpWalker`, with the kernels' cooperative branch and its Woop
 tests), K5's leaf through its warp's ring of 32-row tiles (`TiledWalker`),
-and the packet walk over the tree (`walk_packets`). They import the port alone, no JAX,
-so the card's tests share them with the CPU's
-(tests/test_torch_stream_tree.py, test_torch_tri_tree.py,
+K1's walk (`K1Walker`) and its leaf behind 32-row group boxes
+(`GroupedWalker`), and the packet walk over the tree (`walk_packets`).
+They import the port alone, no JAX, so the card's tests share them with
+the CPU's (tests/test_torch_stream_tree.py, test_torch_tri_tree.py,
 test_torch_stream_card.py)."""
 
 import pathlib
 import re
+import types
 
 import numpy as np
 import torch
@@ -32,6 +34,7 @@ def cuda_constant(name: str) -> int:
 K_STACK = cuda_constant("kStack")
 K_COOP_LANES = cuda_constant("kCoopLanes")
 K_TILE_ROWS = cuda_constant("kTileRows")
+K_GROUP_ROWS = cuda_constant("kGroupRows")
 
 
 def _jmin(a, b):
@@ -263,6 +266,97 @@ class TiledWalker(Walker):
                     break
                 copied += q + 2 < n_tiles
             self.entered.append((c, coop, copied))
+
+
+class K1Walker(Walker):
+    """K1's walk over its `TriTables`: g = 1, the leaf's box is its
+    cluster's, and a single uncullable block takes no box test; each ray
+    over every row of the clusters it enters (`Walker.leaf`)."""
+
+    leaf_box = False
+
+    def __init__(self, origins, dirs, tmax, tb, rank, occlusion):
+        view = types.SimpleNamespace(
+            tree_lo=tb.tree_lo, tree_hi=tb.tree_hi, tree_link=tb.tree_link,
+            clo=tb.clo, chi=tb.chi, g=1, cluster=tb.cluster, wrows=tb.wrows)
+        super().__init__(origins, dirs, tmax, view, rank, occlusion)
+        self.box_test = tb.box_test
+
+    def passes(self, which, m, i):
+        return super().passes(which, m, i) if self.box_test else True
+
+
+class GroupedWalker(K1Walker):
+    """K1's leaf (tree_walk.cuh walk_cluster_grouped) for a warp of 32
+    rays: the cluster's rows in groups of K_GROUP_ROWS, each behind its
+    group box where the tables have them (none for the single uncullable
+    block). More than K_COOP_LANES entering lanes: the warp steps through
+    each group some lane passes at its running bound (tested as the walk
+    reaches the group, so an earlier group's hit culls it), each such lane
+    testing its ray over the group's rows in order. Else each cooperating
+    ray's groups (tested at its bound on entering the leaf) are tested on
+    row l by lane l, a lane stopping at its first hit (any-hit), and one
+    minimum (t, row) a ray and leaf (lowest hit row for any-hit) is
+    offered to its best. `groups` models the kernel's third counter: the
+    (warp, group) steps of the first branch and the (ray, group) pairs of
+    the second."""
+
+    def __init__(self, origins, dirs, tmax, tb, rank, occlusion):
+        super().__init__(origins, dirs, tmax, tb, rank, occlusion)
+        self.grp = None
+        if tb.glo is not None:
+            inv = [_inv_dir(dirs[a]) for a in range(3)]
+            tn, tf = slab(tb.glo[:, None, :], tb.ghi[:, None, :],
+                          [origins[a] for a in range(3)], inv)
+            self.grp = tn.numpy(), tf.numpy()
+        self.groups = 0
+
+    def leaf_packet(self, lanes, s):
+        cl = self.tb.cluster
+        base = s * cl
+        end = min(base + cl, self.tb.wrows.shape[0])
+        rs = self.rank[s]
+        enter = [i for i in lanes if not self.done[i]]
+        if not enter:
+            return
+        n_groups = -(-(end - base) // K_GROUP_ROWS)
+        g0 = s * (cl // K_GROUP_ROWS)
+
+        def enters(q, i):
+            return self.grp is None or self.passes(self.grp, g0 + q, i)
+
+        if len(enter) > K_COOP_LANES:
+            for q in range(n_groups):
+                ins = [i for i in enter if not self.done[i] and enters(q, i)]
+                if not ins:
+                    continue
+                self.groups += 1
+                k0 = base + q * K_GROUP_ROWS
+                for i in ins:
+                    self.rows_in_order(i, rs, k0, min(k0 + K_GROUP_ROWS,
+                                                      end))
+            return
+        mine = {i: [q for q in range(n_groups) if enters(q, i)]
+                for i in enter}
+        for i in enter:
+            t, u, v = self.rows(i, base, end)
+            self.groups += len(mine[i])
+            got = []
+            for lane in range(32):
+                for q in mine[i]:
+                    j = q * K_GROUP_ROWS + lane
+                    if j >= end - base:
+                        break
+                    self.prim += 1
+                    if t[j] < F32(BIG):
+                        got.append((j, t[j]))
+                        if self.occl:
+                            break
+            if got:
+                j = min(got)[0] if self.occl else min(
+                    got, key=lambda h: (h[1], h[0]))[0]
+                if self.offer(i, t[j], u[j], v[j], rs, base + j):
+                    self.done[i] = self.occl
 
 
 def walk_packets(w, group):

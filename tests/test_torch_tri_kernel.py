@@ -71,7 +71,8 @@ def _port(scene, o, d, tmax, tables, occlusion):
     out = tri_closest_hit(
         t(o), t(d), t(tmax), tri_tables(
             t(tri.woop_o), t(tri.woop_d), t(scene.cluster_lo),
-            t(scene.cluster_hi), scene.cluster_size),
+            t(scene.cluster_hi), scene.cluster_size,
+            tuple(t(a) for a in (tri.v0, tri.e1, tri.e2, tri.valid))),
         attr_tables=None if tables is None else tuple(t(a) for a in tables),
         occlusion=occlusion)
     return [x.numpy() for x in out]

@@ -43,8 +43,14 @@
 // passed at the updated bound. Both branches (the lanes each on its own
 // ray, the warp on one ray at a time) then read the rows from the tile
 // and make walk_superblock's tests, so every output and counter is the
-// same. K1 (rows in L2) and K6 (rows already
-// staged in shared memory) keep walk_superblock.
+// same. K6 (rows already staged in shared memory) keeps walk_superblock.
+//
+// K1's rows sit in L2 (2.2 MB at config 6), so its leaf cuts the rows it
+// tests rather than their latency: walk_cluster_grouped tests an entered
+// cluster in groups of kGroupRows rows, each behind its own box (the
+// min/max of its live rows' vertices, ops/tri_kernel.py group_boxes), so a
+// ray tests only the groups whose box it passes at its running bound and
+// no ray tests a group of padding rows.
 #pragma once
 
 #include <climits>
@@ -62,6 +68,9 @@ constexpr int kTileFloats = kTileRows * 24;  // 3 KB; a warp's ring is two
 static_assert(kTileRows == 32,
               "the tiled leaf's cooperative branch tests row l of a tile on "
               "lane l");
+constexpr int kGroupRows = 32;  // rows behind one of K1's group boxes
+static_assert(kGroupRows == 32,
+              "K1's cooperative branch tests row l of a group on lane l");
 
 struct Ray {
   float o[3], d[3], inv[3], tm;
@@ -141,16 +150,16 @@ __device__ __forceinline__ void take(Best& b, float t, float u, float v,
 
 // The clusters of leaf s (rank rs; clusters s*g .. s*g+g-1) in index order,
 // for the lanes whose ray passed the leaf's box (`pass`); every lane of the
-// warp calls it. Rows are read from `rows` (global memory for K1, the
-// staged copy for K6; row k at rows + 24 * (k - row0)). With cluster
-// boxes (clo != nullptr) each cluster is skipped by its own box against
-// the running bound (exact: it holds no hit below the bound); without
-// them (K1, g = 1) the leaf's box is the cluster's. A cluster that at most
-// kCoopLanes lanes enter is tested by the whole warp one ray at a time (32
-// rows at once, then a warp minimum of (t, row); the lowest hit row for
-// any-hit); a cluster that more lanes enter runs each lane's ray over the
-// rows in step. Either way each ray keeps the minimum of the same key over
-// the same rows.
+// warp calls it: K6's leaf. Rows are read from `rows` (K6's staged copy;
+// row k at rows + 24 * (k - row0)). With cluster boxes (clo != nullptr)
+// each cluster is skipped by its own box against the running bound
+// (exact: it holds no hit below the bound); without them (g = 1; unused
+// since K1 took walk_cluster_grouped) the leaf's box is the cluster's. A
+// cluster that at most kCoopLanes lanes enter is tested by the whole warp
+// one ray at a time (32 rows at once, then a warp minimum of (t, row); the
+// lowest hit row for any-hit); a cluster that more lanes enter runs each
+// lane's ray over the rows in step. Either way each ray keeps the minimum
+// of the same key over the same rows.
 __device__ __forceinline__ void walk_superblock(
     const Ray& r, Best& b, Work& w, bool pass, int s, int rs, int g,
     int cluster, int n_tris, const float* __restrict__ clo,
@@ -391,12 +400,120 @@ __device__ __forceinline__ void walk_superblock_tiled(
   }
 }
 
+// K1's leaf: cluster s (rank rs; rows s * cluster .. min(s * cluster +
+// cluster, n_tris)) in groups of kGroupRows rows, for the lanes whose ray
+// passed the cluster's box (`pass`); every lane of the warp calls it. With
+// group boxes (glo != nullptr; group q of the cluster at s * cluster /
+// kGroupRows + q, at most 32 a cluster) a ray tests a group's rows only
+// where it passes the group's box at its running bound; without them (the
+// single uncullable block) every group is entered. A cluster that more
+// than kCoopLanes lanes enter: the warp steps through each group some lane
+// enters, each such lane testing its ray over the group's rows in order,
+// so a hit in an earlier group culls the later ones. Else each cooperating
+// ray's groups (its lane's box tests, at the ray's bound on entering) go
+// to the warp, lane l tests row l of each of them (stopping at its first
+// hit for any-hit), and one warp minimum of (t, row) (the lowest hit row
+// for any-hit) per ray is offered to its best, skipped where no lane hit.
+// A group box holds every hit of its rows, so each ray keeps the minimum
+// of the same key over the same rows as walk_superblock. `groups` (the
+// same on every lane) counts the (warp, group) pairs whose rows the warp
+// tested: a cooperating ray's groups each count once.
+__device__ __forceinline__ void walk_cluster_grouped(
+    const Ray& r, Best& b, Work& w, unsigned& groups, bool pass, int s,
+    int rs, int cluster, int n_tris, const float* __restrict__ glo,
+    const float* __restrict__ ghi, const float* __restrict__ rows,
+    int occlusion) {
+  const int lane = threadIdx.x & 31;
+  const bool enter = pass && !b.done;
+  const unsigned todo = __ballot_sync(kAllLanes, enter);
+  if (todo == 0) return;
+  const int base = s * cluster;
+  const int end = min(base + cluster, n_tris);
+  const int n_groups = (end - base + kGroupRows - 1) / kGroupRows;
+  const int g0 = s * (cluster / kGroupRows);
+  if (__popc(todo) > kCoopLanes) {
+    for (int q = 0; q < n_groups; ++q) {
+      const bool in = enter && !b.done &&
+                      (glo == nullptr ||
+                       node_pass(glo, ghi, g0 + q, r, b.t, occlusion, w));
+      if (!__any_sync(kAllLanes, in)) continue;
+      ++groups;
+      if (!in) continue;
+      const int k0 = base + q * kGroupRows;
+      const int k1 = min(k0 + kGroupRows, end);
+      for (int k = k0; k < k1; ++k) {
+        float t, u, v;
+        ++w.prim;
+        const bool hit =
+            woop_test(rows + (size_t)k * 24, r.o, r.d, r.tm, &t, &u, &v);
+        if (hit && better(b, t, rs, k)) {
+          take(b, t, u, v, rs, k);
+          if (occlusion) {
+            b.done = true;
+            break;
+          }
+        }
+      }
+    }
+    return;
+  }
+  unsigned mine = 0;  // the groups this lane's ray enters (with group boxes)
+  if (enter && glo != nullptr)
+    for (int q = 0; q < n_groups; ++q)
+      mine |= (unsigned)node_pass(glo, ghi, g0 + q, r, b.t, occlusion, w)
+              << q;
+  unsigned rays = todo;
+  while (rays) {
+    const int src = __ffs(rays) - 1;
+    rays &= rays - 1;
+    float o[3], d[3];
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      o[a] = __shfl_sync(kAllLanes, r.o[a], src);
+      d[a] = __shfl_sync(kAllLanes, r.d[a], src);
+    }
+    const float tm = __shfl_sync(kAllLanes, r.tm, src);
+    const unsigned mask = __shfl_sync(kAllLanes, mine, src);
+    groups += glo == nullptr ? n_groups : __popc(mask);
+    float bt = TRT_BIG, bu = 0.0f, bv = 0.0f;
+    int bk = INT_MAX;
+    for (int q = 0; q < n_groups; ++q) {
+      if (glo != nullptr && !((mask >> q) & 1u)) continue;
+      const int k = base + q * kGroupRows + lane;
+      if (k >= end) break;  // only the last group is short
+      float t, u, v;
+      ++w.prim;
+      if (woop_test(rows + (size_t)k * 24, o, d, tm, &t, &u, &v) && t < bt) {
+        bt = t, bu = u, bv = v, bk = k;
+        if (occlusion) break;
+      }
+    }
+    if (!__any_sync(kAllLanes, bk != INT_MAX)) continue;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float ot = __shfl_xor_sync(kAllLanes, bt, off);
+      const float ou = __shfl_xor_sync(kAllLanes, bu, off);
+      const float ov = __shfl_xor_sync(kAllLanes, bv, off);
+      const int ok = __shfl_xor_sync(kAllLanes, bk, off);
+      if (occlusion ? ok < bk : (ot < bt || (ot == bt && ok < bk)))
+        bt = ot, bu = ou, bv = ov, bk = ok;
+    }
+    if (lane == src && bk != INT_MAX && better(b, bt, rs, bk)) {
+      take(b, bt, bu, bv, rs, bk);
+      b.done = occlusion;
+    }
+  }
+}
+
 // K1's and K5's walk: the warp's 32 rays walk the tree as one packet, a
 // node entered when any lane's ray passes it, and at a leaf the lanes that
-// passed walk its clusters: with walk_superblock, or (kTiled, K5) with
-// walk_superblock_tiled through the warp's `ring`. Without a box test
-// (box_test == 0: K1's single uncullable block) every walking ray enters
-// every node. Every lane of the warp calls it.
+// passed walk it: K1 its one cluster of `cluster` rows with
+// walk_cluster_grouped (clo / chi: its group boxes, nullptr for the single
+// uncullable block; `groups` its counter), K5 (kTiled) its g clusters of
+// `cluster` rows (clo / chi: their boxes) with walk_superblock_tiled
+// through the warp's `ring`. Without a box test (box_test == 0: K1's
+// single uncullable block) every walking ray enters every node. Every lane
+// of the warp calls it.
 template <bool kTiled = false>
 __device__ __forceinline__ void walk_warp_packet(
     const Ray& r, Best& b, Work& w, const float* __restrict__ tree_lo,
@@ -404,7 +521,7 @@ __device__ __forceinline__ void walk_warp_packet(
     int n_nodes, int box_test, const int* __restrict__ rank,
     const float* __restrict__ clo, const float* __restrict__ chi, int g,
     int cluster, int n_tris, const float* __restrict__ wrows,
-    int occlusion, TileRing* ring = nullptr) {
+    int occlusion, TileRing* ring = nullptr, unsigned* groups = nullptr) {
   const int neg = majority_negative(r, !b.done);
   int stack[kStack];
   int sp = 0;
@@ -426,8 +543,8 @@ __device__ __forceinline__ void walk_warp_packet(
         walk_superblock_tiled(r, b, w, *ring, pass, s, rank[s], g, cluster,
                               n_tris, clo, chi, wrows, occlusion);
       else
-        walk_superblock(r, b, w, pass, s, rank[s], g, cluster, n_tris, clo,
-                        chi, wrows, 0, occlusion);
+        walk_cluster_grouped(r, b, w, *groups, pass, s, rank[s], cluster,
+                             n_tris, clo, chi, wrows, occlusion);
     }
     m = sp > 0 ? stack[--sp] : -1;
   }

@@ -43,7 +43,7 @@
 // thread 0 copies the superblock's contiguous rows (<= 512 x 96 B) into
 // shared memory with one 1-D bulk asynchronous copy (cp.async.bulk
 // completing on an mbarrier), and the threads that pass test them with
-// K1's leaf walk (walk_superblock). A two-buffer variant that walked on to the next leaf and
+// walk_superblock. A two-buffer variant that walked on to the next leaf and
 // started its copy before testing the current one was slower (the
 // look-ahead walks at stale bounds and re-tests each leaf) and is gone.
 // The library is built with --fmad=false, so K5 and K6 compute the twin's

@@ -105,8 +105,10 @@ def run(scene_num: int = 3, rays: int = 2 * 1024 * 1024, k: int = 8,
     tmax = torch.full((n,), 10000.0, device=device)
     geom = geom_from_scene(scene)
 
+    tris = scene.triangles
     tri = tri_kernel.tri_tables(geom.woop_o, geom.woop_d, geom.cluster_lo,
-                                geom.cluster_hi, scene.cluster_size)
+                                geom.cluster_hi, scene.cluster_size,
+                                (tris.v0, tris.e1, tris.e2, tris.valid))
     tor = torus_kernel.torus_tables(geom.tor_w2o, geom.tor_major,
                                     geom.tor_minor)
     lpos = st.light.position[:, None]

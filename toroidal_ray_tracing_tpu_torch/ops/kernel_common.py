@@ -349,12 +349,12 @@ _F = ctypes.c_float
 _L = ctypes.c_int64
 _SIGNATURES = {
     # origins, dirs, tmax, n, ray row stride, wrows, n_tris, tree_lo,
-    # tree_hi, tree_link, n_nodes, depth, rank, cluster, box_test, a0, a1,
-    # a2, occlusion, t, idx, u, v, attrs, counters, tmax_out, occ_out,
-    # occ_or, stream
+    # tree_hi, tree_link, n_nodes, depth, rank, cluster, box_test, glo, ghi,
+    # a0, a1, a2, occlusion, t, idx, u, v, attrs, counters, tmax_out,
+    # occ_out, occ_or, stream
     "trt_tri_closest_hit": [_P, _P, _P, _I, _L, _P, _I, _P, _P, _P, _I, _I,
-                            _P, _I, _I, _P, _P, _P, _I, _P, _P, _P, _P, _P,
-                            _P, _P, _P, _I, _P],
+                            _P, _I, _I, _P, _P, _P, _P, _P, _I, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _I, _P],
     # origins, dirs, tmax, n, ray row stride, w2o, rad, tree_lo, tree_hi,
     # tree_link, n_nodes, depth, rank, chunk, mat, occlusion, t, idx,
     # attrs, counters, occ_out, occ_or, stream

@@ -29,7 +29,8 @@ The kernels' scene-constant tables (K1's `TriTables`, K5/K6's
 `StreamTables`, K2/K3's `TorusTables`, the triangle attribute tables) are
 built at a scene's first query on a device and kept in
 `Scene.kernel_tables`, per geometry slice, and rebuilt when a tensor
-they were built from changed in place or was replaced (`stamp`). The
+they were built from (for K1's group boxes, the triangles' vertices and
+`valid` too) changed in place or was replaced (`stamp`). The
 bounce loop's segments run from a segment plan (`ops.segment_plan`), whose
 buckets take their route and V1's box sets from `segment_routes`; a
 segment's `Ranks` carry them, the visit ranks, and each query's outputs
@@ -225,12 +226,23 @@ def _tri_plan(scene: Scene, geom) -> _TriPlan:
     if n_tail != n_cl:
         # (the hoist may cover every live triangle: no K1 launch)
         stream = T > TRI_STREAM_MIN and cs % 128 == 0 and aligned
-        make = stream_tables if stream else tri_tables
-        mesh = _kept(scene, "stream" if stream else "tri", part,
-                     (geom.woop_o, geom.woop_d, geom.cluster_lo,
-                      geom.cluster_hi),
-                     lambda: make(geom.woop_o, geom.woop_d,
-                                  *_walked_boxes(geom, aligned, n_tail), cs))
+        sources = (geom.woop_o, geom.woop_d, geom.cluster_lo,
+                   geom.cluster_hi)
+        if stream:
+            mesh = _kept(scene, "stream", part, sources,
+                         lambda: stream_tables(
+                             geom.woop_o, geom.woop_d,
+                             *_walked_boxes(geom, aligned, n_tail), cs))
+        else:
+            # K1's group boxes come from the rows' vertices
+            tris = scene.triangles
+            verts = (tris.v0, tris.e1, tris.e2, tris.valid)
+            rows = slice(geom.tri_offset, geom.tri_offset + T)
+            mesh = _kept(scene, "tri", part, sources + verts,
+                         lambda: tri_tables(
+                             geom.woop_o, geom.woop_d,
+                             *_walked_boxes(geom, aligned, n_tail), cs,
+                             tuple(a[rows] for a in verts)))
     return _TriPlan(T=T, off=geom.tri_offset, part=part,
                     L=L if n_tail else 0, base=T - n_tail * cs, mesh=mesh,
                     stream=stream)

@@ -22,13 +22,17 @@ barycentrics in every mode.
 The twin walks every cluster in rank order. The kernel walks a binary tree
 over the live clusters' boxes (`kernel_common.build_tree`, one cluster per
 leaf; far-boxed clusters, such as the hoisted loose tail, are no leaves)
-and compares the full key, so it returns the twin's bits wherever the two
-walks meet a box at the same bound. The scene-constant tables (`TriTables`:
-the Woop rows, the cluster boxes as walked and the tree) are built once by
-`tri_tables`; the wrapper takes them and never builds them, and the
-orchestrator keeps them per scene and device. Only the rank is per call:
-the caller's (the bounce loop ranks a segment's sets once with the
-visit-rank kernel V1, `ops.visit_kernel`), or V1 on the call's own rays.
+and, inside an entered cluster, tests each GROUP_ROWS-row group's box
+before the group's rows (`group_boxes`: the min/max of the group's live
+rows' vertices, so no group box culls a row that could beat the running
+best). It compares the full key, so it returns the twin's bits wherever
+the two walks meet a box at the same bound. The scene-constant tables
+(`TriTables`: the Woop rows, the cluster boxes as walked, the group boxes
+and the tree) are built once by `tri_tables`; the wrapper takes them and
+never builds them, and the orchestrator keeps them per scene and device.
+Only the rank is per call: the caller's (the bounce loop ranks a
+segment's sets once with the visit-rank kernel V1, `ops.visit_kernel`),
+or V1 on the call's own rays.
 
 Beside the hit the kernel can write the query's folds for the kernel after
 it (`kernel_common.fold_outputs`): the torus query's tmax and, in any-hit
@@ -50,6 +54,8 @@ from toroidal_ray_tracing_tpu_torch.ops.visit_kernel import visit_rank
 from toroidal_ray_tracing_tpu_torch.utils import profiling
 
 N_ATTR = 21
+GROUP_ROWS = 32   # rows a group box holds (csrc/tree_walk.cuh kGroupRows)
+FAR_BOX = 2.0e38  # a far point box: no ray enters it
 
 
 def woop_rows(woop_o, woop_d):
@@ -142,6 +148,29 @@ def tri_closest_hit_plain(origins, dirs, tmax, wrows, clo, chi, order,
     return state + (winner_attrs(attr_tables, *state),)
 
 
+def group_boxes(v0, e1, e2, valid, clo, cluster: int):
+    """K1's group boxes, (C * cluster / GROUP_ROWS, 3) lo and hi: group q
+    of cluster c (rows c * cluster + GROUP_ROWS * q, ...) at row c * cluster
+    / GROUP_ROWS + q. Each is the min/max of its live rows' vertices v0, v0
+    + e1, v0 + e2 ((T, 3) each; `valid` (T,) bool), the numbers the build
+    takes the cluster boxes from (`scene.build`), so it lies inside its
+    cluster's box. A group with no live row, and every group of a
+    far-boxed cluster of `clo` (lo > 1e29: the hoisted loose tail), gets
+    a far point box."""
+    with torch.no_grad():
+        p1, p2 = v0 + e1, v0 + e2
+        lo = torch.minimum(torch.minimum(v0, p1), p2)
+        hi = torch.maximum(torch.maximum(v0, p1), p2)
+        live = valid[:, None]
+        lo = torch.where(live, lo, float("inf")).reshape(-1, GROUP_ROWS, 3)
+        hi = torch.where(live, hi, -float("inf")).reshape(-1, GROUP_ROWS, 3)
+        far = ~valid.reshape(-1, GROUP_ROWS).any(dim=1) | (
+            clo[:, 0] > 1e29).repeat_interleave(cluster // GROUP_ROWS)
+        far = far[:, None]
+        return (torch.where(far, FAR_BOX, lo.amin(dim=1)).contiguous(),
+                torch.where(far, FAR_BOX, hi.amax(dim=1)).contiguous())
+
+
 @dataclasses.dataclass
 class TriTables:
     """The scene-constant inputs of K1 and its twin."""
@@ -151,6 +180,8 @@ class TriTables:
     wrows: torch.Tensor      # (T, 24) Woop rows
     clo: torch.Tensor        # (C, 3) cluster boxes as walked
     chi: torch.Tensor
+    glo: torch.Tensor | None  # (C * cluster / GROUP_ROWS, 3) group boxes;
+    ghi: torch.Tensor | None  # None without box test
     tree_lo: torch.Tensor    # (M, 3) node boxes
     tree_hi: torch.Tensor
     tree_link: torch.Tensor  # (M, 3) int32, see kernel_common.build_tree
@@ -158,25 +189,34 @@ class TriTables:
     one_rank: torch.Tensor | None   # (1,) int32 [0]: without box test
 
 
-def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi,
-               cluster: int) -> TriTables:
+def tri_tables(woop_o, woop_d, cluster_lo, cluster_hi, cluster: int,
+               verts) -> TriTables:
     """Build K1's scene-constant tables: woop_o (3, 4, T); woop_d (3, 3,
     T); cluster_lo/hi (C, 3) with C * cluster == T, far point boxes (lo >
-    1e29) marking clusters no ray enters. A single cluster is one block
-    tested without its box (nothing to skip ahead to): a one-leaf tree.
+    1e29) marking clusters no ray enters; verts: the rows' (v0, e1, e2,
+    valid), which the group boxes are made of (`group_boxes`; a cluster
+    holds at most 32 groups). A single cluster is one block tested without
+    its box or group boxes (nothing to skip ahead to): a one-leaf tree.
     One host sync: the tree is built on the host."""
     T, C = woop_o.shape[2], cluster_lo.shape[0]
     if C * cluster != T:
         raise ValueError(f"{C} clusters x {cluster} != {T} triangles")
     clo, chi = cluster_lo.contiguous(), cluster_hi.contiguous()
     box_test = C > 1
+    glo = ghi = None
+    if box_test:
+        if cluster % GROUP_ROWS or cluster > 32 * GROUP_ROWS:
+            raise ValueError(f"clusters of {cluster} rows: K1 takes "
+                             f"{GROUP_ROWS}-row groups, at most 32 a cluster")
+        glo, ghi = group_boxes(*verts, clo, cluster)
     live = (~(clo[:, 0] > 1e29) if box_test
             else torch.ones((1,), dtype=torch.bool, device=clo.device))
     tree_lo, tree_hi, tree_link, depth = tree_tensors(clo, chi, live)
     return TriTables(cluster=cluster, box_test=box_test,
                      wrows=woop_rows(woop_o, woop_d), clo=clo, chi=chi,
-                     tree_lo=tree_lo, tree_hi=tree_hi, tree_link=tree_link,
-                     depth=depth, one_rank=None if box_test else torch.zeros(
+                     glo=glo, ghi=ghi, tree_lo=tree_lo, tree_hi=tree_hi,
+                     tree_link=tree_link, depth=depth,
+                     one_rank=None if box_test else torch.zeros(
                          (1,), dtype=I32, device=clo.device))
 
 
@@ -207,15 +247,17 @@ def check_tri_closest_hit(origins, dirs, tmax, tables: TriTables,
     n = origins.shape[1]
     tb = tables
     T, C, M = tb.wrows.shape[0], tb.clo.shape[0], tb.tree_lo.shape[0]
+    G = C * tb.cluster // GROUP_ROWS
     a0, a1, a2 = attr_tables if attr_tables is not None else (None,) * 3
     check_args(origins.device, wrows=(tb.wrows, (T, 24), F32),
                clo=(tb.clo, (C, 3), F32), chi=(tb.chi, (C, 3), F32),
+               glo=(tb.glo, (G, 3), F32), ghi=(tb.ghi, (G, 3), F32),
                tree_lo=(tb.tree_lo, (M, 3), F32),
                tree_hi=(tb.tree_hi, (M, 3), F32),
                tree_link=(tb.tree_link, (M, 3), I32),
                rank=(rank if tb.box_test else tb.one_rank, (C,), I32),
                a0=(a0, (N_ATTR, T), F32), a1=(a1, (8, T), F32),
-               a2=(a2, (8, T), F32), counters=(counters, (2,), torch.int64))
+               a2=(a2, (8, T), F32), counters=(counters, (3,), torch.int64))
     check_folds(origins.device, n, occlusion, tmax_out, occ_out, occ_or)
     if out is not None:
         hit_outputs(out, n, attr_tables is not None, origins.device)
@@ -232,12 +274,13 @@ def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
     tables: the mesh's `tri_tables`. attr_tables: optional ((21, T), (8,
     T), (8, T)) interpolation tables. n_batch: the batch size the visit
     order averages origins over (the caller's padded batch; default N).
-    counters: optional (2,) int64 CUDA tensor the kernel adds its (ray,
-    box) slab tests and (ray, triangle) Woop tests to. rank: the (C,)
-    int32 visit rank of the clusters (default: V1 on these rays,
-    `ops.visit_kernel.visit_rank`). tmax_out: optional (N,) float32 the
-    kernel writes the next kernel's tmax into; occ_out: in occlusion mode,
-    an optional (N,) bool occlusion byte the kernel writes (or, with
+    counters: optional (3,) int64 CUDA tensor the kernel adds its (ray,
+    box) slab tests (tree nodes and group boxes), (ray, triangle) Woop
+    tests and the (warp, group) pairs whose rows its warps tested to.
+    rank: the (C,) int32 visit rank of the clusters (default: V1 on these
+    rays, `ops.visit_kernel.visit_rank`). tmax_out: optional (N,) float32
+    the kernel writes the next kernel's tmax into; occ_out: in occlusion
+    mode, an optional (N,) bool occlusion byte the kernel writes (or, with
     occ_or, ORs its hits into) (`kernel_common.fold_outputs`). out: (t,
     idx, u, v[, attrs]) from a segment plan (`kernel_common.Planned`; no
     check, no allocation). Returns (t, idx, u, v[, attrs (21, N)]) — t is
@@ -284,8 +327,8 @@ def tri_closest_hit(origins, dirs, tmax, tables: TriTables,
         launch("trt_tri_closest_hit", origins, dirs, tmax, n, rs, tb.wrows,
                tb.wrows.shape[0], tb.tree_lo, tb.tree_hi, tb.tree_link,
                tb.tree_lo.shape[0], tb.depth, rank, tb.cluster,
-               int(tb.box_test), a0, a1, a2, int(occlusion), *out[:4],
-               out[4] if attr_tables is not None else None, counters,
-               tmax_out, occ_out, int(occ_or),
+               int(tb.box_test), tb.glo, tb.ghi, a0, a1, a2, int(occlusion),
+               *out[:4], out[4] if attr_tables is not None else None,
+               counters, tmax_out, occ_out, int(occ_or),
                stream=getattr(out, "stream", None))
     return out

@@ -422,7 +422,9 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
     tables: the scene's `torus_tables`. n_batch: batch size the chunk
     visit order averages origins over (default N). counters: optional (2,)
     int64 CUDA tensor the kernel adds its (ray, box) slab tests and (ray,
-    torus) quartics to. rank: the (C,) int32 visit rank of the chunks
+    torus) quartics to (inside `utils.profiling.record_segments`, a
+    counters tensor of the record's where none is given). rank: the (C,)
+    int32 visit rank of the chunks
     (default: V1 on these rays). occ_out: in occlusion mode, an optional
     (N,) bool occlusion byte the kernel writes (or, with occ_or, ORs its
     hits into). out: (t, idx[, attrs]) from a segment plan
@@ -439,10 +441,14 @@ def torus_closest_hit_chunked(origins, dirs, tmax, tables: TorusTables,
         rank = visit_rank(origins, n_batch or n, tb.clo, tb.chi)
     mat = tb.mat if want_attrs else None
     if profiling.HIT_CALLS is not None and n:
-        profiling.HIT_CALLS.append(profiling.HitCall(
+        call = profiling.HitCall(
             "torus_closest_hit", n, bool(want_attrs), False,
             occ_out is not None, bool(occ_or), tb.tree_lo.shape[0],
-            tb.clo.shape[0], 0, tb.w2o_rows.shape[0]))
+            tb.clo.shape[0], 0, tb.w2o_rows.shape[0])
+        if counters is None:     # the card counts the call's work
+            counters = profiling.record_call(call, origins.device)
+        else:
+            profiling.record_call(call)
 
     if not origins.is_cuda:
         if counters is not None:

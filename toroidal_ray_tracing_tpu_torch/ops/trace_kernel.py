@@ -41,7 +41,8 @@ kernel ranks its own set.
 Inside a `utils.profiling.record_segments` block each hit-kernel wrapper
 (K1, K2, K3, K5/K6) appends a `utils.profiling.HitCall` for each launch
 to `profiling.HIT_CALLS`, the latest segment's list (on CPU tensors, for
-each call of its twin); outside one that is None and nothing is recorded.
+each call of its twin; K2's on the card with its counters' work);
+outside one that is None and nothing is recorded.
 
 A query on one rank's slice of the primitives (`GeomSlice` with offsets,
 `parallel.sharding`) returns global indices, skips the loose hoist (the

@@ -16,7 +16,8 @@ Here:
   enclosed block, as [lanes traced, live spans among them, its hit-kernel
   calls]: what live-ray compaction did (it reads the live mask, so it
   synchronizes once a segment; leave it out of timed runs), and a
-  `HitCall` for each launch of K1, K2, K3, K5 or K6 its queries made.
+  `HitCall` for each launch of K1, K2, K3, K5 or K6 its queries made;
+  K2's on the card with the work its counters counted.
 * `span(name)` — the program's stage spans (`trt.door.*`, `trt.raygen`,
   `trt.loop`, `trt.segment.*`, `trt.finish`), each a
   `torch.profiler.record_function` inside a `recording` block and a shared
@@ -71,12 +72,31 @@ class HitCall(NamedTuple):
     #                   without box test), K5/K6's superblocks, K2's chunks
     boxes: int        # K5/K6's cluster boxes, which a superblock's walk tests
     tori: int         # K2's padded torus rows, K3's tori
+    box_tests: int | None = None   # K2's (ray, box) slab tests and (ray,
+    quartics: int | None = None    # torus) quartics, as its counters count
+    #                   them on the card; None where nothing was counted
 
 
 # The hit-kernel calls of the open `record_segments` block's latest
 # segment: the kernels' wrappers append a `HitCall` for each launch while
 # it is a list; None outside such a block (and before its first segment).
 HIT_CALLS = None
+# The open block's counted calls: (call list, position, (2,) int64 counters)
+_COUNTED = None
+
+
+def record_call(call: HitCall, device=None):
+    """Append `call` to the open block's latest segment (`HIT_CALLS`,
+    which must be a list). Given a CUDA `device`, return a fresh (2,) int64
+    counters tensor for the launch to add its work to, which the block
+    reads at its exit into the call's `box_tests` and `quartics`; else
+    None."""
+    HIT_CALLS.append(call)
+    if device is None or device.type != "cuda":
+        return None
+    work = torch.zeros((2,), dtype=torch.int64, device=device)
+    _COUNTED.append((HIT_CALLS, len(HIT_CALLS) - 1, work))
+    return work
 
 
 def span(name: str):
@@ -176,12 +196,15 @@ def record_segments(out: list):
     block (a span is `COMPACT_SPAN` lanes; a partial last span counts).
     The calls are a list of `HitCall`, one a launch, from the segment's
     closest query on: every launch after a segment's entry is appended
-    belongs to it (its any-hit query's too)."""
-    global HIT_CALLS
+    belongs to it (its any-hit query's too). A K2 launch on the card
+    counts its work (`record_call`); at the block's exit one read, one
+    sync, fills in every such call's counts."""
+    global HIT_CALLS, _COUNTED
     from toroidal_ray_tracing_tpu_torch.trace import wavefront
 
     real = wavefront.closest_hit
-    outer = HIT_CALLS
+    outer, outer_counted = HIT_CALLS, _COUNTED
+    counted = _COUNTED = []
 
     def recorded(*a, **k):
         global HIT_CALLS
@@ -196,4 +219,8 @@ def record_segments(out: list):
         yield out
     finally:
         wavefront.closest_hit = real
-        HIT_CALLS = outer
+        HIT_CALLS, _COUNTED = outer, outer_counted
+        if counted:
+            work = torch.stack([w for _, _, w in counted]).tolist()
+            for (calls, k, _), (box, prim) in zip(counted, work):
+                calls[k] = calls[k]._replace(box_tests=box, quartics=prim)
